@@ -1,0 +1,10 @@
+"""The paper's contribution on the serving path: MDC cleaning over a
+log-structured substrate.
+
+  policies     — cleaning priorities (the NumPy keys)
+  logstructure — the segment-lifecycle substrate (FrameLog) behind the
+                 serving KV pool
+"""
+
+from . import logstructure, policies  # noqa: F401
+from .logstructure import Clock, FrameLog, Placement, StoreStats  # noqa: F401

@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels (Hopper, sm_90a) for the serving path, each with
+its plain PyTorch version in :mod:`.ref`.
+
+flash_attention  — prefill attention (online softmax, causal tile skip)
+paged_attention  — decode over the log-structured KV slab pool
+segment_compact  — the paper's cleaner: block-table-driven slab evacuation
+
+Importing this package builds nothing; a kernel is compiled at its first
+launch (:mod:`.build`).
+"""
+
+from . import ops, ref
+from .ops import flash_attention, paged_attention, segment_compact
+
+__all__ = ["ops", "ref", "flash_attention", "paged_attention",
+           "segment_compact"]

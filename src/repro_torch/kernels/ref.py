@@ -1,0 +1,75 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function is the semantic ground truth of one CUDA kernel, written in
+the most obvious gather / O(S²) form and following
+``repro.kernels.ref`` line for line.  The wrappers in :mod:`.ops` take them
+for CPU tensors; ``chip_smoke.py`` holds every kernel against them on the
+card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Naive softmax attention with GQA head-group broadcast.
+
+    q: (B, Sq, H, D); k/v: (B, Skv, Kh, D) with H % Kh == 0.
+    Returns (B, Sq, H, D) in q.dtype; softmax math in f32.
+    """
+    B, Sq, H, D = q.shape
+    _, Skv, Kh, _ = k.shape
+    G = H // Kh
+    qg = q.reshape(B, Sq, Kh, G, D)
+    logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float())
+    logits = logits / math.sqrt(D)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Skv, device=q.device)[None, :])
+        logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens):
+    """Decode attention over a paged KV pool.
+
+    q: (B, H, D) — one query token per sequence.
+    k_pool/v_pool: (num_pages, T, Kh, D) — the log-structured slab pool.
+    block_tables: (B, P) int32 — physical page id of each logical page
+                  (entries beyond the sequence's pages may be arbitrary).
+    seq_lens: (B,) int32 — valid KV tokens per sequence.
+    Returns (B, H, D).
+    """
+    B, H, D = q.shape
+    _, T, Kh, _ = k_pool.shape
+    P = block_tables.shape[1]
+    G = H // Kh
+    bt = block_tables.long()
+    k_seq = k_pool[bt].reshape(B, P * T, Kh, D)
+    v_seq = v_pool[bt].reshape(B, P * T, Kh, D)
+    qg = q.reshape(B, Kh, G, D)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg.float(), k_seq.float())
+    logits = logits / math.sqrt(D)
+    valid = (torch.arange(P * T, device=q.device)[None]
+             < seq_lens.to(q.device)[:, None])
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_seq.dtype).float(),
+                       v_seq.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def segment_compact_ref(pool, src_idx):
+    """The cleaner's data path: relocate live blocks into fresh slabs.
+
+    pool: (N, E) block payloads; src_idx: (M,) int32 source block per
+    destination slot.  Returns (M, E) = pool[src_idx].
+    """
+    return pool[src_idx.long()]

@@ -1,0 +1,152 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no interpret mode, so every test here needs a card: they
+carry the ``cuda`` marker and skip without one (the decision is taken inside
+the fixture, never at import).  The file imports no JAX, so it also runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops, ref
+from repro_torch.models import Model
+from repro_torch.serving import PagedServingEngine
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal", [
+    (1, 128, 128, 4, 4, 64, True),
+    (2, 256, 256, 8, 2, 64, True),
+    (1, 200, 200, 4, 1, 32, True),     # ragged: padded and masked tiles
+    (1, 64, 192, 2, 2, 128, False),    # cross-shape kv
+    (2, 96, 96, 6, 3, 16, False),
+    (1, 1024, 1024, 16, 8, 128, True),  # qwen3-1.7b heads at a 1k prompt
+])
+def test_flash_attention_kernel(dev, B, Sq, Skv, H, Kh, D, causal, dtype):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, Sq, H, D), dtype, dev)
+    k = _randn(rng, (B, Skv, Kh, D), dtype, dev)
+    v = _randn(rng, (B, Skv, Kh, D), dtype, dev)
+    n0 = ops.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == n0 + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Kh,D,T,P", [
+    (2, 4, 4, 64, 16, 4),
+    (3, 8, 2, 32, 8, 6),      # GQA 4:1
+    (1, 4, 1, 128, 32, 3),    # MQA
+    (8, 16, 8, 128, 16, 64),  # qwen3-1.7b heads, 1k-token tables
+])
+def test_paged_attention_kernel(dev, B, H, Kh, D, T, P, dtype):
+    rng = np.random.default_rng(3)
+    n_pages = B * P + 5
+    q = _randn(rng, (B, H, D), dtype, dev)
+    k_pool = _randn(rng, (n_pages, T, Kh, D), dtype, dev)
+    v_pool = _randn(rng, (n_pages, T, Kh, D), dtype, dev)
+    bt = torch.from_numpy(rng.permutation(n_pages)[:B * P].reshape(B, P)
+                          .astype(np.int32)).to(dev)
+    lens = torch.from_numpy(np.linspace(1, P * T, B).astype(np.int32)).to(dev)
+    got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("N,E,M", [(32, 256, 16), (7, 100, 7), (64, 8192, 64),
+                                   (16, 130, 5), (16, 129, 9)])
+def test_segment_compact_kernel_exact(dev, N, E, M, dtype):
+    rng = np.random.default_rng(5)
+    if dtype == torch.int32:
+        pool = torch.from_numpy(rng.integers(0, 1000, (N, E), dtype=np.int32)).to(dev)
+    else:
+        pool = _randn(rng, (N, E), dtype, dev)
+    src = torch.from_numpy(rng.integers(0, N, M).astype(np.int32)).to(dev)
+    got = ops.segment_compact(pool, src)
+    assert torch.equal(got, ref.segment_compact_ref(pool, src))
+
+
+def test_kernel_wrappers_refuse_mixed_devices(dev):
+    q = torch.zeros(2, 4, 32, device=dev)
+    pool = torch.zeros(3, 8, 2, 32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.paged_attention(q, pool, pool, torch.zeros(2, 1, dtype=torch.int32),
+                            torch.ones(2, dtype=torch.int32))
+
+
+def test_engine_on_card_matches_cpu_engine(dev):
+    """The engine's kernel path on the card and its plain path on the CPU,
+    at f32 on the smoke model, under forced compaction: same tokens, same
+    pool traffic, and every compaction leaves each live slot reading the
+    same K/V through its remapped block table."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    cpu_model, card_model = Model(cfg, params), Model(cfg, _f32(params, dev))
+    results = []
+    for model, device in ((cpu_model, "cpu"), (card_model, dev)):
+        eng = PagedServingEngine(model, n_slabs=7, blocks_per_slab=2, page_T=8,
+                                 max_batch=3, max_seq=96, streams=1,
+                                 compact_trigger=2, compact_batch=3,
+                                 max_decode_chunk=8, pool_dtype=torch.float32,
+                                 device=device)
+        rng = np.random.default_rng(1)
+        rids = [eng.submit(rng.integers(1, 100, size=n), m)
+                for n, m in [(27, 10), (5, 8), (11, 6), (3, 12)]]
+        for step in range(10_000):
+            eng.step()
+            if step % 3 == 2:
+                before = _slot_kv(eng)
+                eng.pool.compact()  # moves through segment_compact
+                after = _slot_kv(eng)
+                assert before.keys() == after.keys()
+                for rid, (k, v) in before.items():
+                    assert torch.equal(k, after[rid][0])
+                    assert torch.equal(v, after[rid][1])
+            if not eng.has_work():
+                break
+        eng.pool.check_invariants()
+        m = eng.metrics()
+        results.append(([eng.finished[r] for r in rids],
+                        {k: m[k] for k in ("blocks_written", "blocks_moved",
+                                           "compactions", "wamp")}))
+    assert results[0] == results[1]
+    assert results[0][1]["compactions"] >= 2
+
+
+def _slot_kv(eng):
+    """Each live slot's K/V read through its block-table row."""
+    return {int(eng.rid[i]): (eng.k_pools[:, eng.slot_pages(i)].clone(),
+                              eng.v_pools[:, eng.slot_pages(i)].clone())
+            for i in range(eng.max_batch) if eng.slot_active(i)}
+
+
+def _f32(tree, dev):
+    return {k: _f32(v, dev) if isinstance(v, dict)
+            else v.to(dev, torch.float32) for k, v in tree.items()}

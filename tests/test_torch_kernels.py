@@ -1,0 +1,160 @@
+"""The port's plain kernel versions against the JAX package's kernels.
+
+For each of the port's three kernels, the plain PyTorch version (what the
+port's wrappers run for CPU tensors, and what ``chip_smoke.py`` holds the
+CUDA kernel against on the card) must match the JAX Pallas kernel, run in
+interpret mode as the JAX package's own tests run it, and the JAX plain
+reference.  Shapes and tolerances are those of ``tests/test_kernels.py``
+(f32 2e-5, bf16 2e-2, exact for the copy), plus one case at the full-width
+head geometry of qwen3-1.7b (D=128, G=2).  Inputs come from numpy with a
+seed and go to both packages.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int32": jnp.int32}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+         "int32": torch.int32}
+
+
+def both(a: np.ndarray, dtype: str):
+    """One numpy array as a JAX array and a CPU tensor of the same dtype
+    (both round f32 → bf16 to nearest even, so the values are identical)."""
+    return (jnp.asarray(a).astype(JNP[dtype]),
+            torch.from_numpy(a).to(TORCH[dtype]))
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ------------------------------------------------------------ flash attention
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal", [
+    (1, 128, 128, 4, 4, 64, True), (1, 128, 128, 4, 4, 64, False),
+    (2, 256, 256, 8, 2, 64, True), (2, 256, 256, 8, 2, 64, False),
+    (1, 200, 200, 4, 1, 32, True), (1, 200, 200, 4, 1, 32, False),
+    (1, 64, 192, 2, 2, 128, False),   # cross-shape kv: non-causal only
+    (2, 96, 96, 6, 3, 16, True), (2, 96, 96, 6, 3, 16, False),
+    (1, 128, 128, 4, 2, 128, True),   # full-width head: D=128, G=2
+])
+def test_flash_attention_plain_matches_pallas_and_ref(B, Sq, Skv, H, Kh, D,
+                                                      causal, dtype):
+    rng = np.random.default_rng(42)
+    jq, q = both(rng.standard_normal((B, Sq, H, D), np.float32), dtype)
+    jk, k = both(rng.standard_normal((B, Skv, Kh, D), np.float32), dtype)
+    jv, v = both(rng.standard_normal((B, Skv, Kh, D), np.float32), dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, Sq, H, D)
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal, q_block=64,
+                                  kv_block=64)
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(
+        f32(got), f32(jref.flash_attention_ref(jq, jk, jv, causal=causal)),
+        **TOL[dtype])
+
+
+def test_flash_attention_bhsd_is_the_transposed_entry():
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 40, 32), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 2, 40, 32), np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 2, 40, 32), np.float32))
+    got = ops.flash_attention_bhsd(q, k, v, causal=True)
+    want = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True).transpose(1, 2)
+    assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ paged attention
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Kh,D,T,P", [
+    (2, 4, 4, 64, 16, 4),
+    (3, 8, 2, 32, 8, 6),      # GQA 4:1
+    (1, 4, 1, 128, 32, 3),    # MQA
+    (2, 4, 2, 128, 16, 4),    # full-width head: D=128, G=2, page_T=16
+])
+def test_paged_attention_plain_matches_pallas_and_ref(B, H, Kh, D, T, P,
+                                                      dtype):
+    rng = np.random.default_rng(3)
+    n_pages = B * P + 5
+    jq, q = both(rng.standard_normal((B, H, D), np.float32), dtype)
+    jkp, kp = both(rng.standard_normal((n_pages, T, Kh, D), np.float32), dtype)
+    jvp, vp = both(rng.standard_normal((n_pages, T, Kh, D), np.float32), dtype)
+    # disjoint random pages per sequence, as the slab allocator hands out;
+    # ragged lengths including exactly one token and a full table
+    bt_np = rng.permutation(n_pages)[:B * P].reshape(B, P).astype(np.int32)
+    lens_np = np.linspace(1, P * T, B).astype(np.int32)
+    got = ops.paged_attention(q, kp, vp, torch.from_numpy(bt_np),
+                              torch.from_numpy(lens_np))
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, H, D)
+    args = (jq, jkp, jvp, jnp.asarray(bt_np), jnp.asarray(lens_np))
+    np.testing.assert_allclose(f32(got), f32(jops.paged_attention(*args)),
+                               **TOL[dtype])
+    np.testing.assert_allclose(f32(got), f32(jref.paged_attention_ref(*args)),
+                               **TOL[dtype])
+
+
+def test_paged_attention_clamps_tables_like_the_jax_wrapper():
+    """Table entries outside [0, num_pages) are clamped before the read, as
+    ``repro.kernels.ops.paged_attention`` does."""
+    rng = np.random.default_rng(4)
+    B, H, Kh, D, T, P, n_pages = 2, 4, 2, 32, 8, 3, 5
+    q = rng.standard_normal((B, H, D), np.float32)
+    kp = rng.standard_normal((n_pages, T, Kh, D), np.float32)
+    vp = rng.standard_normal((n_pages, T, Kh, D), np.float32)
+    bt = np.array([[0, 9, -3], [4, 2, 77]], np.int32)
+    lens = np.array([20, 24], np.int32)
+    got = ops.paged_attention(*(torch.from_numpy(a) for a in (q, kp, vp, bt, lens)))
+    want = jops.paged_attention(*(jnp.asarray(a) for a in (q, kp, vp, bt, lens)))
+    np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
+
+
+# ----------------------------------------------------------- segment compact
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("N,E,M", [(32, 256, 16), (7, 100, 7), (64, 8192, 64),
+                                   (16, 130, 5)])
+def test_segment_compact_plain_matches_pallas_exactly(N, E, M, dtype):
+    rng = np.random.default_rng(5)
+    if dtype == "int32":
+        pool_np = rng.integers(0, 1000, (N, E), dtype=np.int32)
+    else:
+        pool_np = rng.standard_normal((N, E), np.float32)
+    jpool, pool = both(pool_np, dtype)
+    src_np = rng.integers(0, N, M).astype(np.int32)
+    got = ops.segment_compact(pool, torch.from_numpy(src_np))
+    assert got.dtype == pool.dtype
+    pallas = jops.segment_compact(jpool, jnp.asarray(src_np), tile=1024)
+    want = jref.segment_compact_ref(jpool, jnp.asarray(src_np))
+    if dtype == "bfloat16":  # compare the bits
+        got_bits = got.view(torch.int16).numpy()
+        np.testing.assert_array_equal(got_bits, np.asarray(pallas).view(np.int16))
+        np.testing.assert_array_equal(got_bits, np.asarray(want).view(np.int16))
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_wrappers_take_the_plain_version_for_cpu_tensors_only():
+    """CPU tensors go to the plain version and launch nothing; no CUDA
+    tensor ever reaches it (a mix of devices is refused)."""
+    before = dict(ops.launches)
+    pool = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    src = torch.tensor([3, 0], dtype=torch.int32)
+    assert torch.equal(ops.segment_compact(pool, src), pool[[3, 0]])
+    assert ops.launches == before
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        ops.segment_compact(pool, src.to("meta"))
