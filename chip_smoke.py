@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the process exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``); CUDA present.
-2. build   — compile the three CUDA kernels from ``src/repro_torch/kernels/
+2. build   — compile the four CUDA kernels from ``src/repro_torch/kernels/
              csrc`` (one ``nvcc`` per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's full-width shapes (qwen3-1.7b: Kh=8, G=2,
@@ -19,11 +19,23 @@ Phases, in order; any failure raises and the process exits non-zero:
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
              The kernels' launch counters are zeroed just before and read
-             just after; each must have grown.
+             just after; each of the engine's three must have grown.
 5. tokens  — one request at float32 through the engine (the kernels) and
              through the plain ``greedy_decode``: the tokens must be equal,
              or the first mismatch must sit on a near-tie (top-2 logit
              margin below 1e-3).
+6. victims — the device route of cleaning-victim selection (the MDC key
+             through the ``mdc_priority`` kernel, then top-k) at the paper's
+             51,200 segments of 512 pages and at 2**24 segments (a 32 TiB
+             store of 2 MiB segments), clean batch 64.  The launch counter
+             is zeroed just before the route is driven and read just after.
+             Per shape: the kernel against its plain version (the same
+             -1 / +inf pattern, finite keys within rtol 1e-6), the victims
+             equal as a set to the plain route's on the card, and their keys
+             equal as a multiset (rtol 1e-5) to the f64 host selection's;
+             kernel, plain and key + top-k times beside the bound.  It runs
+             last, so that the engine phase runs in the same process history
+             as before this phase existed.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -47,6 +59,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import policies  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
@@ -70,7 +83,11 @@ KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:96"},
+    "mdc_priority": {
+        "source": "src/repro_torch/kernels/csrc/mdc_priority.cu",
+        "replaces": "src/repro/kernels/mdc_priority.py:43"},
 }
+ENGINE_KERNELS = ("paged_attention", "segment_compact", "flash_attention")
 
 
 def emit(obj) -> None:
@@ -252,6 +269,83 @@ def phase_kernels() -> dict:
     return main
 
 
+def check_victims(N: int, timer) -> dict:
+    """The device route of victim selection over N segments of S = 512
+    pages (bench_kernels.py's paper-scale row: live in [0, S), up2 ~ U(0,
+    1e6), u_now = 2e6), k = 64 (the paper's clean batch)."""
+    S, k, u_now = 512, 64, 2e6
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    live = torch.randint(0, S, (N,), generator=g, device="cuda").float()
+    live[::1021] = S  # a few full segments, so all three key branches occur
+    up2 = torch.rand(N, generator=g, device="cuda") * 1e6
+    # victims among live in [1, S): no empty or full segment, a strict order
+    live_v = torch.randint(1, S, (N,), generator=g, device="cuda").float()
+    eligible = torch.ones(N, dtype=torch.bool, device="cuda")
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ids, valid = ops.mdc_select_victims(live_v, up2, u_now, S=S, k=k)
+    pkey = policies.torch_key_mdc(live_v, S, up2, u_now)
+    pids, pvalid = policies.torch_select_victims(pkey, eligible, k,
+                                                 live=live_v, S=S)
+    torch.cuda.synchronize()
+    launches = ops.launches["mdc_priority"]
+    if launches == 0:
+        raise AssertionError("the victim route never launched mdc_priority")
+
+    got = ops.mdc_priority(live, up2, u_now, S=S)
+    want = ref.mdc_priority_ref(live, up2, u_now, S)
+    if not (torch.equal(got == -1, want == -1)
+            and torch.equal(torch.isinf(got), torch.isinf(want))):
+        raise AssertionError(f"mdc_priority N={N}: -1 / +inf pattern differs")
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=0)
+    err = (got[fin] - want[fin]).abs()
+
+    _, plain_ids = torch.topk(-ref.mdc_priority_ref(live_v, up2, u_now, S), k)
+    want_set = set(plain_ids.tolist())
+    if not (bool(valid.all()) and bool(pvalid.all())
+            and set(ids.tolist()) == want_set == set(pids.tolist())):
+        raise AssertionError(f"victims N={N}: kernel route != plain route")
+    lv = live_v.cpu().numpy().astype(np.int64)
+    u2 = up2.cpu().numpy().astype(np.float64)
+    host = policies.select_victims("mdc", k, live=lv, S=S, up2=u2,
+                                   seal_time=np.zeros(N), u_now=u_now,
+                                   eligible=np.ones(N, bool))
+    key64 = policies.key_mdc(live=lv, S=S, up2=u2, u_now=u_now)
+    np.testing.assert_allclose(np.sort(key64[ids.cpu().numpy()]),
+                               np.sort(key64[host]), rtol=1e-5)
+
+    b_ms, b_by = bound(12 * N, 10.0 * N, torch.float32)
+    return {"N": N, "S": S, "k": k, "launches": launches,
+            "keys": {"empty": int((want == -1).sum()),
+                     "full": int(torch.isinf(want).sum()),
+                     "finite": int(fin.sum())},
+            "same_pattern": True, "equal_victims": True,
+            "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / want[fin].abs()).max()),
+            "kernel_ms": timer(lambda: ops.mdc_priority(live, up2, u_now, S=S)),
+            "plain_ms": timer(lambda: ref.mdc_priority_ref(live, up2, u_now, S)),
+            "select_ms": timer(lambda: ops.mdc_select_victims(
+                live, up2, u_now, S=S, k=k)),
+            "plain_select_ms": timer(lambda: torch.topk(
+                -ref.mdc_priority_ref(live, up2, u_now, S), k)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_victims() -> tuple[dict, int]:
+    """Both shapes; returns the paper-scale result (the kernels line's
+    times) and the launches of the route summed over both."""
+    timer = Timer()
+    results = []
+    for N in (51_200, 1 << 24):
+        results.append(check_victims(N, timer))
+        emit({"phase": "victims", **results[-1]})
+    del timer
+    torch.cuda.empty_cache()
+    return results[0], sum(r["launches"] for r in results)
+
+
 def phase_engine(cfg) -> dict:
     """32 requests (prompts 256-1024 tokens, 32-128 new tokens) through a
     pool of 30 slabs x 16 pages x 16 tokens: 8 slots of such requests hold
@@ -282,7 +376,7 @@ def phase_engine(cfg) -> dict:
     m = eng.metrics()
     if m["compactions"] < 1:
         raise AssertionError("the pool never compacted under pressure")
-    missing = [k for k, c in launches.items() if c == 0]
+    missing = [k for k in ENGINE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     gen = int(news.sum())
@@ -351,6 +445,8 @@ def main() -> None:
     launches = phase_engine(cfg)
     torch.cuda.empty_cache()
     phase_tokens(cfg)
+    torch.cuda.empty_cache()
+    results["mdc_priority"], launches["mdc_priority"] = phase_victims()
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "ms": results[name]["kernel_ms"],

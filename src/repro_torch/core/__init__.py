@@ -1,7 +1,8 @@
 """The paper's contribution on the serving path: MDC cleaning over a
 log-structured substrate.
 
-  policies     — cleaning priorities (the NumPy keys)
+  policies     — cleaning priorities (the NumPy keys, and their torch twins
+                 for victim selection on the device)
   logstructure — the segment-lifecycle substrate (FrameLog) behind the
                  serving KV pool
 """

@@ -1,4 +1,6 @@
-"""Cleaning priorities (the NumPy keys the KV pool's victim selection uses).
+"""Cleaning priorities: the NumPy keys the KV pool's victim selection uses
+(f64, on the host), and their device twins on tensors (f32; the MDC key
+through the ``mdc_priority`` kernel on the card).
 
 Every policy is a *priority key* over segments; cleaning selects the ``k``
 segments with the **smallest** key.
@@ -18,6 +20,9 @@ For fixed-size pages, with E = empty fraction = (S-C)/S:
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..kernels import ops
 
 _INF = np.float64(np.inf)
 _EPS = 1e-12
@@ -80,3 +85,33 @@ def select_victims(policy: str, k: int, *, live: np.ndarray, S: int,
     # frees nothing (and MDC's decline is infinite there anyway).
     key = np.where(live >= S, _INF, key)
     return _take_smallest(key, k)
+
+
+# ---------------------------------------------------------------------------
+# torch twins: the device route of victim selection (f32, no host sync)
+# ---------------------------------------------------------------------------
+
+def torch_key_mdc(live, S, up2, u_now):
+    """:func:`key_mdc` in f32 on tensors; on the card, the ``mdc_priority``
+    kernel."""
+    return ops.mdc_priority(live, up2, u_now, S=S)
+
+
+def torch_key_greedy(live, S):
+    return live.float()
+
+
+def torch_key_cost_benefit(live, S, seal_time, u_now):
+    E = (S - live.float()) / S
+    age = torch.clamp(u_now - seal_time.float(), min=1.0)
+    return -(E * age / (2.0 - E))
+
+
+def torch_select_victims(key, eligible, k: int, *, live, S):
+    """The ``k`` smallest keys among eligible segments → (ids (k,), valid
+    (k,) bool).  Mirrors :func:`select_victims`, including the exclusion of
+    full segments (live >= S: nothing reclaimable)."""
+    key = torch.where(eligible, key, torch.inf)
+    key = torch.where(live >= S, torch.inf, key)
+    neg, ids = torch.topk(-key, k)
+    return ids, torch.isfinite(neg)

@@ -4,13 +4,16 @@ its plain PyTorch version in :mod:`.ref`.
 flash_attention  — prefill attention (online softmax, causal tile skip)
 paged_attention  — decode over the log-structured KV slab pool
 segment_compact  — the paper's cleaner: block-table-driven slab evacuation
+mdc_priority     — the paper's §5.1.3 cleaning key over all segments, the
+                   device route of victim selection (mdc_select_victims)
 
 Importing this package builds nothing; a kernel is compiled at its first
 launch (:mod:`.build`).
 """
 
 from . import ops, ref
-from .ops import flash_attention, paged_attention, segment_compact
+from .ops import (flash_attention, mdc_priority, mdc_select_victims,
+                  paged_attention, segment_compact)
 
-__all__ = ["ops", "ref", "flash_attention", "paged_attention",
-           "segment_compact"]
+__all__ = ["ops", "ref", "flash_attention", "mdc_priority",
+           "mdc_select_victims", "paged_attention", "segment_compact"]

@@ -21,6 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
+# no --use_fast_math: mdc_priority's parity with the JAX key rests on IEEE f32
+# division
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,6 +39,8 @@ SIGNATURES = {
     # q, k, v, out, B, H, Kh, Sq, Skv, D, scale, causal, dtype, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                         _P],
+    # live, up2, out, n, u_now, S, stream
+    "mdc_priority": [_P, _P, _P, _LL, _F, _I, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

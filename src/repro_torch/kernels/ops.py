@@ -2,10 +2,11 @@
 
 Layouts and argument order follow ``repro.kernels.ops``: attention tensors
 are (B, S, H, D), pools (num_pages, T, Kh, D), flattened pool payloads
-(N, E).  A wrapper takes the plain PyTorch version (:mod:`.ref`) for a
-tensor on the CPU; for a CUDA tensor it launches its hand-written kernel on
-the current stream or raises — it never falls back.  ``launches`` counts the
-kernel launches of each wrapper, so a run can show which path it took.
+(N, E), per-segment arrays (N,).  A wrapper takes the plain PyTorch version
+(:mod:`.ref`) for a tensor on the CPU; for a CUDA tensor it launches its
+hand-written kernel on the current stream or raises — it never falls back.
+``launches`` counts the kernel launches of each wrapper, so a run can show
+which path it took.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from . import build, ref
 
-launches = {"paged_attention": 0, "segment_compact": 0, "flash_attention": 0}
+launches = {"paged_attention": 0, "segment_compact": 0, "flash_attention": 0,
+            "mdc_priority": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -146,3 +148,31 @@ def segment_compact(pool, src_idx):
             src_idx.data_ptr(), out.data_ptr(), N, src_idx.shape[0],
             E * pool.element_size())
     return out
+
+
+def mdc_priority(live, up2, u_now, *, S: int):
+    """Fused §5.1.3 key over all segments: live (N,) int/float live-page
+    counts, up2 (N,) penultimate-update clocks, u_now scalar → (N,) f32.
+    Exactly N keys: no padding, so no eligibility mask either (full segments
+    key +inf by themselves)."""
+    if _on_cpu("mdc_priority", live, up2):
+        return ref.mdc_priority_ref(live, up2, u_now, S)
+    if live.dim() != 1 or up2.shape != live.shape:
+        raise ValueError(f"mdc_priority: want live and up2 of one shape (N,), "
+                         f"got {tuple(live.shape)} {tuple(up2.shape)}")
+    livef = live.to(torch.float32).contiguous()
+    up2f = up2.to(torch.float32).contiguous()
+    out = torch.empty_like(livef)
+    if out.numel():
+        _launch("mdc_priority", live.device, livef.data_ptr(), up2f.data_ptr(),
+                out.data_ptr(), out.numel(), float(u_now), int(S))
+    return out
+
+
+def mdc_select_victims(live, up2, u_now, *, S: int, k: int):
+    """Fused priority + on-device top-k victim selection → (ids (k,),
+    valid (k,) bool); an entry is invalid when nothing cleanable is left
+    (its key is +inf).  No host sync."""
+    key = mdc_priority(live, up2, u_now, S=S)
+    neg, ids = torch.topk(-key, k)
+    return ids, torch.isfinite(neg)

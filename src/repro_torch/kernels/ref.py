@@ -73,3 +73,21 @@ def segment_compact_ref(pool, src_idx):
     destination slot.  Returns (M, E) = pool[src_idx].
     """
     return pool[src_idx.long()]
+
+
+def mdc_priority_ref(live, up2, u_now, S):
+    """Paper §5.1.3 declining-cost key, fixed-size pages (see core.policies).
+
+    live: (N,) live-page counts; up2: (N,) penultimate-update clocks;
+    u_now: scalar clock; S: pages per segment.  Returns the (N,) f32 key,
+    smaller = cleaned earlier: -1 for an empty segment, +inf for a full one.
+    All arithmetic in f32, in the JAX reference's order.
+    """
+    C = live.float()
+    A = float(S) - C
+    u = torch.tensor(u_now, dtype=torch.float32).item()  # u_now rounded to f32
+    interval = torch.clamp(u - up2.float(), min=1.0)
+    r = C / torch.clamp(A, min=1e-12)
+    decline = torch.where(A > 0, r * r / (torch.clamp(C, min=1.0) * interval),
+                          math.inf)
+    return torch.where(C == 0, -1.0, decline)

@@ -101,6 +101,60 @@ def test_kernel_wrappers_refuse_mixed_devices(dev):
                             torch.ones(2, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("N", [1, 3, 4097, 51_200])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: unaligned, element by element
+def test_mdc_priority_kernel(dev, N, offset):
+    """All three key branches (empty -1, full +inf, finite), tails of every
+    length mod 4: identical -1 / +inf pattern, finite keys within 1e-6."""
+    rng = np.random.default_rng(N)
+    S = 512
+    live_np = rng.integers(0, S + 1, N + offset).astype(np.float32)
+    live_np[offset::7] = 0
+    live_np[offset + 3::11] = S
+    live = torch.from_numpy(live_np).to(dev)[offset:]
+    up2 = torch.from_numpy(rng.uniform(0, 1e6, N + offset).astype(np.float32)
+                           ).to(dev)[offset:]
+    n0 = ops.launches["mdc_priority"]
+    got = ops.mdc_priority(live, up2, 1.5e6, S=S)
+    torch.cuda.synchronize()
+    assert ops.launches["mdc_priority"] == n0 + 1
+    assert tuple(got.shape) == (N,) and got.dtype == torch.float32
+    want = ref.mdc_priority_ref(live, up2, 1.5e6, S)
+    assert torch.equal(got == -1, want == -1)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=0)
+
+
+def test_mdc_priority_kernel_casts_integer_counts(dev):
+    rng = np.random.default_rng(2)
+    live = torch.from_numpy(rng.integers(0, 65, 1000)).to(dev)  # int64
+    up2 = torch.from_numpy(rng.uniform(0, 900, 1000)).to(dev)  # float64
+    got = ops.mdc_priority(live, up2, 1000.0, S=64)
+    want = ref.mdc_priority_ref(live, up2, 1000.0, 64)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=0)
+
+
+def test_mdc_select_victims_kernel(dev):
+    """Victims of the kernel route == victims of the plain route (key and
+    top-k on the card), at the paper's 51,200 segments and clean_batch 64."""
+    rng = np.random.default_rng(1)
+    N, S, k = 51_200, 512, 64
+    live = torch.from_numpy(rng.integers(1, S, N).astype(np.float32)).to(dev)
+    up2 = torch.from_numpy(rng.uniform(0, 1e6, N).astype(np.float32)).to(dev)
+    ids, valid = ops.mdc_select_victims(live, up2, 2e6, S=S, k=k)
+    neg, want = torch.topk(-ref.mdc_priority_ref(live, up2, 2e6, S), k)
+    assert ids.device == live.device and bool(valid.all())
+    assert set(ids.tolist()) == set(want.tolist())
+
+
+def test_mdc_priority_refuses_mixed_devices(dev):
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.mdc_priority(torch.zeros(4, device=dev), torch.zeros(4), 1.0, S=4)
+
+
 def test_engine_on_card_matches_cpu_engine(dev):
     """The engine's kernel path on the card and its plain path on the CPU,
     at f32 on the smoke model, under forced compaction: same tokens, same

@@ -1,11 +1,12 @@
 """The port's plain kernel versions against the JAX package's kernels.
 
-For each of the port's three kernels, the plain PyTorch version (what the
+For each of the port's four kernels, the plain PyTorch version (what the
 port's wrappers run for CPU tensors, and what ``chip_smoke.py`` holds the
 CUDA kernel against on the card) must match the JAX Pallas kernel, run in
 interpret mode as the JAX package's own tests run it, and the JAX plain
 reference.  Shapes and tolerances are those of ``tests/test_kernels.py``
-(f32 2e-5, bf16 2e-2, exact for the copy), plus one case at the full-width
+(f32 2e-5, bf16 2e-2, exact for the copy; rtol 1e-6 and the same -1 / +inf
+pattern for the MDC key), plus one case at the full-width
 head geometry of qwen3-1.7b (D=128, G=2).  Inputs come from numpy with a
 seed and go to both packages.
 """
@@ -17,6 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import policies
 from repro_torch.kernels import ops
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -158,3 +160,72 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_only():
     assert ops.launches == before
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         ops.segment_compact(pool, src.to("meta"))
+
+
+# -------------------------------------------------------------- mdc priority
+
+def _same_key(got, want):
+    """Identical -1 / +inf pattern; finite keys within rtol 1e-6."""
+    got, want = f32(got), f32(want)
+    np.testing.assert_array_equal(got == -1, want == -1)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    finite = np.isfinite(want)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-6)
+
+
+@pytest.mark.parametrize("N,S", [(100, 512), (1024, 512), (4097, 64), (3, 32)])
+def test_mdc_priority_plain_matches_pallas_and_ref(N, S):
+    rng = np.random.default_rng(N)
+    live = rng.integers(0, S + 1, N)  # all three branches: empty, full, rest
+    up2 = rng.uniform(0, 1e6, N)
+    u_now = 1.5e6
+    got = ops.mdc_priority(torch.from_numpy(live), torch.from_numpy(up2),
+                           u_now, S=S)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (N,)
+    jl, ju = jnp.asarray(live), jnp.asarray(up2)
+    _same_key(got, jops.mdc_priority(jl, ju, u_now, S=S))
+    _same_key(got, jref.mdc_priority_ref(jl, ju, u_now, S))
+
+
+def test_mdc_select_victims_matches_jax_and_numpy():
+    """The inputs of ``test_mdc_select_victims_orders_like_simulator``."""
+    rng = np.random.default_rng(1)
+    N, S, k = 256, 128, 8
+    live = rng.integers(1, S, N)
+    up2 = rng.uniform(0, 1e5, N)
+    u_now = 2e5
+    ids, valid = ops.mdc_select_victims(torch.from_numpy(live),
+                                        torch.from_numpy(up2), u_now, S=S, k=k)
+    jids, jvalid = jops.mdc_select_victims(jnp.asarray(live), jnp.asarray(up2),
+                                           u_now, S=S, k=k)
+    want = policies.select_victims("mdc", k, live=live, S=S, up2=up2,
+                                   seal_time=np.zeros(N), u_now=u_now,
+                                   eligible=np.ones(N, bool))
+    assert valid.all() and np.asarray(jvalid).all()
+    np.testing.assert_array_equal(np.sort(ids.numpy()), np.sort(np.asarray(jids)))
+    np.testing.assert_array_equal(np.sort(ids.numpy()), np.sort(want))
+
+
+def test_mdc_select_victims_marks_uncleanable_entries_invalid():
+    """Fewer cleanable segments than k: the rest come back invalid, as from
+    the JAX entry (full segments key +inf)."""
+    live = np.array([4, 0, 4, 2, 4], np.int64)
+    up2 = np.array([1.0, 2.0, 3.0, 4.0, 5.0])
+    ids, valid = ops.mdc_select_victims(torch.from_numpy(live),
+                                        torch.from_numpy(up2), 10.0, S=4, k=4)
+    jids, jvalid = jops.mdc_select_victims(jnp.asarray(live), jnp.asarray(up2),
+                                           10.0, S=4, k=4)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    assert valid.tolist() == [True, True, False, False]
+    assert ids[:2].tolist() == [1, 3] == np.asarray(jids)[:2].tolist()
+
+
+def test_mdc_priority_takes_the_plain_version_for_cpu_tensors():
+    before = dict(ops.launches)
+    live = torch.tensor([0, 2, 4])
+    up2 = torch.tensor([1.0, 2.0, 3.0])
+    got = ops.mdc_priority(live, up2, 9.0, S=4)
+    assert torch.equal(got, ops.ref.mdc_priority_ref(live, up2, 9.0, 4))
+    assert ops.launches == before
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        ops.mdc_priority(live, up2.to("meta"), 9.0, S=4)
