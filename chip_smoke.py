@@ -6,20 +6,28 @@
 Phases, in order; any failure raises and the process exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``); CUDA present.
-2. build   — compile the four CUDA kernels from ``src/repro_torch/kernels/
+2. build   — compile the five CUDA kernels from ``src/repro_torch/kernels/
              csrc`` (one ``nvcc`` per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's full-width shapes (qwen3-1.7b: Kh=8, G=2,
              D=128, page_T=16), with the tolerances of the JAX package's
-             kernel tests (f32 2e-5, bf16 2e-2, exact for the copy); kernel,
-             plain and library times (median of CUDA-event timings, L2
-             flushed before each launch) beside the least time the card
-             could take.
+             kernel tests (f32 2e-5, bf16 2e-2, exact for the copies);
+             kernel, plain and library times (median of CUDA-event timings,
+             L2 flushed before each launch; a kernel and its yardstick timed
+             in alternation) beside the least time the card could take.  Flash attention runs at the engine's prefill
+             buckets (S 256, 512, 1024) in bf16 on its tensor-core route and
+             at S 1024 in f32 on its CUDA-core route, each line naming the
+             route; the compaction move runs a disjoint plan (one launch) and
+             an overlapping one (gather and scatter) beside the PyTorch
+             expression ``p[:, dst] = p[:, src]``.
 4. engine  — the paged serving engine on the full-width qwen3-1.7b (28
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
              The kernels' launch counters are zeroed just before and read
-             just after; each of the engine's three must have grown.
+             just after; each of the engine's three (paged attention, the
+             compaction move, flash attention on its tensor-core route) must
+             have grown.  It reports how many compaction plans were staged
+             (a destination that is another move's source).
 5. tokens  — one request at float32 through the engine (the kernels) and
              through the plain ``greedy_decode``: the tokens must be equal,
              or the first mismatch must sit on a near-tie (top-2 logit
@@ -45,6 +53,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,8 +95,17 @@ KERNELS = {
     "mdc_priority": {
         "source": "src/repro_torch/kernels/csrc/mdc_priority.cu",
         "replaces": "src/repro/kernels/mdc_priority.py:43"},
+    # the compaction move of src/repro/serving/engine.py:307 _move_pages_fn,
+    # whose TPU kernel is segment_compact
+    "segment_move": {
+        "source": "src/repro_torch/kernels/csrc/segment_move.cu",
+        "replaces": "src/repro/kernels/segment_compact.py:33"},
 }
-ENGINE_KERNELS = ("paged_attention", "segment_compact", "flash_attention")
+# the engine's kernels: each must launch in the engine phase.  segment_compact
+# is off the engine's path since the move is one fused kernel (its launches
+# there are 0); mdc_priority's path is the victims phase.
+ENGINE_KERNELS = ("paged_attention", "segment_move", "flash_attention")
+FLASH_BUCKETS = (256, 512, 1024)  # the engine's prefill buckets
 
 
 def emit(obj) -> None:
@@ -106,28 +124,35 @@ class Timer:
     timed call is preceded by a write of 256 MB, which flushes the 50 MB L2
     (the engine finds K/V and weights cold), and by a ~1 ms device-side
     spin, which keeps the device busy while the host enqueues the call, so
-    the events time the device's work and not the host's launch gaps.  One
-    synchronise at the end."""
+    the events time the device's work and not the host's launch gaps.  Given
+    several functions (a kernel and its yardstick), their calls alternate
+    rep by rep, so that drift of the card's state falls on all of them
+    alike.  One synchronise at the end."""
 
     def __init__(self, reps: int = 20, warmup: int = 3):
         self.reps, self.warmup = reps, warmup
         self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
 
-    def __call__(self, fn) -> float:
-        for _ in range(self.warmup):
-            fn()
-        events = []
+    def __call__(self, *fns):
+        """The median ms of the one function, or a list, one per function."""
+        for fn in fns:
+            for _ in range(self.warmup):
+                fn()
+        events = [[] for _ in fns]
         for _ in range(self.reps):
-            self.flush.zero_()
-            torch.cuda._sleep(2_000_000)  # clock cycles, ~1 ms
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
+            for fn, evs in zip(fns, events):
+                self.flush.zero_()
+                torch.cuda._sleep(2_000_000)  # clock cycles, ~1 ms
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                evs.append((start, end))
         torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
+        ms = [statistics.median(s.elapsed_time(e) for s, e in evs)
+              for evs in events]
+        return ms[0] if len(fns) == 1 else ms
 
 
 def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -153,18 +178,34 @@ def phase_device() -> str:
     return smi
 
 
+def ptxas_report(log: str) -> dict:
+    """Per entry function of one library, from ``nvcc -Xptxas -v``:
+    registers, spill-store bytes and static shared memory (dynamic shared
+    memory is set at launch and not listed)."""
+    report = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        report[chunk.split("'", 1)[0]] = {
+            "registers": int(re.search(r"Used (\d+) registers", chunk).group(1)),
+            "spill_store_bytes": int(re.search(r"(\d+) bytes spill stores",
+                                               chunk).group(1)),
+            "smem_static_bytes": int(smem.group(1)) if smem else 0}
+    if shutil.which("c++filt"):  # readable kernel names where binutils has them
+        names = subprocess.run(["c++filt"], input="\n".join(report), text=True,
+                               capture_output=True, check=True).stdout.splitlines()
+        report = {n.replace("(anonymous namespace)::", "").split("(", 1)[0]
+                  .removeprefix("void "): r for n, r in zip(names, report.values())}
+    return report
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     info = build.build()
     for name in build.SIGNATURES:  # load every library: fails if one is bad
         build.load(name)
-    regs = {n: max(map(int, re.findall(r"Used (\d+) registers", i["log"])), default=0)
-            for n, i in info.items()}
-    spills = {n: sum(map(int, re.findall(r"(\d+) bytes spill stores", i["log"])))
-              for n, i in info.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": {n: round(i["seconds"], 2) for n, i in info.items()},
-          "max_registers": regs, "spill_store_bytes": spills})
+          "ptxas": {n: ptxas_report(i["log"]) for n, i in info.items()}})
 
 
 def check_paged_attention(dtype, timer) -> dict:
@@ -196,31 +237,42 @@ def check_paged_attention(dtype, timer) -> dict:
                       "tokens": n_tok}}
 
 
-def check_flash_attention(dtype, timer) -> dict:
+def check_flash_attention(dtype, S, timer) -> dict:
+    """Causal prefill attention at qwen3-1.7b's heads over S tokens, in the
+    model's (B, S, H, D) layout; the launch must take the route that
+    ``ops.flash_route`` names for (dtype, D)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    B, H, Kh, S, D = 1, 16, 8, 1024, 128
-    q = torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, Kh, S, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, Kh, S, D, generator=g, device="cuda").to(dtype)
-    got = ops.flash_attention_bhsd(q, k, v, causal=True)
-    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))  # the (B, S, H, D) layout
-    want = ref.flash_attention_ref(qs, ks, vs, causal=True).transpose(1, 2)
+    B, H, Kh, D = 1, 16, 8, 128
+    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
+    route = ops.flash_route(dtype, D)
+    before = ops.flash_routes[route]
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if ops.flash_routes[route] != before + 1:
+        raise AssertionError(f"flash_attention {dtype} S={S}: not on the "
+                             f"{route} route")
+    want = ref.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
-    # yardstick: the library's fused attention on the same inputs, kv heads
-    # expanded beforehand so it runs its multi-head path
-    k_h = k.repeat_interleave(H // Kh, dim=1)
-    v_h = v.repeat_interleave(H // Kh, dim=1)
+    # yardstick: the library's fused attention on the same inputs in its
+    # (B, H, S, D) layout, kv heads expanded beforehand so it runs its
+    # multi-head path
+    qh = q.transpose(1, 2).contiguous()
+    k_h = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
+    v_h = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
     es = torch.tensor([], dtype=dtype).element_size()
     n_bytes = (2 * B * H * S * D + 2 * B * Kh * S * D) * es
     flops = 4.0 * B * H * D * S * (S + 1) / 2
     b_ms, b_by = bound(n_bytes, flops, dtype)
-    return {"max_abs_err": max_err(got, want),
-            "kernel_ms": timer(lambda: ops.flash_attention_bhsd(q, k, v, causal=True)),
-            "plain_ms": timer(lambda: ref.flash_attention_ref(qs, ks, vs, causal=True)),
-            "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                q, k_h, v_h, is_causal=True)),
-            "bound_ms": b_ms, "bound_by": b_by,
+    kernel_ms, library_ms = timer(
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qh, k_h, v_h, is_causal=True))
+    return {"flash_route": route, "max_abs_err": max_err(got, want),
+            "kernel_ms": kernel_ms,
+            "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"B": B, "H": H, "Kh": Kh, "S": S, "D": D, "causal": True}}
 
 
@@ -241,29 +293,83 @@ def check_segment_compact(dtype, E, timer) -> dict:
     n_bytes = 2 * M * E * pool.element_size() + 4 * M
     b_ms, b_by = bound(n_bytes, 0.0, torch.bfloat16)
     src_l = src.long()
-    return {"max_abs_err": 0.0,
-            "kernel_ms": timer(lambda: ops.segment_compact(pool, src)),
+    kernel_ms, library_ms = timer(lambda: ops.segment_compact(pool, src),
+                                  lambda: torch.index_select(pool, 0, src_l))
+    return {"max_abs_err": 0.0, "kernel_ms": kernel_ms,
             "plain_ms": timer(lambda: ref.segment_compact_ref(pool, src)),
-            "library_ms": timer(lambda: torch.index_select(pool, 0, src_l)),
+            "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"N": N, "M": M, "E": E}}
+
+
+def check_segment_move(overlap: bool, timer) -> dict:
+    """One compaction plan at the engine's shape: 64 moves in every one of
+    28 layers of the K and V pools of 481 pages of E = 16,384 bf16 (one
+    16-token page of 8 heads x 128).  With ``overlap`` half of the
+    destinations are other moves' sources, so the wrapper stages it."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    L, n_pages, moves, E = 28, 481, 64, 16384
+    k_pool, v_pool = (torch.randn(L, n_pages, E, generator=g, device="cuda")
+                      .to(torch.bfloat16) for _ in range(2))
+    perm = np.random.default_rng(SEED).permutation(n_pages)
+    src, dst = perm[:moves], perm[moves:2 * moves].copy()
+    if overlap:
+        dst[:moves // 2] = np.roll(src, 1)[:moves // 2]
+    want = (k_pool.clone(), v_pool.clone())
+    ref.segment_move_ref(want, src, dst)
+    n0, form = ops.launches["segment_move"], "staged" if overlap else "direct"
+    before = ops.move_plans[form]
+    ops.segment_move((k_pool, v_pool), src, dst)
+    torch.cuda.synchronize()
+    if ops.move_plans[form] != before + 1:
+        raise AssertionError(f"segment_move: the plan was not moved {form}")
+    if not (torch.equal(k_pool, want[0]) and torch.equal(v_pool, want[1])):
+        raise AssertionError(f"segment_move {form}: move not exact")
+    launches = ops.launches["segment_move"] - n0
+    del want
+    src_t, dst_t = (torch.from_numpy(a).cuda() for a in (src, dst))
+
+    def expression():  # the PyTorch expression of the same move
+        for p in (k_pool, v_pool):
+            p[:, dst_t] = p[:, src_t]
+
+    rows = L * moves
+    n_bytes = 2 * (2 * rows * E * k_pool.element_size()) + 2 * 4 * rows
+    b_ms, b_by = bound(n_bytes, 0.0, torch.bfloat16)
+    kernel_ms, expression_ms = timer(
+        lambda: ops.segment_move((k_pool, v_pool), src, dst), expression)
+    return {"form": form, "launches_per_plan": launches, "max_abs_err": 0.0,
+            "kernel_ms": kernel_ms,
+            "plain_ms": timer(lambda: ref.segment_move_ref((k_pool, v_pool), src, dst)),
+            "expression_ms": expression_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"L": L, "n_pages": n_pages, "moves": moves, "E": E}}
 
 
 def phase_kernels() -> dict:
     timer = Timer()
     main = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, fn in (("paged_attention", check_paged_attention),
-                         ("flash_attention", check_flash_attention)):
-            r = fn(dtype, timer)
-            emit({"phase": "kernel", "name": name, "dtype": str(dtype), **r})
-            if dtype == torch.bfloat16:  # the main path runs bf16
-                main[name] = r
+        r = check_paged_attention(dtype, timer)
+        emit({"phase": "kernel", "name": "paged_attention", "dtype": str(dtype), **r})
+        if dtype == torch.bfloat16:  # the main path runs bf16
+            main["paged_attention"] = r
+    for dtype, S in [(torch.bfloat16, S) for S in FLASH_BUCKETS] + [(torch.float32, 1024)]:
+        r = check_flash_attention(dtype, S, timer)
+        emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})
+        if dtype == torch.bfloat16 and S == max(FLASH_BUCKETS):
+            main["flash_attention"] = r
     for dtype, E in ((torch.bfloat16, 16384), (torch.int32, 16383)):
         r = check_segment_compact(dtype, E, timer)
         emit({"phase": "kernel", "name": "segment_compact", "dtype": str(dtype), **r})
         if dtype == torch.bfloat16:
             main["segment_compact"] = r
+    torch.cuda.empty_cache()
+    for overlap in (False, True):
+        r = check_segment_move(overlap, timer)
+        emit({"phase": "kernel", "name": "segment_move", "dtype": "torch.bfloat16", **r})
+        if not overlap:  # the summary's time: one launch of the kernel
+            main["segment_move"] = r
     del timer
     torch.cuda.empty_cache()
     return main
@@ -368,6 +474,7 @@ def phase_engine(cfg) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
+    routes, plans = dict(ops.flash_routes), dict(ops.move_plans)
     for rid, n in zip(rids, news):
         if len(eng.finished[rid]) != n:
             raise AssertionError(f"request {rid}: {len(eng.finished[rid])} "
@@ -379,6 +486,9 @@ def phase_engine(cfg) -> dict:
     missing = [k for k in ENGINE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    if routes["wgmma"] == 0:
+        raise AssertionError("the prefill's flash attention never took the "
+                             "tensor-core route")
     gen = int(news.sum())
     emit({"phase": "engine", "model": cfg.name, "dtype": "bfloat16",
           "requests": len(rids), "prompt_tokens": int(plens.sum()),
@@ -386,6 +496,8 @@ def phase_engine(cfg) -> dict:
           "compactions": m["compactions"], "blocks_written": m["blocks_written"],
           "blocks_moved": m["blocks_moved"], "wamp": m["wamp"],
           "dispatches": m["dispatches"], "launches": launches,
+          "flash_routes": routes, "staged_plans": plans["staged"],
+          "direct_plans": plans["direct"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches
 
@@ -449,6 +561,8 @@ def main() -> None:
     results["mdc_priority"], launches["mdc_priority"] = phase_victims()
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
+         "path": ("victims" if name == "mdc_priority" else "engine"
+                  if name in ENGINE_KERNELS else "none"),
          "launches": launches[name], "ms": results[name]["kernel_ms"],
          **{k: results[name][k] for k in ("max_abs_err", "plain_ms",
                                           "bound_ms", "bound_by",

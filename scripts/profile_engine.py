@@ -9,14 +9,16 @@ with ``torch.profiler`` (CPU and CUDA activities):
 
 * decode  — eight slots admitted (prompts of 512 tokens), then dispatches
             of a full batch with no admission in the window;
-* prefill — one 1024-token prompt through ``tfm.prefill``.
+* prefill — one 1024-token prompt through ``tfm.prefill`` (its flash
+            attention on the tensor-core route, ``flash_routes``).
 
 Each window runs once without the profiler (``wall_ms``) and once under it
 (``wall_ms_profiled``, which carries the profiler's own cost).  For each it
 prints one JSON line: wall ms, the device's busy ms (sum of kernel times
 under the profiler), the idle share against the unprofiled wall, kernel
-launches, and the kernels that take the most device time.  Measurement
-only: nothing here is asserted.
+launches, the kernels that take the most device time, and the time of
+each of the port's own kernels.  Measurement only: nothing here is
+asserted.
 """
 
 from __future__ import annotations
@@ -35,9 +37,16 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import PagedServingEngine  # noqa: E402
+
+
+# the device functions of the port's kernels (kernels/csrc), by kernel
+PORT_KERNELS = {"flash_attention": "flash_fwd", "paged_attention":
+                "paged_attention_kernel", "segment_move": "move_rows",
+                "segment_compact": "compact_rows"}
 
 
 def kernel_table(prof, wall_ms: float, n_units: int) -> dict:
@@ -52,10 +61,13 @@ def kernel_table(prof, wall_ms: float, n_units: int) -> dict:
     for name, t in rows:
         by_name[name] = by_name.get(name, 0.0) + t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    port = {k: sum(t for n, t in by_name.items() if fn in n) / n_units
+            for k, fn in PORT_KERNELS.items()}
     return {"wall_ms": wall_ms / n_units, "device_busy_ms": busy / n_units,
             "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "launches": len(rows) / n_units,
-            "top_kernels_ms": {n[:80]: t / n_units for n, t in top}}
+            "top_kernels_ms": {n[:80]: t / n_units for n, t in top},
+            "port_kernels_ms": {k: t for k, t in port.items() if t}}
 
 
 def main() -> None:
@@ -110,11 +122,13 @@ def main() -> None:
         return (time.perf_counter() - t0) * 1e3
 
     prefill()  # warm-up
+    ops.reset_launches()
     plain_ms = prefill()
+    routes = dict(ops.flash_routes)  # the route of the window's attention
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = prefill()
     print(json.dumps({"window": "prefill", "tokens": 1024, "per": "prompt",
-                      "wall_ms_profiled": wall,
+                      "wall_ms_profiled": wall, "flash_routes": routes,
                       **kernel_table(prof, plain_ms, 1)}), flush=True)
     print(smi, flush=True)
 

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
-into its own shared library for Hopper (``sm_90a``), loaded with ``ctypes``.
+into its own shared library for Hopper (``sm_90a``), loaded with ``ctypes``;
+``csrc/*.cuh`` holds device code that several of them include.
 Libraries are built at first use into ``build/repro_torch/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  ``build()``
+the checkout, keyed by a hash of the source, the headers and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.  ``build()``
 starts one ``nvcc`` per missing library, all at once.
 """
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry point of each library: the function is named after the kernel
 SIGNATURES = {
@@ -36,11 +38,16 @@ SIGNATURES = {
                         _I, _P],
     # pool, src, out, n_rows, m_rows, row_bytes, stream
     "segment_compact": [_P, _P, _P, _LL, _LL, _LL, _P],
-    # q, k, v, out, B, H, Kh, Sq, Skv, D, scale, causal, dtype, stream
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                        _P],
+    # q, k, v, out, strides (12 element strides), B, H, Kh, Sq, Skv, D,
+    # scale, causal, dtype, route, stream
+    "flash_attention": [_P, _P, _P, _P, _PLL, _I, _I, _I, _I, _I, _I, _F, _I,
+                        _I, _I, _P],
     # live, up2, out, n, u_now, S, stream
     "mdc_priority": [_P, _P, _P, _LL, _F, _I, _P],
+    # src0, src1, dst0, dst1, src_pages, dst_pages (host int32 arrays or
+    # null), layers, n_pages, total, m0, n, row_bytes, stream
+    "segment_move": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
+                     _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -59,9 +66,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Keyed by the source, the shared headers (``csrc/*.cuh``) and the
+    flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -75,6 +75,20 @@ def segment_compact_ref(pool, src_idx):
     return pool[src_idx.long()]
 
 
+def segment_move_ref(pools, src, dst):
+    """The compaction move of the paged engine, in place: for each pool
+    (L, n_pages, ...), ``pool[:, dst] = pool[:, src]``, the sources gathered
+    (a copy) before any destination is written, so a destination that is
+    another move's source receives the old content.
+
+    pools: (K, V); src / dst: (M,) page ids (a tensor or a sequence).
+    """
+    for p in pools:
+        s = torch.as_tensor(src, dtype=torch.long, device=p.device)
+        d = torch.as_tensor(dst, dtype=torch.long, device=p.device)
+        p[:, d] = p[:, s].clone()
+
+
 def mdc_priority_ref(live, up2, u_now, S):
     """Paper §5.1.3 declining-cost key, fixed-size pages (see core.policies).
 

@@ -403,24 +403,16 @@ class PagedServingEngine:
     def _move_plan(self, plan) -> None:
         """Compaction data path: pool[:, dst] = pool[:, src] for K and V.
 
-        ``segment_compact`` gathers every layer's source pages from the
-        flattened pool into a fresh buffer before any destination is
-        written, so a survivor placed into a just-freed page of the same
-        plan reads the old content (src/dst overlap is safe)."""
+        ``ops.segment_move`` moves both pools in one launch, or, when a
+        survivor is placed into a page that the same plan frees (src/dst
+        overlap), gathers every source into a buffer before it scatters, so
+        each destination receives the old content."""
         src = np.asarray(plan.src_pages, np.int64)
         dst = np.asarray(plan.dst_pages, np.int64)
         if ((src < 0) | (src >= self.trash_page)).any() or \
                 ((dst < 0) | (dst >= self.trash_page)).any():
             raise AssertionError("compaction plan outside the pool's pages")
-        L, n_pages, T, Kh, hd = self.k_pools.shape
-        src_l = (np.arange(L, dtype=np.int64)[:, None] * n_pages
-                 + src[None, :]).reshape(-1)
-        src_dev = self._put(src_l.astype(np.int32))
-        dst_dev = self._put(dst)
-        for pools in (self.k_pools, self.v_pools):
-            moved = ops.segment_compact(pools.view(L * n_pages, T * Kh * hd),
-                                        src_dev)
-            pools[:, dst_dev] = moved.view(L, len(src), T, Kh, hd)
+        ops.segment_move((self.k_pools, self.v_pools), src, dst)
 
     def _apply_remap(self, plan) -> None:
         """Remap block tables: one vectorized page-id lookup over the

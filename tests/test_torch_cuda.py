@@ -36,6 +36,28 @@ def _randn(rng, shape, dtype, dev):
                             ).to(dev).to(dtype)
 
 
+def _flash_case(dev, B, Sq, Skv, H, Kh, D, causal, dtype, route, *,
+                layout="bshd"):
+    """One launch against the plain version; it must take ``route``.
+    ``layout="bhsd"`` stores the inputs as (B, H, S, D) and hands the kernel
+    (B, S, H, D) views of them (strided, not copied)."""
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, Sq, H, D), dtype, dev)
+    k = _randn(rng, (B, Skv, Kh, D), dtype, dev)
+    v = _randn(rng, (B, Skv, Kh, D), dtype, dev)
+    if layout == "bhsd":
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+        assert not q.is_contiguous()
+    n0, r0 = ops.launches["flash_attention"], dict(ops.flash_routes)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == n0 + 1
+    assert ops.flash_routes[route] == r0[route] + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal", [
     (1, 128, 128, 4, 4, 64, True),
@@ -46,16 +68,43 @@ def _randn(rng, shape, dtype, dev):
     (1, 1024, 1024, 16, 8, 128, True),  # qwen3-1.7b heads at a 1k prompt
 ])
 def test_flash_attention_kernel(dev, B, Sq, Skv, H, Kh, D, causal, dtype):
-    rng = np.random.default_rng(0)
-    q = _randn(rng, (B, Sq, H, D), dtype, dev)
-    k = _randn(rng, (B, Skv, Kh, D), dtype, dev)
-    v = _randn(rng, (B, Skv, Kh, D), dtype, dev)
-    n0 = ops.launches["flash_attention"]
-    got = ops.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert ops.launches["flash_attention"] == n0 + 1
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    """The JAX kernel tests' shapes: bf16 at D 64 / 128 on the tensor-core
+    route, f32 and the other head dims on the CUDA-core route."""
+    _flash_case(dev, B, Sq, Skv, H, Kh, D, causal, dtype,
+                ops.flash_route(dtype, D))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal,layout", [
+    (1, 256, 256, 16, 8, 128, True, "bshd"),   # the engine's prefill buckets
+    (1, 512, 512, 16, 8, 128, True, "bshd"),
+    (1, 1024, 1024, 16, 8, 128, True, "bshd"),
+    (1, 1, 1, 16, 8, 128, True, "bshd"),       # ragged S
+    (1, 65, 65, 16, 8, 128, True, "bshd"),
+    (1, 127, 127, 16, 8, 128, True, "bshd"),
+    (1, 1000, 1000, 16, 8, 128, True, "bshd"),
+    (2, 200, 700, 4, 2, 128, False, "bshd"),   # Skv > Sq
+    (1, 65, 300, 8, 8, 64, False, "bshd"),
+    (2, 300, 300, 8, 4, 128, True, "bhsd"),    # strided (B, S, H, D) views
+    (1, 1000, 1000, 16, 8, 64, True, "bhsd"),
+])
+def test_flash_attention_wgmma_route(dev, B, Sq, Skv, H, Kh, D, causal, layout):
+    _flash_case(dev, B, Sq, Skv, H, Kh, D, causal, torch.bfloat16, "wgmma",
+                layout=layout)
+
+
+def test_flash_attention_bhsd_entry_on_both_routes(dev):
+    rng = np.random.default_rng(2)
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
+        q = _randn(rng, (2, 8, 200, 128), dtype, dev)
+        k = _randn(rng, (2, 4, 200, 128), dtype, dev)
+        v = _randn(rng, (2, 4, 200, 128), dtype, dev)
+        r0 = ops.flash_routes[route]
+        got = ops.flash_attention_bhsd(q, k, v, causal=True)
+        assert ops.flash_routes[route] == r0 + 1
+        want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=True)
+        torch.testing.assert_close(got.transpose(1, 2).float(), want.float(),
+                                   **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -91,6 +140,59 @@ def test_segment_compact_kernel_exact(dev, N, E, M, dtype):
     src = torch.from_numpy(rng.integers(0, N, M).astype(np.int32)).to(dev)
     got = ops.segment_compact(pool, src)
     assert torch.equal(got, ref.segment_compact_ref(pool, src))
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("dtype,E", [(torch.bfloat16, 16384), (torch.int32, 16383)])
+def test_segment_move_kernel_exact(dev, dtype, E, overlap):
+    """The engine's move at its shape (28 layers, 481 pages, 64 moves; E
+    16,384 bf16 = one 16-token page of 8 heads x 128) and at an E whose row
+    is not a multiple of 16 bytes: one launch for a disjoint plan, a gather
+    and a scatter launch when a destination is another move's source."""
+    rng = np.random.default_rng(7)
+    L, n_pages, M = 28, 481, 64
+    if dtype == torch.int32:
+        k_pool, v_pool = (torch.from_numpy(rng.integers(0, 1 << 30, (L, n_pages, E),
+                                                        dtype=np.int32)).to(dev)
+                          for _ in range(2))
+    else:
+        k_pool, v_pool = (_randn(rng, (L, n_pages, E), dtype, dev) for _ in range(2))
+    perm = rng.permutation(n_pages)
+    src, dst = perm[:M], perm[M:2 * M].copy()
+    if overlap:
+        dst[:M // 2] = np.roll(src, 1)[:M // 2]
+    want = (k_pool.clone(), v_pool.clone())
+    ref.segment_move_ref(want, src, dst)
+    n0, plans0 = ops.launches["segment_move"], dict(ops.move_plans)
+    ops.segment_move((k_pool, v_pool), src, dst)
+    torch.cuda.synchronize()
+    form = "staged" if overlap else "direct"
+    assert ops.move_plans[form] == plans0[form] + 1
+    assert ops.launches["segment_move"] == n0 + (2 if overlap else 1)
+    assert torch.equal(k_pool, want[0]) and torch.equal(v_pool, want[1])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_segment_move_kernel_splits_long_plans(dev, overlap):
+    """A plan longer than the page ids one launch carries goes in chunks of
+    ``ops.MOVE_CHUNK`` moves, all gathers before any scatter when staged."""
+    rng = np.random.default_rng(8)
+    L, n_pages, E = 2, 3 * ops.MOVE_CHUNK, 33  # 132-byte rows: re-aligned
+    k_pool, v_pool = (torch.from_numpy(rng.integers(0, 1 << 30, (L, n_pages, E),
+                                                    dtype=np.int32)).to(dev)
+                      for _ in range(2))
+    M = ops.MOVE_CHUNK + 100
+    perm = rng.permutation(n_pages)
+    src, dst = perm[:M], perm[M:2 * M].copy()
+    if overlap:
+        dst[:M // 2] = np.roll(src, 1)[:M // 2]
+    want = (k_pool.clone(), v_pool.clone())
+    ref.segment_move_ref(want, src, dst)
+    n0 = ops.launches["segment_move"]
+    ops.segment_move((k_pool, v_pool), src, dst)
+    torch.cuda.synchronize()
+    assert ops.launches["segment_move"] == n0 + (4 if overlap else 2)
+    assert torch.equal(k_pool, want[0]) and torch.equal(v_pool, want[1])
 
 
 def test_kernel_wrappers_refuse_mixed_devices(dev):
@@ -164,6 +266,7 @@ def test_engine_on_card_matches_cpu_engine(dev):
     params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
     cpu_model, card_model = Model(cfg, params), Model(cfg, _f32(params, dev))
     results = []
+    ops.reset_launches()
     for model, device in ((cpu_model, "cpu"), (card_model, dev)):
         eng = PagedServingEngine(model, n_slabs=7, blocks_per_slab=2, page_T=8,
                                  max_batch=3, max_seq=96, streams=1,
@@ -177,7 +280,7 @@ def test_engine_on_card_matches_cpu_engine(dev):
             eng.step()
             if step % 3 == 2:
                 before = _slot_kv(eng)
-                eng.pool.compact()  # moves through segment_compact
+                eng.pool.compact()  # moves through segment_move
                 after = _slot_kv(eng)
                 assert before.keys() == after.keys()
                 for rid, (k, v) in before.items():
@@ -192,6 +295,8 @@ def test_engine_on_card_matches_cpu_engine(dev):
                                            "compactions", "wamp")}))
     assert results[0] == results[1]
     assert results[0][1]["compactions"] >= 2
+    # the card's engine moved its plans through the kernel, staged ones too
+    assert ops.launches["segment_move"] > 0 and ops.move_plans["staged"] > 0
 
 
 def _slot_kv(eng):

@@ -21,6 +21,7 @@ from repro.models import transformer as jtfm
 from repro.serving import PagedServingEngine as JaxEngine
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.models import Model
 from repro_torch.serving import PagedServingEngine
 
@@ -113,7 +114,9 @@ def test_compaction_keeps_block_tables_consistent(models):
     """After every step of a forced-compaction run: each live slot reads the
     same K/V through its remapped block table as before the move, held pages
     are owned by their slot's request, the rest of the row parks on the
-    trash page, and the device block table mirrors the host's."""
+    trash page, and the device block table mirrors the host's.  The stream's
+    plans place survivors into pages the same plan frees (a destination that
+    is another move's source), so the move's read-before-write is held."""
     jm, _, model = models
     eng = PagedServingEngine(model, n_slabs=7, blocks_per_slab=2, page_T=8,
                              max_batch=3, max_seq=96, streams=1,
@@ -123,13 +126,15 @@ def test_compaction_keeps_block_tables_consistent(models):
     rng = np.random.default_rng(1)
     for n, m in [(27, 10), (5, 8), (11, 6), (3, 12)]:
         eng.submit(rng.integers(1, 100, size=n), m)
-    moved = 0
+    moved = overlapping = 0
+    staged0 = ops.move_plans["staged"]
     for _ in range(10_000):
         eng.step()
         before = _slot_kv(eng)
         plan = eng.pool.compact()
         if plan is not None and len(plan):
             moved += 1
+            overlapping += bool(np.isin(plan.dst_pages, plan.src_pages).any())
             gone = np.setdiff1d(plan.src_pages, plan.dst_pages)
             assert not np.isin(gone, eng.bt[eng.bt != eng.trash_page]).any()
         after = _slot_kv(eng)
@@ -146,6 +151,8 @@ def test_compaction_keeps_block_tables_consistent(models):
         if not eng.has_work():
             break
     assert moved >= 1
+    assert overlapping >= 1
+    assert ops.move_plans["staged"] - staged0 == overlapping
 
 
 @pytest.mark.parametrize("chunk", [1, 8])

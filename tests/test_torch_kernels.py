@@ -1,10 +1,11 @@
 """The port's plain kernel versions against the JAX package's kernels.
 
-For each of the port's four kernels, the plain PyTorch version (what the
+For each of the port's five kernels, the plain PyTorch version (what the
 port's wrappers run for CPU tensors, and what ``chip_smoke.py`` holds the
 CUDA kernel against on the card) must match the JAX Pallas kernel, run in
 interpret mode as the JAX package's own tests run it, and the JAX plain
-reference.  Shapes and tolerances are those of ``tests/test_kernels.py``
+reference (for the compaction move: the JAX engine's ``_move_pages_fn`` on
+its Pallas path).  Shapes and tolerances are those of ``tests/test_kernels.py``
 (f32 2e-5, bf16 2e-2, exact for the copy; rtol 1e-6 and the same -1 / +inf
 pattern for the MDC key), plus one case at the full-width
 head geometry of qwen3-1.7b (D=128, G=2).  Inputs come from numpy with a
@@ -18,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.serving.engine import _move_pages_fn
 from repro_torch.core import policies
 from repro_torch.kernels import ops
 
@@ -77,6 +79,60 @@ def test_flash_attention_bhsd_is_the_transposed_entry():
     want = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=True).transpose(1, 2)
     assert torch.equal(got, want)
+
+
+def test_flash_attention_reads_strided_views_in_place():
+    """Both entries are stride sets over one kernel: a (B, S, H, D) view of
+    (B, H, S, D) storage is read through its own strides (the layout the
+    kernel gets is the view's, so nothing is copied) and gives the same
+    result as a contiguous copy."""
+    rng = np.random.default_rng(7)
+    B, H, Kh, S, D = 2, 4, 2, 40, 32
+    qh, kh, vh = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                  .to(torch.bfloat16)
+                  for shape in ((B, H, S, D), (B, Kh, S, D), (B, Kh, S, D)))
+    q, k, v = (t.transpose(1, 2) for t in (qh, kh, vh))
+    assert not q.is_contiguous()
+    assert ops.flash_layout(q, k, v) == [t.stride()[:3] for t in (q, k, v)]
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True)
+    assert torch.equal(got, want)
+    assert torch.equal(ops.flash_attention_bhsd(qh, kh, vh, causal=True),
+                       want.transpose(1, 2))
+
+
+@pytest.mark.parametrize("bad", ["strided_head_dim", "row_not_16_bytes",
+                                 "misaligned_base", "expanded_heads"])
+def test_flash_attention_refuses_strides_the_kernel_cannot_read(bad):
+    B, S, H, Kh, D = 1, 16, 4, 2, 32
+    k = torch.zeros(B, S, Kh, D, dtype=torch.bfloat16)
+    if bad == "strided_head_dim":
+        q = torch.zeros(B, S, H, 2 * D, dtype=torch.bfloat16)[..., ::2]
+    elif bad == "row_not_16_bytes":  # head stride 36 bf16 = 72 bytes
+        q = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16)[..., :D]
+    elif bad == "misaligned_base":
+        q = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)[1:].view(
+            B, S, H, D)
+    else:
+        q = torch.zeros(B, S, 1, D, dtype=torch.bfloat16).expand(B, S, H, D)
+    with pytest.raises(ValueError, match="flash_attention"):
+        ops.flash_layout(q, k, k)
+    with pytest.raises(ValueError, match="flash_attention"):
+        ops.flash_attention(q, k, k)
+
+
+def test_flash_attention_route_follows_dtype_and_head_dim():
+    """bf16 at D 64 / 128 goes to the tensor-core route, the rest to the
+    CUDA-core route; the CPU path launches nothing on either."""
+    assert ops.flash_route(torch.bfloat16, 128) == "wgmma"
+    assert ops.flash_route(torch.bfloat16, 64) == "wgmma"
+    assert ops.flash_route(torch.bfloat16, 32) == "simt"
+    assert ops.flash_route(torch.float32, 128) == "simt"
+    before = (dict(ops.launches), dict(ops.flash_routes))
+    q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    ops.flash_attention(q, q, q)
+    assert (ops.launches, ops.flash_routes) == before
 
 
 # ------------------------------------------------------------ paged attention
@@ -160,6 +216,76 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_only():
     assert ops.launches == before
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         ops.segment_compact(pool, src.to("meta"))
+
+
+# -------------------------------------------------------------- segment move
+
+def _plan(rng, n_pages, M, overlap):
+    """M moves between distinct pages; with ``overlap`` the first half of
+    the destinations are other moves' sources (a survivor placed into a page
+    the same plan frees)."""
+    perm = rng.permutation(n_pages)
+    src = perm[:M]
+    dst = perm[M:2 * M].copy()
+    if overlap:
+        dst[:M // 2] = np.roll(src, 1)[:M // 2]
+    return src, dst
+
+
+def _bits(x) -> np.ndarray:
+    a = x.view(torch.int16).numpy() if isinstance(x, torch.Tensor) and \
+        x.dtype == torch.bfloat16 else np.asarray(x)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_segment_move_matches_jax_move_pages_exactly(dtype, overlap):
+    """``ops.segment_move`` on CPU tensors (its plain version) against the JAX
+    engine's move on its Pallas path (segment_compact in interpret mode):
+    the same pools bit for bit, for a disjoint and an overlapping plan."""
+    rng = np.random.default_rng(6)
+    shape = (2, 12, 4, 2, 8)  # (L, n_pages, T, Kh, hd)
+    if dtype == "int32":
+        k_np, v_np = (rng.integers(0, 1000, shape, dtype=np.int32)
+                      for _ in range(2))
+    else:
+        k_np, v_np = (rng.standard_normal(shape, np.float32) for _ in range(2))
+    # the move is in place: the port gets buffers of its own (from_numpy
+    # shares the array's memory, and a JAX array on the CPU may too)
+    (jk, _), (jv, _) = both(k_np, dtype), both(v_np, dtype)
+    k, v = (both(a.copy(), dtype)[1] for a in (k_np, v_np))
+    old_k = k.clone()
+    src, dst = _plan(rng, shape[1], 4, overlap)
+    assert bool(np.isin(dst, src).any()) == overlap
+    before = dict(ops.move_plans)
+    launched = dict(ops.launches)
+    ops.segment_move((k, v), src, dst)
+    form = "staged" if overlap else "direct"
+    assert ops.move_plans[form] == before[form] + 1
+    assert ops.launches == launched  # CPU tensors: the plain version
+    wk, wv = _move_pages_fn(jk, jv, jnp.asarray(src, jnp.int32),
+                            jnp.asarray(dst, jnp.int32), use_pallas=True)
+    np.testing.assert_array_equal(_bits(k), _bits(wk))
+    np.testing.assert_array_equal(_bits(v), _bits(wv))
+    if overlap:  # page dst[0] = src[-1] is overwritten by move 0, yet move
+        # M - 1 carried its old content
+        assert dst[0] == src[-1]
+        np.testing.assert_array_equal(_bits(k[:, dst[0]]), _bits(old_k[:, src[0]]))
+        np.testing.assert_array_equal(_bits(k[:, dst[-1]]),
+                                      _bits(old_k[:, src[-1]]))
+
+
+def test_segment_move_refuses_bad_plans():
+    pools = (torch.zeros(2, 6, 8), torch.zeros(2, 6, 8))
+    with pytest.raises(ValueError, match="outside"):
+        ops.segment_move(pools, [0, 6], [1, 2])
+    with pytest.raises(ValueError, match="distinct"):
+        ops.segment_move(pools, [0, 1], [2, 2])
+    with pytest.raises(ValueError, match="one shape"):
+        ops.segment_move((pools[0], torch.zeros(2, 5, 8)), [0], [1])
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        ops.segment_move((pools[0], pools[1].to("meta")), [0], [1])
 
 
 # -------------------------------------------------------------- mdc priority
