@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the process exits non-zero:
              csrc`` (one ``nvcc`` per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's full-width shapes (qwen3-1.7b: Kh=8, G=2,
-             D=128, page_T=16), with the tolerances of the JAX package's
+             D=128, page_T=16; paged attention also at a long context of
+             32 sequences of up to 4,096 tokens, bf16, with the share of
+             its bound it reaches), with the tolerances of the JAX package's
              kernel tests (f32 2e-5, bf16 2e-2, exact for the copies);
              kernel, plain and library times (median of CUDA-event timings,
              L2 flushed before each launch; a kernel and its yardstick timed
@@ -208,9 +210,13 @@ def phase_build() -> None:
           "ptxas": {n: ptxas_report(i["log"]) for n, i in info.items()}})
 
 
-def check_paged_attention(dtype, timer) -> dict:
+def check_paged_attention(dtype, timer, B=8, P=64) -> dict:
+    """Decode attention at qwen3-1.7b's heads (Kh 8, G 2, D 128, 16-token
+    pages) over B sequences of up to P pages each; a full table and a
+    one-token sequence among them.  ``launches_per_call`` counts the
+    kernel's launches in one wrapper call (the design makes it 1)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    B, Kh, G, D, T, P = 8, 8, 2, 128, 16, 64  # seq_lens up to 1024
+    Kh, G, D, T = 8, 2, 128, 16
     H = Kh * G
     n_pages = B * P + 1
     q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
@@ -220,7 +226,11 @@ def check_paged_attention(dtype, timer) -> dict:
     lens = torch.randint(1, P * T + 1, (B,), generator=g, device="cuda",
                          dtype=torch.int32)
     lens[0], lens[1] = P * T, 1  # a full table and a one-token sequence
+    n0 = ops.launches["paged_attention"]
     got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    per_call = ops.launches["paged_attention"] - n0
+    if per_call != 1:
+        raise AssertionError(f"paged_attention: {per_call} launches per call")
     want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
@@ -229,11 +239,13 @@ def check_paged_attention(dtype, timer) -> dict:
     n_bytes = (2 * n_tok * Kh * D * es + 2 * B * H * D * es
                + 4 * int(((lens + T - 1) // T).sum()) + 4 * B)
     b_ms, b_by = bound(n_bytes, 4.0 * n_tok * H * D, dtype)
-    return {"max_abs_err": max_err(got, want),
-            "kernel_ms": timer(lambda: ops.paged_attention(q, k_pool, v_pool, bt, lens)),
+    kernel_ms = timer(lambda: ops.paged_attention(q, k_pool, v_pool, bt, lens))
+    return {"max_abs_err": max_err(got, want), "launches_per_call": per_call,
+            "kernel_ms": kernel_ms,
             "plain_ms": timer(lambda: ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"B": B, "Kh": Kh, "G": G, "D": D, "page_T": T,
+            "bound_share": b_ms / kernel_ms,
+            "shape": {"B": B, "Kh": Kh, "G": G, "D": D, "page_T": T, "P": P,
                       "tokens": n_tok}}
 
 
@@ -354,6 +366,11 @@ def phase_kernels() -> dict:
         emit({"phase": "kernel", "name": "paged_attention", "dtype": str(dtype), **r})
         if dtype == torch.bfloat16:  # the main path runs bf16
             main["paged_attention"] = r
+    # long context: 32 sequences of up to 4,096 tokens (~270 MB of K/V),
+    # where bytes and not launch latency set the time
+    r = check_paged_attention(torch.bfloat16, timer, B=32, P=256)
+    emit({"phase": "kernel", "name": "paged_attention", "dtype": "torch.bfloat16", **r})
+    torch.cuda.empty_cache()
     for dtype, S in [(torch.bfloat16, S) for S in FLASH_BUCKETS] + [(torch.float32, 1024)]:
         r = check_flash_attention(dtype, S, timer)
         emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})

@@ -33,9 +33,9 @@ _PLL = ctypes.POINTER(ctypes.c_longlong)
 # C entry point of each library: the function is named after the kernel
 SIGNATURES = {
     # q, k_pool, v_pool, block_tables, seq_lens, out, B, Kh, G, D, page_T, P,
-    # scale, dtype, stream
-    "paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _I, _P],
+    # num_pages, scale, dtype, stream
+    "paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _I, _P],
     # pool, src, out, n_rows, m_rows, row_bytes, stream
     "segment_compact": [_P, _P, _P, _LL, _LL, _LL, _P],
     # q, k, v, out, strides (12 element strides), B, H, Kh, Sq, Skv, D,

@@ -171,29 +171,34 @@ def flash_attention(q, k, v, *, causal: bool = True):
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens):
     """q: (B, H, D); pools: (num_pages, T, Kh, D); block_tables: (B, P);
     seq_lens: (B,) → (B, H, D).  Table entries are clamped to
-    ``[0, num_pages)``."""
+    ``[0, num_pages)``: by the kernel itself on the card, before the plain
+    version on the CPU.  On the card a call with int32 tables and lengths is
+    one launch whose grid depends only on B and Kh (no host sync, nothing
+    sized by the data), so it can be captured in a CUDA graph."""
     B, H, D = q.shape
     num_pages, T, Kh, _ = k_pool.shape
-    bt = block_tables.clamp(0, num_pages - 1).to(torch.int32)
-    if _on_cpu("paged_attention", q, k_pool, v_pool, bt, seq_lens):
+    if _on_cpu("paged_attention", q, k_pool, v_pool, block_tables, seq_lens):
+        bt = block_tables.clamp(0, num_pages - 1).to(torch.int32)
         return ref.paged_attention_ref(q, k_pool, v_pool, bt, seq_lens)
     if (v_pool.shape != k_pool.shape or k_pool.shape[3] != D or H % Kh
-            or bt.shape[0] != B or seq_lens.shape != (B,)):
+            or block_tables.dim() != 2 or block_tables.shape[0] != B
+            or seq_lens.shape != (B,)):
         raise ValueError(f"paged_attention: bad shapes q {tuple(q.shape)} "
-                         f"pool {tuple(k_pool.shape)} bt {tuple(bt.shape)} "
-                         f"seq_lens {tuple(seq_lens.shape)}")
+                         f"pool {tuple(k_pool.shape)} bt "
+                         f"{tuple(block_tables.shape)} seq_lens "
+                         f"{tuple(seq_lens.shape)}")
     G = H // Kh
     if D not in (32, 64, 128) or G not in (1, 2, 4, 8):
         raise ValueError(f"paged_attention: head dim {D} / group {G} not "
                          f"instantiated (D in 32, 64, 128; G in 1, 2, 4, 8)")
     code = _dtype_code("paged_attention", q, k_pool, v_pool)
-    bt = bt.contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     _check_kernel_inputs("paged_attention", q, k_pool, v_pool, bt, lens, out)
     _launch("paged_attention", q.device, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, Kh, G, D, T, bt.shape[1], 1.0 / math.sqrt(D), code)
+            B, Kh, G, D, T, bt.shape[1], num_pages, 1.0 / math.sqrt(D), code)
     return out
 
 

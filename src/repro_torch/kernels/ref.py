@@ -66,6 +66,51 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens):
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def paged_attention_split_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
+                              n_split: int = 8):
+    """The CUDA kernel's split-KV schedule, in plain PyTorch; only the tests
+    use it.  Arguments and result as :func:`paged_attention_ref`.
+
+    Logical page j of a sequence goes to split ``j % n_split``.  Each split
+    takes the partial (m, l, acc) of its live tokens: m their max logit, l
+    the sum and acc the p-weighted sum of V under that max.  The partials
+    are combined in split order under their common max, with the TPU
+    kernel's guards: a split with no live token (m = -inf) adds nothing and
+    l is floored at 1e-30, so a zero-length sequence gives zeros (where the
+    dense softmax of :func:`paged_attention_ref` gives the mean of V).
+    Softmax math in f32, p kept in f32 as in the kernel.
+    """
+    B, H, D = q.shape
+    _, T, Kh, _ = k_pool.shape
+    P = block_tables.shape[1]
+    G = H // Kh
+    bt = block_tables.long()
+    qg = q.reshape(B, Kh, G, D).float()
+    lens = seq_lens.to(q.device).long()
+    valid = (torch.arange(P * T, device=q.device).view(P, T)[None]
+             < lens[:, None, None])                               # (B, P, T)
+    parts = []
+    for r in range(min(n_split, P)):
+        pages = torch.arange(r, P, n_split, device=q.device)
+        k = k_pool[bt[:, pages]].float().flatten(1, 2)            # (B, n*T, Kh, D)
+        v = v_pool[bt[:, pages]].float().flatten(1, 2)
+        s = torch.einsum("bkgd,btkd->bkgt", qg, k) / math.sqrt(D)
+        s = torch.where(valid[:, pages].flatten(1)[:, None, None], s, -math.inf)
+        m = s.amax(-1)
+        p = torch.where(m[..., None] == -math.inf, 0.0,
+                        torch.exp(s - m[..., None]))
+        parts.append((m, p.sum(-1), torch.einsum("bkgt,btkd->bkgd", p, v)))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = torch.zeros_like(M)
+    acc = torch.zeros(B, Kh, G, D, device=q.device)
+    for m, l_r, acc_r in parts:
+        f = torch.where(m == -math.inf, 0.0, torch.exp(m - M))
+        l = l + f * l_r
+        acc = acc + f[..., None] * acc_r
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def segment_compact_ref(pool, src_idx):
     """The cleaner's data path: relocate live blocks into fresh slabs.
 

@@ -305,6 +305,7 @@ class PagedServingEngine:
         page = torch.where(active, page, self.trash_page).long()
         off = (seq_lens % T).long()
         pos = seq_lens[:, None]
+        attend = seq_lens + 1  # lengths read by attention: the new token too
         for i in range(cfg.n_layers):
             lp = tfm.layer(params["blocks"], i)
             kp, vp = self.k_pools[i], self.v_pools[i]
@@ -312,8 +313,7 @@ class PagedServingEngine:
                                        pos)
             kp[page, off] = k[:, 0].to(kp.dtype)
             vp[page, off] = v[:, 0].to(vp.dtype)
-            o = ops.paged_attention(q[:, 0], kp, vp, self._bt_dev,
-                                    seq_lens + 1)
+            o = ops.paged_attention(q[:, 0], kp, vp, self._bt_dev, attend)
             x = x + torch.einsum("bhe,hed->bd", o.to(x.dtype),
                                  lp["attn"]["wo"])[:, None]
             x = x + tfm._block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)

@@ -107,25 +107,143 @@ def test_flash_attention_bhsd_entry_on_both_routes(dev):
                                    **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Kh,D,T,P", [
-    (2, 4, 4, 64, 16, 4),
-    (3, 8, 2, 32, 8, 6),      # GQA 4:1
-    (1, 4, 1, 128, 32, 3),    # MQA
-    (8, 16, 8, 128, 16, 64),  # qwen3-1.7b heads, 1k-token tables
-])
-def test_paged_attention_kernel(dev, B, H, Kh, D, T, P, dtype):
-    rng = np.random.default_rng(3)
-    n_pages = B * P + 5
+def _paged_inputs(rng, dev, dtype, B, H, Kh, D, T, P, n_pages=None):
+    """q, pools and disjoint random tables (as the slab allocator hands out),
+    from numpy with a seed."""
+    n_pages = n_pages or B * P + 5
     q = _randn(rng, (B, H, D), dtype, dev)
     k_pool = _randn(rng, (n_pages, T, Kh, D), dtype, dev)
     v_pool = _randn(rng, (n_pages, T, Kh, D), dtype, dev)
     bt = torch.from_numpy(rng.permutation(n_pages)[:B * P].reshape(B, P)
                           .astype(np.int32)).to(dev)
-    lens = torch.from_numpy(np.linspace(1, P * T, B).astype(np.int32)).to(dev)
+    return q, k_pool, v_pool, bt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Kh,D,T,P,lens", [
+    (2, 4, 4, 64, 16, 4, None),
+    (3, 8, 2, 32, 8, 6, None),      # GQA 4:1
+    (1, 4, 1, 128, 32, 3, None),    # MQA
+    (8, 16, 8, 128, 16, 64, None),  # qwen3-1.7b heads, 1k-token tables
+    # the split edges: zero-length and one-token rows, exactly 8 pages,
+    # 8*2 + 1 pages, a full table of P = 20 (not a multiple of 8)
+    (6, 16, 8, 128, 16, 20, [0, 1, 128, 257, 320, 7]),
+    (3, 4, 4, 128, 16, 1, [0, 16, 9]),          # P = 1
+    (3, 16, 2, 128, 16, 12, [1, 100, 192]),     # G = 8
+    (3, 8, 1, 32, 8, 9, [0, 72, 65]),           # G = 8, D = 32, P = 9
+    # 1,099 pages: a warp of the kernel walks more than 32 of them
+    (2, 4, 2, 64, 2, 1100, [2197, 2200]),
+])
+def test_paged_attention_kernel(dev, B, H, Kh, D, T, P, lens, dtype):
+    """Against the plain version; a zero-length row is zeros, as in the
+    Pallas kernel (the plain dense softmax gives the mean of V there).  Every
+    row is also held against the plain model of the kernel's split schedule.
+    One launch per call."""
+    rng = np.random.default_rng(3)
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, dtype, B, H, Kh, D, T, P)
+    lens = np.linspace(1, P * T, B) if lens is None else lens
+    lens = torch.tensor(np.asarray(lens, np.int32), device=dev)
+    n0 = ops.launches["paged_attention"]
     got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_attention"] == n0 + 1
+    live = lens > 0
     want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    assert not got[~live].float().any()
+    split = ref.paged_attention_split_ref(q, k_pool, v_pool, bt, lens)
+    torch.testing.assert_close(got.float(), split.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_clamps_tables(dev, dtype):
+    """Entries outside [0, num_pages) are clamped by the kernel itself, as
+    ``repro.kernels.ops.paged_attention`` clips them before its kernel."""
+    rng = np.random.default_rng(4)
+    B, H, Kh, D, T, P, n_pages = 3, 16, 8, 128, 16, 10, 12
+    q, k_pool, v_pool, _ = _paged_inputs(rng, dev, dtype, B, H, Kh, D, T, 1,
+                                         n_pages)
+    bt = torch.from_numpy(rng.integers(-5, 2 * n_pages, (B, P)).astype(np.int32))
+    bt[0, :3] = torch.tensor([-1, n_pages, 1 << 30])
+    bt = bt.to(dev)
+    lens = torch.tensor([P * T, 97, 33], dtype=torch.int32, device=dev)
+    got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    want = ref.paged_attention_ref(q, k_pool, v_pool,
+                                   bt.clamp(0, n_pages - 1), lens)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_paged_attention_kernel_is_one_device_kernel(dev):
+    """A call on int32 tables and lengths is the kernel and nothing else on
+    the device: no clamp, no conversion, no second combine kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, torch.bfloat16, 8, 16, 8,
+                                          128, 16, 64)
+    bt[0, 0] = -7  # an entry that only the kernel clamps
+    lens = torch.full((8,), 600, dtype=torch.int32, device=dev)
+    ops.paged_attention(q, k_pool, v_pool, bt, lens)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.paged_attention(q, k_pool, v_pool, bt, lens)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "paged_attention_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_is_batch_invariant(dev, dtype):
+    """A sequence's output is bitwise the same alone (B = 1, a table just
+    wide enough) and in a batch of 8 (a wider table, other rows of every
+    length, padding entries past its pages), and from call to call."""
+    rng = np.random.default_rng(6)
+    H, Kh, D, T, P = 16, 8, 128, 16, 40
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, dtype, 8, H, Kh, D, T, P)
+    lens = torch.from_numpy(rng.integers(0, P * T + 1, 8).astype(np.int32)).to(dev)
+    row, n = 5, 331  # 21 pages: splits of 3 and 2 pages
+    lens[row] = n
+    batch = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    need = -(-n // T)
+    alone = ops.paged_attention(q[row:row + 1].clone(), k_pool, v_pool,
+                                bt[row:row + 1, :need].clone(),
+                                lens[row:row + 1].clone())
+    again = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[row])
+    assert torch.equal(again, batch)
+
+
+def test_paged_attention_kernel_replays_in_a_cuda_graph(dev):
+    """Captured once in a CUDA graph, then replayed after the lengths and
+    the table were rewritten in place: each replay matches the plain
+    version on the new contents."""
+    rng = np.random.default_rng(7)
+    B, H, Kh, D, T, P = 8, 16, 8, 128, 16, 32
+    n_pages = 2 * B * P
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, torch.bfloat16, B, H, Kh,
+                                          D, T, P, n_pages)
+    lens = torch.from_numpy(rng.integers(1, P * T + 1, B).astype(np.int32)).to(dev)
+    ops.paged_attention(q, k_pool, v_pool, bt, lens)  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = ops.launches["paged_attention"]
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    assert ops.launches["paged_attention"] == n0 + 1
+    for _ in range(3):
+        bt.copy_(torch.from_numpy(rng.permutation(n_pages)[:B * P]
+                                  .reshape(B, P).astype(np.int32)))
+        lens.copy_(torch.from_numpy(rng.integers(0, P * T + 1, B)
+                                    .astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        live = lens > 0
+        want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+        torch.testing.assert_close(out[live].float(), want[live].float(),
+                                   **TOL[torch.bfloat16])
+        assert not out[~live].float().any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])

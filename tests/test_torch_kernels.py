@@ -21,7 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.serving.engine import _move_pages_fn
 from repro_torch.core import policies
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -178,6 +178,45 @@ def test_paged_attention_clamps_tables_like_the_jax_wrapper():
     got = ops.paged_attention(*(torch.from_numpy(a) for a in (q, kp, vp, bt, lens)))
     want = jops.paged_attention(*(jnp.asarray(a) for a in (q, kp, vp, bt, lens)))
     np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Kh,D,T,P,lens", [
+    # zero-length, one token, exactly 8 pages, 8*2 + 1 pages, a full table
+    # of P = 20 (not a multiple of 8), and a sequence whose splits 1-7 are
+    # empty
+    (4, 2, 32, 8, 20, [0, 1, 64, 129, 160, 7]),
+    (16, 2, 64, 4, 11, [0, 5, 44]),          # G = 8, P = 11
+    (4, 1, 32, 16, 1, [0, 16, 9]),           # P = 1: one split in use
+    (4, 2, 128, 16, 9, [0, 129, 144]),       # full-width head: D=128, G=2
+])
+def test_paged_attention_split_model_matches_pallas_and_ref(H, Kh, D, T, P,
+                                                            lens, dtype):
+    """``ref.paged_attention_split_ref``, the plain model of the CUDA
+    kernel's schedule (page j in split j % 8, the partials combined in split
+    order), against the Pallas kernel in interpret mode on every row, and
+    against the JAX dense reference on the rows with live tokens: a
+    zero-length row is zeros in the kernels and the mean of V in the dense
+    softmax over a fully masked row."""
+    rng = np.random.default_rng(9)
+    B = len(lens)
+    n_pages = B * P + 3
+    jq, q = both(rng.standard_normal((B, H, D), np.float32), dtype)
+    jkp, kp = both(rng.standard_normal((n_pages, T, Kh, D), np.float32), dtype)
+    jvp, vp = both(rng.standard_normal((n_pages, T, Kh, D), np.float32), dtype)
+    bt_np = rng.permutation(n_pages)[:B * P].reshape(B, P).astype(np.int32)
+    lens_np = np.asarray(lens, np.int32)
+    got = ref.paged_attention_split_ref(q, kp, vp, torch.from_numpy(bt_np),
+                                        torch.from_numpy(lens_np))
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, H, D)
+    args = (jq, jkp, jvp, jnp.asarray(bt_np), jnp.asarray(lens_np))
+    np.testing.assert_allclose(f32(got), f32(jops.paged_attention(*args)),
+                               **TOL[dtype])
+    live = lens_np > 0
+    np.testing.assert_allclose(f32(got)[live],
+                               f32(jref.paged_attention_ref(*args))[live],
+                               **TOL[dtype])
+    assert not f32(got)[~live].any()
 
 
 # ----------------------------------------------------------- segment compact
