@@ -21,7 +21,12 @@ Phases, in order; any failure raises and the process exits non-zero:
              at S 1024 in f32 on its CUDA-core route, each line naming the
              route; the compaction move runs a disjoint plan (one launch) and
              an overlapping one (gather and scatter) beside the PyTorch
-             expression ``p[:, dst] = p[:, src]``.
+             expression ``p[:, dst] = p[:, src]``.  Flash attention also runs
+             at the prefix-hit shape (512 query rows after a 512-token cached
+             prefix, over 1,024 keys) on both routes: against its plain
+             version, and bit for bit the same rows of the ``q_offset = 0``
+             call over all 1,024 rows, beside ``scaled_dot_product_attention``
+             with the same (lower-right causal) mask.
 4. engine  — the paged serving engine on the full-width qwen3-1.7b (28
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
@@ -43,9 +48,26 @@ Phases, in order; any failure raises and the process exits non-zero:
              -1 / +inf pattern, finite keys within rtol 1e-6), the victims
              equal as a set to the plain route's on the card, and their keys
              equal as a multiset (rtol 1e-5) to the f64 host selection's;
-             kernel, plain and key + top-k times beside the bound.  It runs
-             last, so that the engine phase runs in the same process history
-             as before this phase existed.
+             kernel, plain and key + top-k times beside the bound.  It and
+             the phases below run after the tokens phase, so that the engine
+             phase runs in the same process history as before they existed.
+7. prefix  — 16 requests sharing one 512-token system prompt (tails of
+             64-256 tokens, 32-64 new tokens) through the full-width engine
+             four times, cold and with the prefix cache in turns: hit rate,
+             prefill tokens saved, shared frames, flash launches with a query
+             offset, pool and tree invariants; wall and prefill stream times
+             (CUDA events around each admission's prefill); the share of requests
+             whose bf16 tokens equal the cold run's (reported: a 256-row GEMM
+             need not round like the rows of a 1,024-row one).  Then 4 such
+             requests at f32 (TF32 off), hit against cold: equal tokens, or a
+             first mismatch on a near-tie of the plain decode.
+8. preemption — the engine phase's first 16 requests, with preemption on,
+             through a pool small enough to preempt (chosen by rehearsing the
+             host schedule on the CPU: ``scripts/rehearse_schedule.py``) and
+             one with room to spare: ``preemptions`` >= 1, ``resumes`` equal
+             to it, and every request's tokens equal to the big pool's.
+             Each of these two phases zeroes the launch counters before it
+             and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -108,6 +130,13 @@ KERNELS = {
 # there are 0); mdc_priority's path is the victims phase.
 ENGINE_KERNELS = ("paged_attention", "segment_move", "flash_attention")
 FLASH_BUCKETS = (256, 512, 1024)  # the engine's prefill buckets
+# the engine phase's pool and slots; the prefix and preemption phases keep
+# them (the preemption phase sizes its own pools)
+POOL = dict(n_slabs=30, blocks_per_slab=16, page_T=16, max_batch=8,
+            max_seq=2048, streams=1, compact_trigger=2, compact_batch=4,
+            max_decode_chunk=32)
+PREFIX_LEN = 512             # the shared system prompt: 32 pages of 16
+PREEMPT_SLABS = (24, 40)     # a pool that preempts, and one with room
 
 
 def emit(obj) -> None:
@@ -288,6 +317,57 @@ def check_flash_attention(dtype, S, timer) -> dict:
             "shape": {"B": B, "H": H, "Kh": Kh, "S": S, "D": D, "causal": True}}
 
 
+def check_flash_offset(dtype, timer, Sq=512, Skv=1024) -> dict:
+    """The prefix-hit shape: Sq query rows at absolute positions q_offset +
+    i (q_offset = Skv - Sq, a cached prefix) over Skv keys, causal.  Held to
+    the plain version, and bit for bit to the same rows of the q_offset = 0
+    call over all Skv rows.  Yardstick: ``scaled_dot_product_attention``
+    with ``causal_lower_right``, which is this mask when q_offset = Skv -
+    Sq."""
+    from torch.nn.attention.bias import causal_lower_right
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, Kh, D, off = 1, 16, 8, 128, Skv - Sq
+    q_all = torch.randn(B, Skv, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, Kh, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, Kh, D, generator=g, device="cuda").to(dtype)
+    q = q_all[:, off:]
+    route = ops.flash_route(dtype, D)
+    before = ops.flash_offsets["nonzero"], ops.flash_routes[route]
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    if (ops.flash_offsets["nonzero"], ops.flash_routes[route]) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError(f"flash_attention q_offset {dtype}: not one "
+                             f"offset launch on the {route} route")
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    whole = ops.flash_attention(q_all, k, v, causal=True)
+    rows_equal = bool(torch.equal(got, whole[:, off:]))
+    if not rows_equal:
+        raise AssertionError(f"flash_attention q_offset {dtype}: rows differ "
+                             f"from the q_offset = 0 call's")
+    qh = q.transpose(1, 2).contiguous()
+    k_h = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
+    v_h = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
+    mask = causal_lower_right(Sq, Skv)
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = (2 * B * H * Sq * D + 2 * B * Kh * Skv * D) * es
+    flops = 4.0 * B * H * D * (Sq * off + Sq * (Sq + 1) / 2)
+    b_ms, b_by = bound(n_bytes, flops, dtype)
+    kernel_ms, library_ms = timer(
+        lambda: ops.flash_attention(q, k, v, causal=True, q_offset=off),
+        lambda: F.scaled_dot_product_attention(qh, k_h, v_h, attn_mask=mask))
+    return {"flash_route": route, "q_offset": off,
+            "max_abs_err": max_err(got, want), "rows_bitwise_equal": rows_equal,
+            "kernel_ms": kernel_ms,
+            "plain_ms": timer(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, q_offset=off)),
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"B": B, "H": H, "Kh": Kh, "Sq": Sq, "Skv": Skv, "D": D,
+                      "causal": True}}
+
+
 def check_segment_compact(dtype, E, timer) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     L, n_pages, moves = 28, 481, 64  # the engine's flattened pool, one plan
@@ -376,6 +456,9 @@ def phase_kernels() -> dict:
         emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})
         if dtype == torch.bfloat16 and S == max(FLASH_BUCKETS):
             main["flash_attention"] = r
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_flash_offset(dtype, timer)
+        emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})
     for dtype, E in ((torch.bfloat16, 16384), (torch.int32, 16383)):
         r = check_segment_compact(dtype, E, timer)
         emit({"phase": "kernel", "name": "segment_compact", "dtype": str(dtype), **r})
@@ -469,20 +552,34 @@ def phase_victims() -> tuple[dict, int]:
     return results[0], sum(r["launches"] for r in results)
 
 
+def engine_requests(vocab: int) -> tuple[list, np.ndarray]:
+    """The engine phase's 32 requests: prompts of 256-1024 tokens, 32-128
+    new tokens (seed 0)."""
+    rng = np.random.default_rng(SEED)
+    plens = rng.integers(256, 1025, 32)
+    news = rng.integers(32, 129, 32)
+    return [rng.integers(1, vocab, p) for p in plens], news
+
+
+def prefix_requests(vocab: int, n: int = 16) -> list:
+    """n requests sharing one PREFIX_LEN-token system prompt, each with its
+    own tail of 64-256 tokens and 32-64 new tokens (seed 0)."""
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(1, vocab, PREFIX_LEN)
+    tails, news = rng.integers(64, 257, n), rng.integers(32, 65, n)
+    return [(np.concatenate([system, rng.integers(1, vocab, t)]), int(m))
+            for t, m in zip(tails, news)]
+
+
 def phase_engine(cfg) -> dict:
     """32 requests (prompts 256-1024 tokens, 32-128 new tokens) through a
     pool of 30 slabs x 16 pages x 16 tokens: 8 slots of such requests hold
     up to ~9k tokens, so a 7,680-token pool with one open stream fills,
     checkerboards and compacts under pressure (no forced compaction)."""
     model = Model(cfg, device="cuda", seed=SEED)
-    eng = PagedServingEngine(model, n_slabs=30, blocks_per_slab=16, page_T=16,
-                             max_batch=8, max_seq=2048, streams=1,
-                             compact_trigger=2, compact_batch=4,
-                             max_decode_chunk=32, device="cuda")
-    rng = np.random.default_rng(SEED)
-    plens = rng.integers(256, 1025, 32)
-    news = rng.integers(32, 129, 32)
-    prompts = [rng.integers(1, cfg.vocab_size, p) for p in plens]
+    eng = PagedServingEngine(model, **POOL, device="cuda")
+    prompts, news = engine_requests(cfg.vocab_size)
+    plens = np.array([len(p) for p in prompts])
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -564,6 +661,164 @@ def phase_tokens(cfg) -> None:
                              f"(top-2 margin {at})")
 
 
+def serve(model, requests, **kw) -> dict:
+    """One engine over ``requests`` on the card, launch counters zeroed just
+    before and read just after; each admission's prefill is bracketed by
+    CUDA events (the stream's time from its first launch to its last, host
+    gaps included: the eager prefill is host-bound)."""
+    eng = PagedServingEngine(model, **{**POOL, **kw}, device="cuda")
+    events = []
+    start = eng._start
+
+    def timed_start(*args, **kwargs):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        start(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+
+    eng._start = timed_start
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, n) for p, n in requests]
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"launches": dict(ops.launches), "flash_routes": dict(ops.flash_routes),
+              "flash_offsets": dict(ops.flash_offsets)}
+    eng.pool.check_invariants()
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.check_invariants()
+    tokens = [eng.finished[r] for r in rids]
+    for t, (_, n) in zip(tokens, requests):
+        if len(t) != n:
+            raise AssertionError(f"a request emitted {len(t)} tokens, want {n}")
+    return {"tokens": tokens, "metrics": eng.metrics(), "wall_s": wall,
+            "prefill_stream_ms": sum(a.elapsed_time(b) for a, b in events),
+            "prefills": len(events), **counts}
+
+
+def phase_prefix(cfg) -> dict:
+    """bf16 at full width, cold then hit, on the engine phase's pool; then
+    the f32 leg (4 requests, f32 weights and pool) whose tokens are held."""
+    reqs = prefix_requests(cfg.vocab_size)
+    model = Model(cfg, device="cuda", seed=SEED)
+    # cold and hit in turns, twice, so that neither sits alone on the
+    # first-run costs or on one stretch of the shared host's load
+    runs = {"cold": [], "hit": []}
+    for _ in range(2):
+        for name, on in (("cold", False), ("hit", True)):
+            runs[name].append(serve(model, reqs, prefix_cache=on))
+    del model
+    torch.cuda.empty_cache()
+    cold, hit = runs["cold"][-1], runs["hit"][-1]
+    m = hit["metrics"]
+    if m["prefix_hit_rate"] < 15 / 16 or m["prefill_tokens_saved"] <= 0 \
+            or m["frames_shared"] <= 0:
+        raise AssertionError(f"prefix cache: hit rate {m['prefix_hit_rate']}, "
+                             f"saved {m['prefill_tokens_saved']}, shared "
+                             f"{m['frames_shared']}")
+    if hit["flash_offsets"]["nonzero"] == 0:
+        raise AssertionError("no flash_attention launch with a query offset")
+    missing = [k for k in ("flash_attention", "paged_attention")
+               if hit["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the prefix path never launched {missing}")
+    same = sum(a == b for a, b in zip(hit["tokens"], cold["tokens"]))
+    if any(r["tokens"] != hit["tokens"] for r in runs["hit"]) or any(
+            r["tokens"] != cold["tokens"] for r in runs["cold"]):
+        raise AssertionError("a repeated run gave other tokens")
+
+    # f32 leg: the tokens phase's weights at f32, an f32 pool, TF32 off
+    bf = Model(cfg, device="cuda", seed=SEED).params
+    model = Model(cfg, unflatten((p, t.float()) for p, t in flatten(bf)))
+    del bf
+    small = reqs[:4]
+    f32 = {name: serve(model, small, prefix_cache=on,
+                       pool_dtype=torch.float32)
+           for name, on in (("cold", False), ("hit", True))}
+    mismatches = []
+    for (prompt, n), a, b in zip(small, f32["hit"]["tokens"],
+                                 f32["cold"]["tokens"]):
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if first is None:
+            continue
+        _, margins = oracle_margins(model.params, prompt, cfg, n)
+        mismatches.append({"first_mismatch": first,
+                           "margin_at_mismatch": margins[first]})
+        if not margins[first] < 1e-3:
+            raise AssertionError(f"f32 prefix hit: tokens differ from cold at "
+                                 f"{first} (plain top-2 margin {margins[first]})")
+    if f32["hit"]["metrics"]["prefill_tokens_saved"] <= 0:
+        raise AssertionError("f32 leg: no prefix hit")
+    del model
+    torch.cuda.empty_cache()
+
+    def summary(rs):
+        mm, r = rs[-1]["metrics"], rs[-1]
+        return {"wall_s": [x["wall_s"] for x in rs],
+                "prefill_stream_ms": [x["prefill_stream_ms"] for x in rs],
+                "prefills": r["prefills"],
+                "prefill_tokens_computed": mm.get("prefill_tokens_computed",
+                                                  sum(len(p) for p, _ in reqs)),
+                "compactions": mm["compactions"], "launches": r["launches"],
+                "flash_offsets": r["flash_offsets"]}
+
+    out = {"phase": "prefix", "model": cfg.name, "dtype": "bfloat16",
+           "requests": len(reqs), "shared_prompt_tokens": PREFIX_LEN,
+           "prompt_tokens": sum(len(p) for p, _ in reqs),
+           "prefix_hit_rate": m["prefix_hit_rate"],
+           "prefill_tokens_saved": m["prefill_tokens_saved"],
+           "frames_shared": m["frames_shared"],
+           "tokens_equal_share": same / len(reqs),
+           "cold": summary(runs["cold"]), "hit": summary(runs["hit"]),
+           "f32": {"requests": len(small),
+                   "equal": f32["hit"]["tokens"] == f32["cold"]["tokens"],
+                   "mismatches": mismatches,
+                   "prefill_tokens_saved":
+                       f32["hit"]["metrics"]["prefill_tokens_saved"]}}
+    emit(out)
+    return hit["launches"]
+
+
+def phase_preemption(cfg) -> dict:
+    """The engine phase's first 16 requests with preemption on, through a
+    pool that forces preemption and one with room to spare: the resumed
+    sequences must re-derive their tokens exactly (the decode batch is
+    always max_batch rows, and every kernel of it is batch-invariant)."""
+    prompts, news = engine_requests(cfg.vocab_size)
+    reqs = [(p, int(n)) for p, n in zip(prompts[:16], news[:16])]
+    model = Model(cfg, device="cuda", seed=SEED)
+    small, big = (serve(model, reqs, n_slabs=n, preemption=True)
+                  for n in PREEMPT_SLABS)
+    del model
+    torch.cuda.empty_cache()
+    ms, mb = small["metrics"], big["metrics"]
+    if ms["preemptions"] < 1 or ms["resumes"] != ms["preemptions"]:
+        raise AssertionError(f"small pool: {ms['preemptions']} preemptions, "
+                             f"{ms['resumes']} resumes")
+    if mb["preemptions"] != 0:
+        raise AssertionError(f"big pool preempted {mb['preemptions']} times")
+    missing = [k for k in ("flash_attention", "paged_attention")
+               if small["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the preemption path never launched {missing}")
+    diff = [i for i, (a, b) in enumerate(zip(small["tokens"], big["tokens"]))
+            if a != b]
+    emit({"phase": "preemption", "model": cfg.name, "dtype": "bfloat16",
+          "requests": len(reqs), "pools_slabs": list(PREEMPT_SLABS),
+          "preemptions": ms["preemptions"], "resumes": ms["resumes"],
+          "recomputed_tokens": ms["recomputed_tokens"],
+          "compactions": ms["compactions"], "tokens_equal": not diff,
+          "differing_requests": diff, "wall_s": small["wall_s"],
+          "big_pool_wall_s": big["wall_s"], "launches": small["launches"]})
+    if diff:
+        raise AssertionError(f"requests {diff}: tokens differ from the big "
+                             f"pool's after preemption")
+    return small["launches"]
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -576,11 +831,14 @@ def main() -> None:
     phase_tokens(cfg)
     torch.cuda.empty_cache()
     results["mdc_priority"], launches["mdc_priority"] = phase_victims()
+    paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg)}
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims" if name == "mdc_priority" else "engine"
                   if name in ENGINE_KERNELS else "none"),
-         "launches": launches[name], "ms": results[name]["kernel_ms"],
+         "launches": launches[name],
+         "path_launches": {p: n[name] for p, n in paths.items()},
+         "ms": results[name]["kernel_ms"],
          **{k: results[name][k] for k in ("max_abs_err", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}}

@@ -10,20 +10,28 @@ with ``torch.profiler`` (CPU and CUDA activities):
 * decode  — eight slots admitted (prompts of 512 tokens), then dispatches
             of a full batch with no admission in the window;
 * prefill — one 1024-token prompt through ``tfm.prefill`` (its flash
-            attention on the tensor-core route, ``flash_routes``).
+            attention on the tensor-core route, ``flash_routes``);
+* prefill_cold / prefill_hit — ``chip_smoke.py``'s prefix stream at its
+            longest: a 768-token prompt whose first 512 tokens are cached.
+            Cold: the whole prompt (bucket 1,024).  Hit: the prefix K/V
+            gathered from pool pages as the engine does, then
+            ``tfm.prefill_with_prefix`` of the 256-token tail over a
+            1,024-key extent (flash attention with ``q_offset`` 512).
 
-Each window runs once without the profiler (``wall_ms``) and once under it
-(``wall_ms_profiled``, which carries the profiler's own cost).  For each it
-prints one JSON line: wall ms, the device's busy ms (sum of kernel times
-under the profiler), the idle share against the unprofiled wall, kernel
-launches, the kernels that take the most device time, and the time of
-each of the port's own kernels.  Measurement only: nothing here is
-asserted.
+Each window runs without the profiler (``wall_ms``; for the prefix pair the
+median of five runs in turns) and once under it (``wall_ms_profiled``,
+which carries the profiler's own cost).  For each it prints one JSON line:
+wall ms, the device's busy ms (sum of kernel times under the profiler), the
+idle share against the unprofiled wall, kernel launches, the kernels that
+take the most device time, the time of each of the port's own kernels, and
+the host operators with the most self CPU time under the profiler (with
+their calls).  Measurement only: nothing here is asserted.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -63,10 +71,16 @@ def kernel_table(prof, wall_ms: float, n_units: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     port = {k: sum(t for n, t in by_name.items() if fn in n) / n_units
             for k, fn in PORT_KERNELS.items()}
+    # host side: the operators with the most self CPU time (profiled, so
+    # inflated by the profiler's own cost; read them as shares), and calls
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    top_host = {a.key[:60]: [a.self_cpu_time_total / 1e3 / n_units,
+                             a.count / n_units] for a in host[:10]}
     return {"wall_ms": wall_ms / n_units, "device_busy_ms": busy / n_units,
             "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "launches": len(rows) / n_units,
             "top_kernels_ms": {n[:80]: t / n_units for n, t in top},
+            "top_host_ops_ms_calls": top_host,
             "port_kernels_ms": {k: t for k, t in port.items() if t}}
 
 
@@ -130,6 +144,51 @@ def main() -> None:
     print(json.dumps({"window": "prefill", "tokens": 1024, "per": "prompt",
                       "wall_ms_profiled": wall, "flash_routes": routes,
                       **kernel_table(prof, plain_ms, 1)}), flush=True)
+
+    # prefix hit: 512 cached tokens (32 pages of the engine's pool) + a
+    # 256-token tail, against the cold prefill of the whole 768 tokens
+    P, tail, T = 512, 256, eng.page_T
+    prompt = rng.integers(1, cfg.vocab_size, P + tail)
+    cold_toks = torch.zeros(1, 1024, dtype=torch.int64, device="cuda")
+    cold_toks[0, :P + tail] = torch.from_numpy(prompt)
+    L, _, _, Kh, hd = eng.k_pools.shape
+    pages = torch.arange(P // T, device="cuda")
+
+    def cold() -> None:
+        tfm.prefill(model.params, cold_toks, cfg, 1024, true_len=P + tail)
+
+    def hit() -> None:
+        k_pre = eng.k_pools[:, pages].reshape(L, 1, P, Kh, hd)
+        v_pre = eng.v_pools[:, pages].reshape(L, 1, P, Kh, hd)
+        tfm.prefill_with_prefix(model.params, cold_toks[:, P:P + tail], cfg,
+                                k_pre, v_pre, tail, true_len=tail,
+                                kv_len=1024)
+
+    def run(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    windows = (("prefill_cold", cold, P + tail), ("prefill_hit", hit, tail))
+    walls: dict[str, list[float]] = {name: [] for name, _, _ in windows}
+    for _, fn, _ in windows:
+        run(fn)  # warm-up
+    for _ in range(5):  # cold and hit in turns: the host's load drifts
+        for name, fn, _ in windows:
+            walls[name].append(run(fn))
+    for name, fn, tokens in windows:
+        ops.reset_launches()
+        run(fn)
+        offsets = dict(ops.flash_offsets)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run(fn)
+        print(json.dumps({"window": name, "tokens": tokens, "per": "prompt",
+                          "wall_ms_runs": walls[name],
+                          "wall_ms_profiled": wall, "flash_offsets": offsets,
+                          **kernel_table(prof, statistics.median(walls[name]),
+                                         1)}), flush=True)
     print(smi, flush=True)
 
 

@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Rehearse the host-side schedule of ``chip_smoke.py``'s engine streams on
+the CPU, to size a pool before a run on the card.
+
+    PYTHONPATH=src python3 scripts/rehearse_schedule.py preemption 10 12 16 64
+    PYTHONPATH=src python3 scripts/rehearse_schedule.py prefix 30
+
+Without a stop token the pool's decisions (admission, placement, cleaning,
+preemption, prefix hits) depend on the prompts' lengths and shared pages,
+not on the model's values, so the smoke model on the CPU, at the same pool
+geometry (``chip_smoke.POOL``), replays the full-width schedule.  For each
+pool size (in slabs) it prints one JSON line: preemptions, resumes,
+recomputed tokens, compactions, Wamp, dispatches and, for the prefix
+stream, the hit rate and the prefill tokens saved.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving import PagedServingEngine  # noqa: E402
+
+
+def main() -> None:
+    stream, slabs = sys.argv[1], [int(a) for a in sys.argv[2:]]
+    torch.set_num_threads(1)
+    full = get_config("qwen3-1.7b")
+    model = Model(full.smoke(), device="cpu", seed=0)
+    if stream == "preemption":
+        prompts, news = chip_smoke.engine_requests(full.vocab_size)
+        reqs = [(p, int(n)) for p, n in zip(prompts[:16], news[:16])]
+        kw = dict(preemption=True)
+    elif stream == "prefix":
+        reqs = chip_smoke.prefix_requests(full.vocab_size)
+        kw = dict(prefix_cache=True)
+    else:
+        raise SystemExit(f"unknown stream {stream!r}: preemption or prefix")
+    for n_slabs in slabs:
+        eng = PagedServingEngine(model, **{**chip_smoke.POOL, **kw,
+                                           "n_slabs": n_slabs},
+                                 pool_dtype=torch.float32, device="cpu")
+        for p, n in reqs:
+            eng.submit(p % model.cfg.vocab_size, n)
+        eng.run_to_completion()
+        eng.pool.check_invariants()
+        m = eng.metrics()
+        print(json.dumps({"stream": stream, "n_slabs": n_slabs, **{
+            k: m[k] for k in ("preemptions", "resumes", "recomputed_tokens",
+                              "compactions", "wamp", "dispatches",
+                              "prefix_hit_rate", "prefill_tokens_saved")
+            if k in m}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,10 +6,15 @@ lifecycle (FREE → OPEN → USED → FREE), per-segment {A, C, u_p2} accounting
 selection, and death-stream placement (SepBIT arXiv:2104.12425: ``k`` open
 segments, each append routed by running quantiles of its predicted death).
 
-What the serving slice does not run is left out: the byte-accounted log and
+Reference counts are kept per frame: a page shared by several sequences
+and the prefix cache lives until its last reference drops
+(:meth:`FrameLog.incref_slots`, :meth:`FrameLog.kill_slots`), and its death
+estimate is the maximum over its holders (:meth:`FrameLog.raise_up2`).
+
+What the serving path does not run is left out: the byte-accounted log and
 its journal, fenced (asynchronous) cleaning, the simulator's item
-back-pointers, the oracle update probabilities, prefix sharing's extra
-references, and the observability hooks.
+back-pointers, the oracle update probabilities and the observability
+hooks.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ class StoreStats:
     cleaned_segments: int = 0
     cleanings: int = 0         # clean cycles (pool: compactions)
     sum_E_cleaned: float = 0.0  # Σ empty-fraction of cleaned segments
+    frames_shared: int = 0     # extra references taken on live frames
     ref_drops: int = 0         # decrefs that did NOT free (sharing survived)
     stream_writes: list = dataclasses.field(default_factory=list)
     stream_moves: list = dataclasses.field(default_factory=list)
@@ -93,6 +99,10 @@ class StoreStats:
     @property
     def blocks_moved(self) -> int:
         return self.gc_moves
+
+    @property
+    def blocks_died(self) -> int:
+        return self.deaths
 
     @property
     def compactions(self) -> int:
@@ -396,6 +406,43 @@ class FrameLog(LogStructureBase):
                 if self.room(s) == 0:
                     self.seal(s)
         return out
+
+    # -- sharing --------------------------------------------------------------
+    def incref_slots(self, segs: np.ndarray, slots: np.ndarray,
+                     up2: np.ndarray | None = None) -> None:
+        """Take an extra reference on live frames (prefix sharing).
+
+        A multi-referenced frame is live until *every* reference is dropped;
+        ``up2`` (optional) raises each frame's death estimate to the max over
+        its referencing sequences — a shared frame dies when the *last*
+        referencer does.  (seg, slot) pairs must be unique within one call,
+        like ``kill_slots``."""
+        segs = np.asarray(segs, dtype=np.int64)
+        slots = np.asarray(slots, dtype=np.int64)
+        if len(segs) == 0:
+            return
+        flat = segs * self.S + slots
+        assert len(np.unique(flat)) == len(flat), \
+            "duplicate (seg, slot) in one incref call"
+        assert (self.slot_ref[segs, slots] >= 1).all(), "incref of dead slot"
+        self.slot_ref[segs, slots] += 1
+        self.stats.frames_shared += len(segs)
+        if up2 is not None:
+            self.raise_up2(segs, slots, up2)
+
+    def raise_up2(self, segs: np.ndarray, slots: np.ndarray,
+                  up2: np.ndarray) -> None:
+        """Raise death estimates to ``max(current, up2)`` and re-tag the
+        containing segments (§5.2.2): sealed segments recompute their frozen
+        u_p2 mean so victim selection sees the extended lifetime at once."""
+        cur = self.slot_up2[segs, slots]
+        new = np.maximum(cur, np.asarray(up2, dtype=np.float64))
+        self.slot_up2[segs, slots] = new
+        np.add.at(self.seg_up2sum, segs, new - cur)
+        used = np.unique(segs[self.seg_state[segs] == USED])
+        if len(used):
+            self.seg_up2[used] = (self.seg_up2sum[used]
+                                  / np.maximum(self.seg_live[used], 1))
 
     # -- deaths ---------------------------------------------------------------
     def kill_slots(self, segs: np.ndarray, slots: np.ndarray,

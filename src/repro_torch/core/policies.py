@@ -87,6 +87,38 @@ def select_victims(policy: str, k: int, *, live: np.ndarray, S: int,
     return _take_smallest(key, k)
 
 
+def key_preempt(recompute: np.ndarray, freeable: np.ndarray,
+                remaining: np.ndarray) -> np.ndarray:
+    """Sequence-preemption priority of the serving scheduler; smallest key
+    preempted first.
+
+    The MDC declining-cost shape applied to *sequences* instead of
+    segments: B−A ≡ ``recompute`` (tokens to re-prefill on resume — the
+    cost of evicting the sequence), A ≡ ``freeable`` (pages whose last
+    reference the preemption drops — the space reclaimed now), and
+    C·interval ≡ ``freeable`` × ``remaining`` (the space-time the pages
+    would otherwise stay occupied).  Sequences that are cheap to recompute,
+    hold many exclusive pages and would hold them longest go first; one
+    whose pages are all shared (``freeable`` == 0) frees nothing and is
+    never picked (key = inf)."""
+    cost = recompute.astype(np.float64)
+    A = freeable.astype(np.float64)
+    interval = np.maximum(remaining.astype(np.float64), 1.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        decline = np.where(
+            A > 0,
+            (cost / np.maximum(A, _EPS)) ** 2 / (np.maximum(A, 1.0) * interval),
+            _INF)
+    return decline
+
+
+def select_preempt(k: int, *, recompute: np.ndarray, freeable: np.ndarray,
+                   remaining: np.ndarray) -> np.ndarray:
+    """Up to ``k`` preemption victims (indices into the candidate arrays)
+    with the smallest :func:`key_preempt`, ascending."""
+    return _take_smallest(key_preempt(recompute, freeable, remaining), k)
+
+
 # ---------------------------------------------------------------------------
 # torch twins: the device route of victim selection (f32, no host sync)
 # ---------------------------------------------------------------------------

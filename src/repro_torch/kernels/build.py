@@ -39,9 +39,9 @@ SIGNATURES = {
     # pool, src, out, n_rows, m_rows, row_bytes, stream
     "segment_compact": [_P, _P, _P, _LL, _LL, _LL, _P],
     # q, k, v, out, strides (12 element strides), B, H, Kh, Sq, Skv, D,
-    # scale, causal, dtype, route, stream
+    # scale, causal, q_offset, dtype, route, stream
     "flash_attention": [_P, _P, _P, _P, _PLL, _I, _I, _I, _I, _I, _I, _F, _I,
-                        _I, _I, _P],
+                        _I, _I, _I, _P],
     # live, up2, out, n, u_now, S, stream
     "mdc_priority": [_P, _P, _P, _LL, _F, _I, _P],
     # src0, src1, dst0, dst1, src_pages, dst_pages (host int32 arrays or

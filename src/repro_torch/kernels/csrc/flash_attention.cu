@@ -39,7 +39,14 @@
 //   registers.  f32 stays here: TF32 tensor cores would break the 2e-5 parity
 //   bar.
 //
-// Both: query head h reads kv head h / G (no head broadcast in memory);
+// Both: query row i sits at absolute position q_offset + i and, when causal,
+// attends keys 0 .. q_offset + i (a continuation prefill after a cached
+// prefix of q_offset tokens; q_offset = 0 is a whole prompt).  The kv tiles
+// and their ascending order depend only on Skv, and a tile fully masked for
+// a row adds exactly nothing to it (alpha = 1, p = 0), so a row's result
+// depends, bit for bit, only on its absolute position, its query and the
+// keys: not on which other rows share its call or its tile.  Query head h
+// reads kv head h / G (no head broadcast in memory);
 // masked logits are -inf with the TPU kernel's guards (alpha = 0 when the
 // running max is -inf, p = 0 when the new max is -inf, l floored at 1e-30);
 // the output is written once, at the end.
@@ -132,7 +139,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, Layout L, int H,
-          int Kh, int Sq, int Skv, float scale, int causal) {
+          int Kh, int Sq, int Skv, float scale, int causal, int q_offset) {
   constexpr int DP = D + 4;
   constexpr int NV = D / 16;  // float4 column chunks per thread
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -163,7 +170,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < NV * 4; ++j) acc[j] = 0.f;
 
   int n_kt = (Skv + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
+  if (causal)  // skip tiles above the diagonal of the block's last row
+    n_kt = min(n_kt, (q_offset + q0 + BQ - 1) / BK + 1);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
@@ -192,7 +200,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) {
       const int col = k0 + t4 + 4 * i;
-      const bool ok = col < Skv && (!causal || col <= row);
+      const bool ok = col < Skv && (!causal || col <= q_offset + row);
       s[i] = ok ? s[i] * scale : -INFINITY;
       mx = fmaxf(mx, s[i]);
     }
@@ -242,7 +250,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const Layout& L, int B, int H, int Kh, int Sq, int Skv,
-                   float scale, int causal, cudaStream_t stream) {
+                   float scale, int causal, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -251,19 +259,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), L, H, Kh, Sq, Skv,
-      scale, causal);
+      scale, causal, q_offset);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t by_d(int D, const void* q, const void* k, const void* v, void* out,
                  const Layout& L, int B, int H, int Kh, int Sq, int Skv,
-                 float scale, int causal, cudaStream_t st) {
+                 float scale, int causal, int q_offset, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
+    case 16: return launch<T, 16>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    case 32: return launch<T, 32>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    case 64: return launch<T, 64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    case 128: return launch<T, 128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -465,7 +473,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap to, int B, int H, int Kh,
-             int Sq, int Skv, float scale_log2, int causal) {
+             int Sq, int Skv, float scale_log2, int causal, int q_offset) {
   constexpr int NDB = D / 64;                  // 64-column blocks of a tile
   constexpr uint32_t kTileBytes = BN * D * 2;  // one K or V tile; Q is as large
   static_assert(BM == BN, "one tile size for the Q and kv boxes");
@@ -480,7 +488,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   const int kvh = h / (H / Kh);
   const int q0 = qt * BM;
   int n_kt = (Skv + BN - 1) / BN;
-  if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
+  if (causal)  // skip tiles above the diagonal of the CTA's last row
+    n_kt = min(n_kt, (q_offset + q0 + BM - 1) / BN + 1);
 
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -522,7 +531,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int r_lo = (tid / 32) * 16 + lane / 4;  // rows r_lo, r_lo + 8 of the 64
-    const int row0 = q0 + wg * 64 + r_lo, row1 = row0 + 8;
+    // absolute positions of this thread's two rows
+    const int row0 = q_offset + q0 + wg * 64 + r_lo, row1 = row0 + 8;
     const int col_off = 2 * (lane % 4);
     const char* q_rows = reinterpret_cast<const char*>(sm.q[0]) + wg * 64 * 128;
 
@@ -557,9 +567,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       wgmma_wait_all();
       fence_regs(sc);
 
-      // mask only the tiles that cross the diagonal or the end of Skv
+      // mask only the tiles that cross the diagonal of this warpgroup's
+      // first (absolute) row or the end of Skv
       const bool crosses = k0 + BN > Skv
-                           || (causal && k0 + BN - 1 > q0 + wg * 64);
+                           || (causal && k0 + BN - 1 > q_offset + q0 + wg * 64);
       if (crosses) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
@@ -718,7 +729,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int B,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const Layout& L, int B, int H, int Kh, int Sq, int Skv,
-                   float scale, int causal, cudaStream_t stream) {
+                   float scale, int causal, int q_offset, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, to;
@@ -734,7 +745,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const long long grid = (long long)((Sq + BM - 1) / BM) * B * H;
   if (grid > 2147483647LL) return cudaErrorInvalidValue;
   flash_fwd_tc<D><<<(unsigned)grid, kThreads, smem, stream>>>(
-      tq, tk, tv, to, B, H, Kh, Sq, Skv, scale * 1.4426950408889634f, causal);
+      tq, tk, tv, to, B, H, Kh, Sq, Skv, scale * 1.4426950408889634f, causal,
+      q_offset);
   return cudaGetLastError();
 }
 
@@ -746,14 +758,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // holds (batch, sequence, head) for q, k, v and out in that order; D is
 // contiguous, every other stride a multiple of 16 bytes, every base 16-byte
 // aligned.  dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores,
-// 1 = tensor cores (bf16, D in {64, 128}).  H % Kh == 0, Skv > 0.
+// 1 = tensor cores (bf16, D in {64, 128}).  H % Kh == 0, Skv > 0.  q_offset
+// >= 0 is the absolute position of query row 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int B,
                                int H, int Kh, int Sq, int Skv, int D,
-                               float scale, int causal, int dtype, int route,
-                               void* stream) {
+                               float scale, int causal, int q_offset, int dtype,
+                               int route, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
-  if (Kh <= 0 || H % Kh || Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (Kh <= 0 || H % Kh || Skv <= 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout L = {{strides[0], strides[1], strides[2]},
                     {strides[3], strides[4], strides[5]},
@@ -761,14 +775,14 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                     {strides[9], strides[10], strides[11]}};
   if (route == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (D == 128) return (int)tc::launch<128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
-    if (D == 64) return (int)tc::launch<64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
+    if (D == 128) return (int)tc::launch<128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    if (D == 64) return (int)tc::launch<64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
     return (int)cudaErrorInvalidValue;
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)simt::by_d<float>(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
+    return (int)simt::by_d<float>(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
   if (dtype == 1)
-    return (int)simt::by_d<__nv_bfloat16>(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, st);
+    return (int)simt::by_d<__nv_bfloat16>(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
   return (int)cudaErrorInvalidValue;
 }

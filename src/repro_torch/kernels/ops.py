@@ -7,7 +7,9 @@ are (B, S, H, D), pools (num_pages, T, Kh, D), flattened pool payloads
 hand-written kernel on the current stream or raises — it never falls back.
 ``launches`` counts the kernel launches of each wrapper, so a run can show
 which path it took; ``flash_routes`` splits flash attention's launches by
-route, and ``move_plans`` counts the compaction plans ``segment_move`` moved
+route, ``flash_offsets`` by whether the query rows start at position 0 (a
+whole prompt) or later (a continuation after a cached prefix), and
+``move_plans`` counts the compaction plans ``segment_move`` moved
 directly and staged.
 """
 
@@ -26,6 +28,8 @@ launches = {"paged_attention": 0, "segment_compact": 0, "flash_attention": 0,
 # flash_attention launches by route: tensor cores (bf16, D in 64 / 128) or
 # CUDA cores (f32, other head dims)
 flash_routes = {"wgmma": 0, "simt": 0}
+# flash_attention launches by q_offset: 0, or > 0 (a prefix-hit tail)
+flash_offsets = {"zero": 0, "nonzero": 0}
 # segment_move plans by form, on any device: one launch pool to pool, or a
 # gather and a scatter launch because a destination is another move's source
 move_plans = {"direct": 0, "staged": 0}
@@ -35,7 +39,7 @@ _FLASH_ROUTE = {"simt": 0, "wgmma": 1}
 
 
 def reset_launches() -> None:
-    for counts in (launches, flash_routes, move_plans):
+    for counts in (launches, flash_routes, flash_offsets, move_plans):
         for name in counts:
             counts[name] = 0
 
@@ -123,9 +127,10 @@ def flash_route(dtype, D: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
 
 
-def _flash(q, k, v, out, causal: bool) -> None:
+def _flash(q, k, v, out, causal: bool, q_offset: int = 0) -> None:
     """Launch over (B, S, heads, D)-indexed views, any strides that
-    :func:`flash_layout` takes, writing ``out`` (same index order as q)."""
+    :func:`flash_layout` takes, writing ``out`` (same index order as q);
+    query row i at absolute position ``q_offset + i``."""
     layout = flash_layout(q, k, v) + [_operand_strides("out", out)]
     B, Sq, H, D = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
@@ -139,8 +144,10 @@ def _flash(q, k, v, out, causal: bool) -> None:
     strides = (ctypes.c_longlong * 12)(*(x for st in layout for x in st))
     _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), strides, B, H, Kh, Sq, Skv, D,
-            1.0 / math.sqrt(D), int(causal), code, _FLASH_ROUTE[route])
+            1.0 / math.sqrt(D), int(causal), int(q_offset), code,
+            _FLASH_ROUTE[route])
     flash_routes[route] += 1
+    flash_offsets["nonzero" if q_offset else "zero"] += 1
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True):
@@ -157,14 +164,23 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Skv, Kh, D) → (B, Sq, H, D): the model's
-    head-interleaved layout, read in place (no transposes)."""
+    head-interleaved layout, read in place (no transposes).  Query row i
+    sits at absolute position ``q_offset + i`` (causal: it attends keys
+    ``0 .. q_offset + i``), as after a cached prefix of ``q_offset``
+    tokens.  On the card a row's result depends only on its absolute
+    position, so ``flash_attention(q[:, P:], k, v, q_offset=P)`` is bit for
+    bit the rows ``P:`` of ``flash_attention(q, k, v)``."""
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
     if _on_cpu("flash_attention", q, k, v):
         flash_layout(q, k, v)
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _flash(q, k, v, out, causal)
+    _flash(q, k, v, out, causal, q_offset)
     return out
 
 

@@ -16,11 +16,13 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Naive softmax attention with GQA head-group broadcast.
 
-    q: (B, Sq, H, D); k/v: (B, Skv, Kh, D) with H % Kh == 0.
-    Returns (B, Sq, H, D) in q.dtype; softmax math in f32.
+    q: (B, Sq, H, D); k/v: (B, Skv, Kh, D) with H % Kh == 0.  Query row i
+    sits at absolute position ``q_offset + i``: causal, it attends keys
+    ``0 .. q_offset + i``.  Returns (B, Sq, H, D) in q.dtype; softmax math
+    in f32.
     """
     B, Sq, H, D = q.shape
     _, Skv, Kh, _ = k.shape
@@ -29,7 +31,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float())
     logits = logits / math.sqrt(D)
     if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
+        mask = (q_offset + torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Skv, device=q.device)[None, :])
         logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)

@@ -1,7 +1,8 @@
 """GQA attention: the projections, the plain chunked attention, and the
 prefill / decode wrappers of the dense serving path.
 
-``gqa_prefill`` runs its attention through the hand-written flash kernel
+``gqa_prefill`` and ``gqa_prefill_cont`` (the tail after a cached prefix)
+run their attention through the hand-written flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`); ``chunked_attention`` is
 the plain online-softmax function the JAX package lowers through XLA, kept
 here for the token oracle (``transformer.greedy_decode``).
@@ -140,6 +141,47 @@ def gqa_prefill(x, p, cfg, *, kernel: bool = True):
     else:
         out = chunked_attention(q, k, v, causal=True, q_block=cfg.q_block,
                                 kv_block=cfg.kv_block)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
+
+
+def gqa_prefill_cont(x, p, cfg, k_pre, v_pre, *, kv_len: int | None = None,
+                     kernel: bool = True):
+    """Prefill *continuation*: ``x`` holds positions ``[P, P+S)`` of a
+    sequence whose first ``P`` positions already have cached K/V
+    (``k_pre``/``v_pre``: (B, P, Kh, hd), e.g. gathered from the serving
+    pool's shared prefix pages).  Only the tail's Q/K/V are computed; the
+    attention runs over ``concat(prefix, tail)`` with ``q_offset=P``, which
+    is the mask and the per-row arithmetic of a whole prefill's rows
+    ``[P, P+S)`` — the prefix must be *unpadded* so key positions line up.
+
+    ``kv_len``: the key extent the attention sees.  For bit-identity with a
+    whole prefill it must be the *full prompt's padded bucket*, the extent
+    the whole prefill attends over; the tail K/V is zero-padded (or its pad
+    rows cut) to ``kv_len - P``, and every such row is causally masked for
+    the real rows.  ``kernel`` as in :func:`gqa_prefill`.
+
+    Returns (attn out, (k_tail, v_tail))."""
+    B, S, _ = x.shape
+    P = k_pre.shape[1]
+    positions = P + torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    kt, vt = k, v
+    if kv_len is not None:
+        ext = kv_len - P
+        assert ext >= 1
+        if S < ext:   # masked zeros out to the full prompt's bucket
+            pad = (0, 0, 0, 0, 0, ext - S)
+            kt = torch.nn.functional.pad(kt, pad)
+            vt = torch.nn.functional.pad(vt, pad)
+        elif S > ext:  # only pad rows (>= plen - P) are cut, all masked
+            kt, vt = kt[:, :ext], vt[:, :ext]
+    k_cat = torch.cat([k_pre.to(k.dtype), kt], dim=1)
+    v_cat = torch.cat([v_pre.to(v.dtype), vt], dim=1)
+    if kernel:
+        out = ops.flash_attention(q, k_cat, v_cat, causal=True, q_offset=P)
+    else:
+        out = chunked_attention(q, k_cat, v_cat, causal=True, q_offset=P,
+                                q_block=cfg.q_block, kv_block=cfg.kv_block)
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 
 

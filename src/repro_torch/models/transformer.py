@@ -1,5 +1,6 @@
 """Model assembly for the dense GQA family: parameter specs, the prompt
-prefill, and the dense-cache decode that serves as the token oracle.
+prefill (whole, or the tail after a cached prefix), and the dense-cache
+decode that serves as the token oracle.
 
 Parameters keep the JAX package's layout (stacked per-layer leaves with a
 leading layers axis; ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``,
@@ -89,6 +90,39 @@ def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
                                    device=tokens.device)}
     logits = _unembed(params, x[:, n - 1:n], cfg)[:, 0]
     return logits, cache
+
+
+def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
+                        true_len=None, kv_len=None,
+                        cache_dtype=torch.bfloat16, kernel: bool = True):
+    """Tail-only prefill over cached prefix K/V (the prefix-cache hit path).
+
+    ``tokens`` (B, S) is the *uncached tail* of the prompt (right-padded to
+    its bucket, true length ``true_len``); ``prefix_k``/``prefix_v``
+    (L, B, P, Kh, hd) hold the first ``P`` positions' K/V, e.g. gathered
+    from the serving pool's shared prefix pages.  Row for row this computes
+    what :func:`prefill`'s positions ``[P, P+true_len)`` compute, through
+    :func:`attention.gqa_prefill_cont`; ``kv_len`` must be the *full
+    prompt's* padded bucket for the attention to see the same key extent.
+
+    Returns (last-tail-position logits, K tail cache (L, B, max_len, Kh,
+    hd), V tail cache) — only the tail's K/V, for the engine to scatter
+    into its own pages."""
+    B, S = tokens.shape
+    x = _embed(params, tokens)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer(params["blocks"], i)
+        a, (k, v) = att.gqa_prefill_cont(rmsnorm(x, lp["ln1"]), lp["attn"],
+                                         cfg, prefix_k[i], prefix_v[i],
+                                         kv_len=kv_len, kernel=kernel)
+        x = x + a
+        x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+        ks.append(F.pad(k, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
+        vs.append(F.pad(v, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
+    n = S if true_len is None else int(true_len)
+    logits = _unembed(params, x[:, n - 1:n], cfg)[:, 0]
+    return logits, torch.stack(ks), torch.stack(vs)
 
 
 def decode_step(params, cache, token, cfg):

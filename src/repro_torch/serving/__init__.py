@@ -3,6 +3,8 @@ space is reclaimed by the paper's MDC cleaning policy."""
 
 from .engine import PagedServingEngine, Request
 from .kvcache import CompactionPlan, LogStructuredKVPool
+from .prefix_cache import PrefixCache
+from .scheduler import AdmissionShed
 
 __all__ = ["PagedServingEngine", "Request", "LogStructuredKVPool",
-           "CompactionPlan"]
+           "CompactionPlan", "PrefixCache", "AdmissionShed"]

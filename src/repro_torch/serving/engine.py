@@ -15,6 +15,22 @@ the device the two data paths the host-side pool manager plans:
 plus the bucketed monolithic prefill, whose attention is the
 ``flash_attention`` kernel, and the scatter of the prompt's K/V into pages.
 
+Two scheduling features ride on the pool's reference counts:
+
+  * prefix cache (``prefix_cache=True``) — full prompt pages enter a radix
+    tree (:class:`PrefixCache`); a later prompt with the same prefix
+    splices those pages into its block table and prefills only its tail,
+    attending the cached prefix K/V through the flash kernel with a query
+    offset.  Rows of the tail see the same key extent as a cold prefill of
+    the whole prompt, so a hit reproduces the cold prefill's arithmetic;
+  * preemption (``preemption=True``) — admission reserves the *predicted*
+    output length instead of the worst case, and when the pool cannot
+    cover admission or growth, running sequences are preempted (their
+    page references dropped) and requeued; a resume re-prefills the
+    prompt and re-decodes the emitted span, which reproduces the lost K/V.
+    A resume waits for capacity and never preempts a peer: two sequences
+    restarting each other would discard each other's progress forever.
+
 Block tables, sequence lengths and last tokens live on the device between
 dispatches and are uploaded only when a host event dirtied them.  The host
 intervenes only at pre-computed *events* (the next page-boundary crossing,
@@ -34,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -45,7 +62,9 @@ from ..models import attention as att
 from ..models import transformer as tfm
 from ..models.layers import rmsnorm
 from .kvcache import LogStructuredKVPool
-from .scheduler import make_length_predictor
+from .prefix_cache import PrefixCache
+from .scheduler import (AdmissionShed, choose_preempt_victims,
+                        make_length_predictor, retry_after_estimate)
 
 
 @dataclasses.dataclass
@@ -53,6 +72,11 @@ class Request:
     rid: int
     prompt: np.ndarray          # (S,) int32
     max_new_tokens: int
+    # resume state (preempted requests only): the tokens already emitted
+    # and how many; a restart re-decodes them from the prompt into this
+    # buffer.
+    out: np.ndarray | None = None
+    out_n: int = 0
 
 
 def _pow2(n: int) -> int:
@@ -74,7 +98,9 @@ class PagedServingEngine:
                  compact_batch: int = 4, streams: int | None = None,
                  demote_survivors: bool = False, max_decode_chunk: int = 32,
                  pool_dtype=torch.bfloat16, stop_token: int | None = None,
-                 predictor: str = "ewma", device=None):
+                 predictor: str = "ewma", prefix_cache: bool = False,
+                 prefix_cache_pages: int = 0, preemption: bool = False,
+                 shed_queue_depth: int = 0, device=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
@@ -98,6 +124,13 @@ class PagedServingEngine:
         # synchronous plan execution: tensor move + block-table remap happen
         # before any compaction-freed page id can be re-allocated
         self.pool.on_compaction = self._execute_plan
+        # shared-prefix KV reuse: full-page prompt prefixes keyed in a radix
+        # tree over the pool's physical pages (refcounted)
+        self.prefix_cache = (
+            PrefixCache(self.pool, page_T, capacity_pages=prefix_cache_pages)
+            if (prefix_cache or prefix_cache_pages) else None)
+        self._prefill_tokens_total = 0   # prompt tokens submitted to prefill
+        self._prefill_tokens_saved = 0   # of those, served from the cache
         n_pages = n_slabs * blocks_per_slab
         self.trash_page = n_pages  # reserved scratch page for inactive slots
 
@@ -116,6 +149,10 @@ class PagedServingEngine:
         self.bt = np.full((B, P), self.trash_page, np.int32)
         self._out = [None] * B                    # per-slot output buffers
         self._out_n = np.zeros(B, np.int32)
+        self._prompt: list[np.ndarray | None] = [None] * B
+        # a resumed slot re-decodes its already-emitted span; _jskip[i] is
+        # how many output tokens were delivered before it was preempted
+        self._jskip = np.zeros(B, np.int32)
 
         # --- device mirrors, uploaded only when an event dirties them ------
         self._bt_dev = self._put(self.bt)
@@ -133,6 +170,21 @@ class PagedServingEngine:
         # predictor instead of the exact max_new_tokens
         self.stop_token = stop_token
         self.length_predictor = make_length_predictor(predictor)
+        # preemption: when admission stalls and compaction + prefix-cache
+        # eviction cannot cover the page deficit, victims are preempted and
+        # requeued on _resume, which admission serves first
+        self.preemption = preemption
+        self._resume: collections.deque[Request] = collections.deque()
+        self.preemptions = 0
+        self.resumes = 0
+        self.recomputed_tokens = 0  # tokens recomputed (prefill + re-decode)
+        # shed_queue_depth > 0: when admission has stalled past preemption
+        # and the queue is this deep, submit() raises AdmissionShed with a
+        # retry-after hint instead of growing head-of-line latency
+        self.shed_queue_depth = shed_queue_depth
+        self.shed_count = 0
+        self._admit_stalled = False
+        self._tpot_ewma = 0.05        # s/token (host clock), seeds the hint
         self.dispatches = 0
         self._next_rid = 0
 
@@ -143,6 +195,18 @@ class PagedServingEngine:
     def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if (self.shed_queue_depth and self._admit_stalled
+                and len(self.queue) >= self.shed_queue_depth):
+            # overload: admission stalled past preemption AND the queue is
+            # at depth — shed with a retry-after derived from the waiting
+            # work at the measured decode rate
+            waiting = sum(
+                self._predict_remaining(r.max_new_tokens, r.out_n)
+                + len(self._eff_prompt(r))
+                for q in (self._resume, self.queue) for r in q)
+            self.shed_count += 1
+            raise AdmissionShed(retry_after_estimate(waiting,
+                                                     self._tpot_ewma))
         rid = self._next_rid
         self._next_rid += 1
         self.queue.append(Request(rid, np.asarray(prompt, np.int32),
@@ -157,7 +221,8 @@ class PagedServingEngine:
         return self.bt[i, :self.npages[i]]
 
     def has_work(self) -> bool:
-        return bool(self.queue) or bool((self.rid >= 0).any())
+        return (bool(self.queue) or bool(self._resume)
+                or bool((self.rid >= 0).any()))
 
     def _prefill_bucket(self, plen: int, n_pages: int) -> tuple[int, int]:
         """(padded prompt length, prefill cache length).
@@ -171,6 +236,17 @@ class PagedServingEngine:
         max_len = max(_pow2(n_pages) * T, -(-tok_bucket // T) * T)
         return tok_bucket, max_len
 
+    def _eff_prompt(self, req: Request) -> np.ndarray:
+        """The token positions a (re)start must hold K/V for: the prompt,
+        plus — for a preempted request — the emitted tokens already
+        *consumed* by decode (all but the last).  Used for admission sizing
+        only: the restart prefills just the prompt and re-decodes the
+        emitted span (see ``_start``)."""
+        if req.out is None or req.out_n <= 1:
+            return req.prompt
+        return np.concatenate([req.prompt,
+                               req.out[:req.out_n - 1].astype(np.int32)])
+
     def _predict_remaining(self, max_new: int, emitted: int) -> int:
         """Tokens a request is *predicted* to still emit: exact without stop
         tokens, else the length predictor's estimate in [1, tokens-left]."""
@@ -180,79 +256,254 @@ class PagedServingEngine:
         pred = self.length_predictor.predict(max_new)
         return int(np.clip(pred - emitted, 1, cap))
 
+    def _pages_needed(self, req: Request) -> int:
+        """Pages admission reserves for a request (prompt + consumed resume
+        tokens + remaining output), gross of any cached prefix.  Optimistic
+        — the predicted output length instead of ``max_new_tokens`` — only
+        with preemption on, which turns an under-prediction into pressure
+        the scheduler relieves instead of an OOM."""
+        plen_eff = len(self._eff_prompt(req))
+        rem = (self._predict_remaining(req.max_new_tokens, req.out_n)
+               if self.preemption else max(req.max_new_tokens - req.out_n, 1))
+        return (plen_eff + rem + self.page_T - 1) // self.page_T
+
+    def _evictable(self) -> int:
+        return self.prefix_cache.evictable() if self.prefix_cache else 0
+
+    def _gate_avail(self, hit_pages: list[int]) -> int:
+        """Blocks the admission gate may count: free blocks, plus cached
+        prefixes reclaimable on demand (the pool's pressure hook evicts them
+        before OOM) — minus the matched pages only the tree still
+        references, which the request is about to splice, not reclaim."""
+        overlap = (int((self.pool.block_ref[np.asarray(hit_pages, np.int64)]
+                        == 1).sum()) if hit_pages else 0)
+        return self.pool.free_blocks() + max(self._evictable() - overlap, 0)
+
     def _admit(self) -> None:
+        started: list[int] = []
+        self._admit_stalled = False
         for i in np.flatnonzero(self.rid < 0):
-            if not self.queue:
+            # preempted requests resume first: they were admitted once and
+            # already carry emitted tokens the caller is waiting on
+            q = self._resume if self._resume else self.queue
+            if not q:
                 break
-            req = self.queue[0]
+            req = q[0]
             worst = (len(req.prompt) + req.max_new_tokens + self.page_T - 1
                      ) // self.page_T
             if worst > self.max_pages_per_seq:
                 raise ValueError("request exceeds max_seq")
-            need = worst  # the conservative bound: max_new_tokens
+            need = self._pages_needed(req)
+            hit_pages: list[int] = []
+            if self.prefix_cache is not None:
+                # a cached prefix is spliced, not allocated: the need is net
+                # of the match (on the prompt, which is what _start prefills)
+                hit_pages = self.prefix_cache.match(req.prompt)
+                need -= len(hit_pages)
             # the compaction reserve is compact_trigger *slabs*, waived when
             # nothing is active so a request sized to the pool can run alone
             reserve = (self.pool.admission_reserve()
                        if (self.rid >= 0).any() else 0)
-            if self.pool.free_blocks() < need + reserve:
-                break  # admission control: wait for deaths / compaction
-            self.queue.popleft()
-            self._start(int(i), req)
+            avail = self.pool.free_blocks()
+            if avail < need + reserve and self.prefix_cache is not None:
+                avail = self._gate_avail(hit_pages)
+            if (avail < need + reserve and self.preemption
+                    and q is not self._resume):
+                # a resume waits for capacity instead: preempting a peer to
+                # restart one would let two sequences evict each other
+                # forever, each restart discarding the other's progress
+                self._preempt_for(need + reserve - avail, keep=started)
+                avail = self._gate_avail(hit_pages)  # re-measured gate
+            if avail < need + reserve:
+                # wait for deaths / compaction; the stall arms load shedding
+                self._admit_stalled = True
+                break
+            q.popleft()
+            self._start(int(i), req, from_resume=q is self._resume)
+            started.append(int(i))
 
-    def _start(self, i: int, req: Request) -> None:
+    def _preempt_for(self, deficit: int, *, keep=(),
+                     min_active: int = 0) -> int:
+        """Free at least ``deficit`` blocks by preempting running sequences,
+        cheapest declining-cost first (``policies.key_preempt``).  Returns
+        the blocks actually freed.
+
+        Progress is *measured* (free blocks + evictable cache pages), not
+        estimated from the victims' refcounts: a page freed into a still
+        OPEN slab is neither appendable nor compactable until its slab
+        drains.  ``keep``: slots never picked (admitted in this pass).
+        ``min_active``: stop before the active count drops below it (the
+        growth path keeps the last sequence running, or it would preempt a
+        sequence to fund its own growth, forever)."""
+        def avail() -> int:
+            return self.pool.free_blocks() + self._evictable()
+
+        start = avail()
+        keep = set(int(k) for k in keep)
+        while avail() - start < deficit:
+            cand = np.array([c for c in np.flatnonzero(self.rid >= 0)
+                             if int(c) not in keep], dtype=np.int64)
+            if len(cand) == 0 or int((self.rid >= 0).sum()) <= min_active:
+                break
+            # pages whose *last* reference a preemption drops (shared prefix
+            # pages survive in the tree or with other referencers)
+            freeable = np.array(
+                [int((self.pool.block_ref[self.bt[j, :self.npages[j]]
+                                          .astype(np.int64)] == 1).sum())
+                 for j in cand])
+            remaining = np.array(
+                [self._predict_remaining(int(self._out_n[j] + self.to_gen[j]),
+                                         int(self._out_n[j])) for j in cand])
+            v = choose_preempt_victims(1, recompute=self.lens[cand],
+                                       freeable=freeable, remaining=remaining)
+            if len(v) == 0:
+                break  # no preemptible sequence frees any page
+            self._preempt(int(cand[v[0]]))
+        return max(avail() - start, 0)
+
+    def _start(self, i: int, req: Request, from_resume: bool = False) -> None:
+        # A resume restarts a preempted sequence from scratch: the original
+        # prompt goes through the prefill a fresh admission runs, and decode
+        # re-derives the emitted span (re-prefilling the consumed tokens
+        # instead would compute their K/V with prefill arithmetic where the
+        # original used decode arithmetic: close, not bit-equal).
+        resume = req.out is not None and req.out_n > 0
         prompt = req.prompt
         plen = len(prompt)
         T = self.page_T
         n_pages = (plen + T - 1) // T
         # §5.3 placement estimator: blocks die when their sequence finishes
-        # ⇒ expected death clock = now + blocks that will die then
-        est = (self.pool.u_now + plen
-               + self._predict_remaining(req.max_new_tokens, 0))
-        # any compaction fires (and remaps the *other* slots' pages via the
-        # callback) before these page ids are handed out
-        pages_new = self.pool.alloc_blocks(
-            np.full(n_pages, req.rid, dtype=np.int64), Placement(est_death=est))
-        self.bt[i, :] = self.trash_page
-        self.bt[i, :n_pages] = pages_new
+        # ⇒ expected death clock = now + blocks that will die then (a
+        # re-decoded span counts: those writes happen again)
+        est = (self.pool.u_now + plen + max(req.out_n - 1, 0)
+               + self._predict_remaining(req.max_new_tokens, req.out_n))
+
+        # shared-prefix lookup: splice cached full pages (CoW-capped: at
+        # least one prompt token is always prefilled)
+        n_shared = 0
+        if self.prefix_cache is not None:
+            hit = self.prefix_cache.lookup(prompt)
+            n_shared = len(hit)
+            if n_shared:
+                shared = np.asarray(hit, np.int64)
+                # one reference per referencing sequence; the death estimate
+                # becomes the max over referencers
+                self.pool.incref_pages(shared, est)
+                # park the shared ids in the block table *before* the tail
+                # alloc: a compaction fired by it remaps this row too
+                self.bt[i, :] = self.trash_page
+                self.bt[i, :n_shared] = shared
+                self.npages[i] = n_shared
+
+        # any compaction fires (and remaps held pages via the callback)
+        # before these page ids are handed out.  If the pool still OOMs,
+        # the prefix references just taken are given back.
+        try:
+            pages_new = self.pool.alloc_blocks(
+                np.full(n_pages - n_shared, req.rid, dtype=np.int64),
+                Placement(est_death=est))
+        except Exception:
+            if n_shared:
+                self.pool.free_pages(self.bt[i, :n_shared].astype(np.int64))
+                self.bt[i, :] = self.trash_page
+                self.npages[i] = 0
+                self._bt_dirty = True
+            raise
+        if n_shared == 0:
+            self.bt[i, :] = self.trash_page
+        self.bt[i, n_shared:n_pages] = pages_new
         self.npages[i] = n_pages
 
-        # bucketed dense prefill, then scatter the whole bucket's pages;
-        # pages beyond the allocation land in the trash page
-        tok_bucket, max_len = self._prefill_bucket(plen, n_pages)
-        toks = np.zeros(tok_bucket, np.int64)
-        toks[:plen] = prompt
-        logits, cache = tfm.prefill(self.params, self._put(toks)[None],
-                                    self.cfg, max_len,
-                                    cache_dtype=self.pool_dtype, true_len=plen)
+        if from_resume:
+            self.resumes += 1
+        if resume:  # prompt re-prefilled + consumed output tokens re-decoded
+            self.recomputed_tokens += plen + req.out_n - 1
+        self._prefill_tokens_total += plen
+        self._prefill_tokens_saved += n_shared * T
+
+        # bucketed prefill (of the uncached tail on a hit), then scatter the
+        # whole bucket's pages; pages beyond the allocation land in the
+        # trash page
+        if n_shared:
+            logits, ks, vs, max_len = self._prefill_cont(i, prompt, n_shared,
+                                                         n_pages)
+        else:
+            tok_bucket, max_len = self._prefill_bucket(plen, n_pages)
+            toks = np.zeros(tok_bucket, np.int64)
+            toks[:plen] = prompt
+            logits, cache = tfm.prefill(self.params, self._put(toks)[None],
+                                        self.cfg, max_len,
+                                        cache_dtype=self.pool_dtype,
+                                        true_len=plen)
+            ks, vs = cache["k"], cache["v"]
         first_tok = int(torch.argmax(logits[0]))
-        L, _, _, Kh, hd = cache["k"].shape
+        L, _, _, Kh, hd = ks.shape
         nb = max_len // T
         pages_pad = np.full(nb, self.trash_page, np.int64)
-        pages_pad[:n_pages] = pages_new
+        pages_pad[:len(pages_new)] = pages_new
         pages_dev = self._put(pages_pad)
-        self.k_pools[:, pages_dev] = cache["k"][:, 0].reshape(L, nb, T, Kh, hd)
-        self.v_pools[:, pages_dev] = cache["v"][:, 0].reshape(L, nb, T, Kh, hd)
+        self.k_pools[:, pages_dev] = ks[:, 0].reshape(L, nb, T, Kh, hd)
+        self.v_pools[:, pages_dev] = vs[:, 0].reshape(L, nb, T, Kh, hd)
+
+        # register the prompt's full (immutable) pages for future sharing;
+        # keys already cached keep their page, so a recomputed boundary page
+        # stays private to this sequence
+        if self.prefix_cache is not None and plen // T:
+            self.prefix_cache.insert(prompt, self.bt[i, :plen // T].copy(),
+                                     est)
 
         self.rid[i] = req.rid
         self.lens[i] = plen
+        self._prompt[i] = req.prompt
         self.tokens[i] = first_tok
         self.to_gen[i] = req.max_new_tokens - 1
-        out = np.empty(req.max_new_tokens, np.int32)
+        if resume:
+            # keep the carried buffer: decode re-emits the same tokens, and
+            # a preemption mid-replay still knows the whole span (_jskip)
+            out = req.out
+            self._jskip[i] = req.out_n
+        else:
+            out = np.empty(req.max_new_tokens, np.int32)
+            self._jskip[i] = 0
         out[0] = first_tok
         self._out[i] = out
         self._out_n[i] = 1
         self._bt_dirty = self._state_dirty = True
         # the prefill token may already complete the request: cap reached,
         # or (stop-token decode) the first emitted token is the stop token
-        if self.to_gen[i] <= 0 or (self.stop_token is not None
+        if self.to_gen[i] <= 0 or (not resume and self.stop_token is not None
                                    and first_tok == self.stop_token):
             self._admit_done.append(req.rid)
             self._finish(i)
 
-    def _finish(self, i: int) -> None:
-        rid = int(self.rid[i])
-        self.finished[rid] = self._out[i][:self._out_n[i]].tolist()
-        self.length_predictor.observe(int(self._out_n[i]))
+    def _prefill_cont(self, i: int, prompt: np.ndarray, n_shared: int,
+                      n_pages: int):
+        """Prefix-hit prefill: gather the cached prefix K/V of slot ``i``'s
+        first ``n_shared`` pages from the pool and run the tail-only
+        continuation prefill.  The key extent is the bucket a cold prefill
+        of the whole prompt attends over, which is what makes the tail rows
+        reproduce the cold prefill's.  Returns (logits, K tail, V tail,
+        the tail cache length)."""
+        T = self.page_T
+        plen, P = len(prompt), n_shared * T
+        tlen = plen - P
+        tok_bucket, max_len = self._prefill_bucket(tlen, n_pages - n_shared)
+        toks = np.zeros(tok_bucket, np.int64)
+        toks[:tlen] = prompt[P:]
+        pages = self._put(self.bt[i, :n_shared].astype(np.int64))  # post-remap
+        L, _, _, Kh, hd = self.k_pools.shape
+        k_pre = self.k_pools[:, pages].reshape(L, 1, P, Kh, hd)
+        v_pre = self.v_pools[:, pages].reshape(L, 1, P, Kh, hd)
+        kv_len = self._prefill_bucket(plen, n_pages)[0]
+        logits, ks, vs = tfm.prefill_with_prefix(
+            self.params, self._put(toks)[None], self.cfg, k_pre, v_pre,
+            max_len, true_len=tlen, kv_len=kv_len,
+            cache_dtype=self.pool_dtype)
+        return logits, ks, vs, max_len
+
+    def _release_slot(self, i: int) -> None:
+        """Free slot i's pages (one decref each — shared prefix pages
+        survive for their other referencers) and reset its state."""
         self.pool.free_pages(self.slot_pages(i).astype(np.int64))
         self.bt[i, :] = self.trash_page
         self.rid[i] = -1
@@ -260,7 +511,30 @@ class PagedServingEngine:
         self.tokens[i] = 0
         self._out[i] = None
         self._out_n[i] = 0
+        self._jskip[i] = 0
+        self._prompt[i] = None
         self._bt_dirty = self._state_dirty = True
+
+    def _finish(self, i: int) -> None:
+        rid = int(self.rid[i])
+        self.finished[rid] = self._out[i][:self._out_n[i]].tolist()
+        self.length_predictor.observe(int(self._out_n[i]))
+        self._release_slot(i)
+
+    def _preempt(self, i: int) -> None:
+        """Evict a running sequence under pressure: drop its page references
+        and requeue it with its emitted tokens on the resume queue, which
+        ``_admit`` serves first; the resume re-prefills the prompt and
+        re-decodes the emitted span."""
+        self.preemptions += 1
+        # a slot preempted mid-replay (out_n < _jskip) still knows the whole
+        # emitted span: the carried buffer holds it past out_n
+        self._resume.append(Request(
+            int(self.rid[i]), self._prompt[i],
+            int(self._out_n[i] + self.to_gen[i]),   # original max_new_tokens
+            out=self._out[i],
+            out_n=int(max(self._out_n[i], self._jskip[i]))))
+        self._release_slot(i)
 
     # ---------------------------------------------------------------- step
     def _sync_device(self) -> None:
@@ -286,7 +560,7 @@ class PagedServingEngine:
             n = min(int(until.min()), self.max_decode_chunk)
         else:
             n = 1
-        if self.stop_token is not None and self.queue:
+        if self.stop_token is not None and (self.queue or self._resume):
             n = 1
         return max(n, 1)
 
@@ -347,11 +621,22 @@ class PagedServingEngine:
         if not active.any():
             return done
         self.dispatches += 1
+        t0 = time.perf_counter()
 
         # pages for the incoming tokens must exist before the dispatch writes
         # them; one batched alloc covers every slot at a page boundary
-        # (compaction, if it fires, remaps held pages first)
+        # (compaction, if it fires, remaps held pages first).  With
+        # preemption, an under-predicted lifetime can push growth past the
+        # admission reserve: preemption is the backstop before an OOM — but
+        # never of the last active sequence
         growing = np.flatnonzero(active & (self.lens >= self.npages * self.page_T))
+        if growing.size and self.preemption:
+            avail = self.pool.free_blocks() + self._evictable()
+            if avail < growing.size:
+                self._preempt_for(growing.size - avail, min_active=1)
+                active = self.rid >= 0
+                growing = np.flatnonzero(
+                    active & (self.lens >= self.npages * self.page_T))
         if growing.size:
             rem = np.array([self._predict_remaining(
                 int(self._out_n[j] + self.to_gen[j]), int(self._out_n[j]))
@@ -390,6 +675,10 @@ class PagedServingEngine:
             if stopped[i] or self.to_gen[i] <= 0:
                 done.append(int(self.rid[i]))
                 self._finish(int(i))
+        tot = int(emitted[act].sum())
+        if tot > 0:   # decode-rate EWMA feeds the shed retry-after hint
+            dt = time.perf_counter() - t0
+            self._tpot_ewma = 0.8 * self._tpot_ewma + 0.2 * (dt / tot)
         return done
 
     def run_to_completion(self, max_steps: int = 100_000) -> dict:
@@ -416,10 +705,13 @@ class PagedServingEngine:
 
     def _apply_remap(self, plan) -> None:
         """Remap block tables: one vectorized page-id lookup over the
-        matrix."""
+        matrix.  Every reference holder remaps with the same LUT: all slot
+        rows (shared pages appear in several) and the prefix-cache tree."""
         lut = np.arange(self.trash_page + 1, dtype=np.int32)
         lut[plan.src_pages] = plan.dst_pages
         self.bt = lut[self.bt]
+        if self.prefix_cache is not None:
+            self.prefix_cache.remap(lut)
         self._bt_dirty = True
 
     def _execute_plan(self, plan) -> None:
@@ -433,7 +725,7 @@ class PagedServingEngine:
     # ------------------------------------------------------------- metrics
     def metrics(self) -> dict:
         st = self.pool.stats
-        return {
+        m = {
             "blocks_written": st.blocks_written,
             "blocks_moved": st.blocks_moved,
             "wamp": st.wamp(),
@@ -444,5 +736,23 @@ class PagedServingEngine:
             "stream_moves": list(st.stream_moves),
             "per_stream_wamp": st.per_stream_wamp(),
             "free_blocks": self.pool.free_blocks(),
+            "preemptions": self.preemptions,
+            "resumes": self.resumes,
+            "recomputed_tokens": self.recomputed_tokens,
             "dispatches": self.dispatches,
         }
+        if self.shed_queue_depth:
+            m["shed_count"] = self.shed_count
+        if self.prefix_cache is not None:
+            total = self._prefill_tokens_total
+            saved = self._prefill_tokens_saved
+            m.update(
+                prefix_hit_rate=self.prefix_cache.hit_rate(),
+                prefill_tokens=total,
+                prefill_tokens_saved=saved,
+                prefill_tokens_computed=total - saved,
+                prefix_cache_pages=self.prefix_cache.n_pages,
+                prefix_evictions=self.prefix_cache.evictions,
+                frames_shared=st.frames_shared,
+            )
+        return m

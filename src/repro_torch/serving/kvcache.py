@@ -15,9 +15,14 @@ die nearly whole.  Compaction survivors re-route by the same quantiles
 (survivor demotion, ``demote_survivors=True``, applies only to *overdue*
 survivors).
 
+Pages are reference-counted: a prompt prefix shared through the prefix
+cache holds one reference per sequence that splices it plus one for the
+cache, and dies when the last one drops (:meth:`incref_pages`,
+:meth:`free_pages`); compaction carries the counts to the destinations.
+
 All slab bookkeeping lives in :class:`FrameLog`; this class owns the serving
 policy: the batched alloc surface and the compaction plan (src page -> dst
-page) that the engine executes with the ``segment_compact`` kernel.
+page) that the engine executes with the ``segment_move`` kernel.
 """
 
 from __future__ import annotations
@@ -74,7 +79,10 @@ class LogStructuredKVPool:
         self.core = FrameLog(n_slabs, blocks_per_slab, n_streams=self.n_open)
         self.core._oom_msg = "KV pool out of slabs (compaction failed)"
         self.core._noroom_msg = "KV pool: no open slab (all slabs sealed+full)"
-        # flat per-page views of the core's slot arrays (page = slab*S + slot)
+        # flat per-page views of the core's slot arrays (page = slab*S + slot):
+        # owner sequence (-1 dead/empty), estimated death clock, and the
+        # reference count (one per referencing sequence, plus one if the
+        # prefix cache holds the page)
         self.block_owner = self.core.slot_item.reshape(-1)
         self.block_death = self.core.slot_up2.reshape(-1)
         self.block_ref = self.core.slot_ref.reshape(-1)
@@ -83,6 +91,11 @@ class LogStructuredKVPool:
         # MUST run before any page id freed by the plan is re-allocated, so
         # the pool invokes it synchronously at plan creation
         self.on_compaction = None  # Callable[[CompactionPlan], None] | None
+        # pressure hook: called with the page deficit when compaction alone
+        # cannot satisfy an alloc — the prefix cache registers its LRU
+        # eviction here, so unreferenced cached prefixes are given back
+        # before the pool declares OOM
+        self.on_pressure = None  # Callable[[int], None] | None
 
     @property
     def stats(self) -> StoreStats:
@@ -116,6 +129,11 @@ class LogStructuredKVPool:
         if n == 0:
             return np.empty(0, dtype=np.int64)
         self._compact_until(n)
+        if self.core.free_frames() < n and self.on_pressure is not None:
+            # last resort before OOM: drop reclaimable references (prefix
+            # cache LRU eviction), then clean again
+            self.on_pressure(n - self.core.free_frames())
+            self._compact_until(n)
         if self.core.free_frames() < n:
             raise RuntimeError("KV pool out of slabs (compaction failed)")
         return self.core.place(seq_ids, p)
@@ -129,10 +147,27 @@ class LogStructuredKVPool:
             if self.compact() is None or self.core.free_frames() <= before:
                 break
 
+    # ------------------------------------------------------------- sharing
+    def incref_pages(self, pages: np.ndarray,
+                     est_deaths: np.ndarray | float | None = None) -> None:
+        """Add one reference per page (a sequence or the prefix cache starts
+        sharing them).  ``est_deaths`` raises each page's death estimate to
+        the max over its referencing sequences."""
+        pages = np.asarray(pages, dtype=np.int64)
+        if len(pages) == 0:
+            return
+        assert (self.block_owner[pages] >= 0).all(), "incref of dead page"
+        up2 = None
+        if est_deaths is not None:
+            up2 = np.broadcast_to(np.asarray(est_deaths, np.float64),
+                                  pages.shape)
+        self.core.incref_slots(pages // self.S, pages % self.S, up2=up2)
+
     # --------------------------------------------------------------- death
     def free_pages(self, pages: np.ndarray) -> None:
-        """Drop one reference per block; a page is freed exactly when its
-        refcount hits zero (its sequence finished)."""
+        """Drop one reference per block; unshared blocks die (their sequence
+        finished or was preempted), shared ones stay live for the remaining
+        referencers — a page is freed exactly when its refcount hits zero."""
         pages = np.asarray(pages, dtype=np.int64)
         pages = pages[pages >= 0]
         if len(pages) == 0:

@@ -1,15 +1,20 @@
-"""Output-length prediction for stop-token decode.
+"""Scheduling helpers of the serving engine: output-length prediction,
+preemption victims and load shedding.
 
 With stop-token decode a request's output length — and therefore every
 page's lifetime — is data-dependent, so the ``est_death`` the engine hands
 the pool becomes a *prediction*.  ``ewma`` (default) tracks an
 exponentially-weighted moving average of recent completion lengths; ``max``
-predicts the ``max_new_tokens`` bound.
+predicts the ``max_new_tokens`` bound.  Under pool pressure the engine
+preempts the sequences :func:`choose_preempt_victims` picks, and with its
+queue at depth it sheds new requests with :class:`AdmissionShed`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..core import policies as P
 
 
 class EwmaLengthPredictor:
@@ -59,3 +64,29 @@ def make_length_predictor(name: str):
         raise ValueError(f"unknown length predictor {name!r}; "
                          f"supported: {tuple(_PREDICTORS)}")
     return _PREDICTORS[name]()
+
+
+class AdmissionShed(RuntimeError):
+    """Raised by ``submit`` when the engine sheds load: admission has been
+    stalled past preemption and the queue is at its configured depth.
+    Carries a ``retry_after_s`` hint derived from the waiting work and the
+    measured per-token decode time (HTTP 503 + Retry-After)."""
+
+    def __init__(self, retry_after_s: float):
+        super().__init__(f"admission shed; retry after {retry_after_s:.3f}s")
+        self.retry_after_s = float(retry_after_s)
+
+
+def retry_after_estimate(n_waiting_tokens: int, tpot_s: float) -> float:
+    """Retry-after hint for a shed request: the time to decode the tokens
+    already waiting ahead of it at the measured time per output token."""
+    return max(float(n_waiting_tokens) * max(float(tpot_s), 1e-4), 1e-3)
+
+
+def choose_preempt_victims(k: int, *, recompute: np.ndarray,
+                           freeable: np.ndarray,
+                           remaining: np.ndarray) -> np.ndarray:
+    """Indices (into the candidate arrays) of up to ``k`` sequences to
+    preempt, cheapest declining-cost first (:func:`policies.select_preempt`)."""
+    return P.select_preempt(k, recompute=recompute, freeable=freeable,
+                            remaining=remaining)

@@ -8,6 +8,8 @@ a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -105,6 +107,73 @@ def test_flash_attention_bhsd_entry_on_both_routes(dev):
                                        v.transpose(1, 2), causal=True)
         torch.testing.assert_close(got.transpose(1, 2).float(), want.float(),
                                    **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,q_offset", [
+    (1, 512, 1024, 16, 8, 128, 512),  # the prefix-hit shape of qwen3-1.7b
+    (1, 64, 128, 16, 8, 128, 80),     # pad rows: Sq + q_offset > Skv
+    (1, 17, 300, 8, 4, 128, 200),     # Sq 17, offset not a tile multiple
+    (2, 1, 257, 16, 8, 128, 256),     # Sq 1: the last position
+    (1, 200, 700, 4, 2, 64, 333),     # ragged Sq and Skv, odd offset
+    (1, 96, 96, 4, 4, 64, 50),        # Sq + q_offset > Skv, both ragged
+    # kv tile 0 crosses the diagonal of warpgroup 0's rows (100..163) and
+    # lies wholly below warpgroup 1's (164..227)
+    (1, 130, 640, 16, 8, 128, 100),
+])
+def test_flash_attention_q_offset(dev, B, Sq, Skv, H, Kh, D, q_offset, dtype):
+    """Query rows at absolute positions ``q_offset + i``: against the plain
+    version, and bit for bit the rows ``q_offset:`` of the ``q_offset = 0``
+    call over all ``q_offset + Sq`` rows, on both routes."""
+    rng = np.random.default_rng(3)
+    q_all = _randn(rng, (B, q_offset + Sq, H, D), dtype, dev)
+    k = _randn(rng, (B, Skv, Kh, D), dtype, dev)
+    v = _randn(rng, (B, Skv, Kh, D), dtype, dev)
+    q = q_all[:, q_offset:]
+    route = ops.flash_route(dtype, D)
+    r0, o0 = ops.flash_routes[route], ops.flash_offsets["nonzero"]
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert ops.flash_routes[route] == r0 + 1
+    assert ops.flash_offsets["nonzero"] == o0 + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    whole = ops.flash_attention(q_all, k, v, causal=True)
+    assert torch.equal(got, whole[:, q_offset:])
+
+
+# sha256 (first 16 hex digits) of the outputs of the flash kernel as it was
+# before it took a query offset, on an NVIDIA H100 80GB HBM3 (inputs from
+# numpy seed 11): the q_offset = 0 call must reproduce them bit for bit
+PRE_OFFSET_SHA256 = {
+    (torch.bfloat16, 1, 256, 16, 8, 128, True): "7cdabb7496334322",
+    (torch.bfloat16, 1, 1024, 16, 8, 128, True): "eeef910088820fe4",
+    (torch.bfloat16, 1, 1000, 16, 8, 64, True): "5380b0a339f23d5e",
+    (torch.bfloat16, 2, 200, 4, 2, 128, False): "f79e082b06cbe452",
+    (torch.float32, 1, 1024, 16, 8, 128, True): "0d311f4d796fd963",
+    (torch.float32, 1, 200, 4, 1, 32, True): "ff89134060c19b4f",
+    (torch.bfloat16, 1, 96, 6, 3, 16, True): "6c8cd99a088a10ac",
+}
+
+
+@pytest.mark.parametrize("case", list(PRE_OFFSET_SHA256),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_q_offset_zero_is_the_kernel_before_it(dev, case):
+    dtype, B, S, H, Kh, D, causal = case
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (B, S, H, D), dtype, dev)
+    k = _randn(rng, (B, S, Kh, D), dtype, dev)
+    v = _randn(rng, (B, S, Kh, D), dtype, dev)
+    out = ops.flash_attention(q, k, v, causal=causal, q_offset=0)
+    digest = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
+                            .tobytes()).hexdigest()[:16]
+    assert digest == PRE_OFFSET_SHA256[case]
+
+
+def test_flash_attention_refuses_a_negative_q_offset(dev):
+    q = torch.zeros(1, 8, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, q, q, q_offset=-1)
 
 
 def _paged_inputs(rng, dev, dtype, B, H, Kh, D, T, P, n_pages=None):
@@ -415,6 +484,44 @@ def test_engine_on_card_matches_cpu_engine(dev):
     assert results[0][1]["compactions"] >= 2
     # the card's engine moved its plans through the kernel, staged ones too
     assert ops.launches["segment_move"] > 0 and ops.move_plans["staged"] > 0
+
+
+def test_prefix_hit_engine_on_card_matches_cpu_engine(dev):
+    """The shared-prefix stream of ``tests/test_prefix_cache.py`` at f32 on
+    the smoke model: the card's hit engine (its tail prefills through the
+    flash kernel with a query offset) gives the CPU hit engine's tokens and
+    counters, and each page's reference count is its holders' count."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    rng = np.random.default_rng(1)
+    sys_prompt = np.random.default_rng(42).integers(1, cfg.vocab_size, 24)
+    reqs = [(np.concatenate([sys_prompt, rng.integers(
+        1, cfg.vocab_size, int(rng.integers(3, 14)))]),
+        int(rng.integers(4, 12))) for _ in range(6)]
+    results = []
+    ops.reset_launches()
+    for device in ("cpu", dev):
+        eng = PagedServingEngine(
+            Model(cfg, _f32(params, device)), n_slabs=8, blocks_per_slab=2,
+            page_T=8, max_batch=3, max_seq=96, streams=1, compact_trigger=2,
+            compact_batch=3, prefix_cache=True, pool_dtype=torch.float32,
+            device=device)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        eng.run_to_completion()
+        eng.pool.check_invariants()
+        eng.prefix_cache.check_invariants()
+        tree = np.asarray(eng.prefix_cache.pages(), np.int64)
+        assert (eng.pool.block_ref[tree] == 1).all()  # only the tree holds
+        m = eng.metrics()
+        results.append(([eng.finished[r] for r in rids],
+                        {k: m[k] for k in ("blocks_written", "blocks_moved",
+                                           "compactions", "wamp",
+                                           "prefill_tokens_saved",
+                                           "prefix_hit_rate",
+                                           "frames_shared")}))
+    assert results[0] == results[1]
+    assert results[1][1]["prefix_hit_rate"] >= 5 / 6
+    assert ops.flash_offsets["nonzero"] > 0   # the card's tail prefills
 
 
 def _slot_kv(eng):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.models import attention as jatt
 from repro.kernels import ref as jref
 from repro.serving.engine import _move_pages_fn
 from repro_torch.core import policies
@@ -68,6 +69,51 @@ def test_flash_attention_plain_matches_pallas_and_ref(B, Sq, Skv, H, Kh, D,
     np.testing.assert_allclose(
         f32(got), f32(jref.flash_attention_ref(jq, jk, jv, causal=causal)),
         **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,q_offset", [
+    (1, 32, 64, 4, 2, 64, 32),      # a 32-token tail after a 32-token prefix
+    (1, 17, 128, 4, 2, 128, 80),    # ragged tail, offset off every tile
+    (1, 64, 128, 4, 4, 32, 80),     # pad rows past Skv - q_offset
+    (2, 1, 40, 6, 3, 16, 39),       # one row: the last position
+    (1, 48, 48, 2, 1, 64, 5),       # Sq + q_offset > Skv
+])
+def test_flash_attention_q_offset_plain_matches_jax_chunked(B, Sq, Skv, H,
+                                                            Kh, D, q_offset,
+                                                            dtype):
+    """Query rows at absolute positions ``q_offset + i``.  The Pallas kernel
+    has no offset and the JAX prefix-hit path never reaches it: its hit
+    attends through ``chunked_attention(q_offset=P)`` in XLA, which is the
+    function the port's kernel stands for there."""
+    rng = np.random.default_rng(7)
+    jq, q = both(rng.standard_normal((B, Sq, H, D), np.float32), dtype)
+    jk, k = both(rng.standard_normal((B, Skv, Kh, D), np.float32), dtype)
+    jv, v = both(rng.standard_normal((B, Skv, Kh, D), np.float32), dtype)
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    want = jatt.chunked_attention(jq, jk, jv, causal=True, q_offset=q_offset,
+                                  q_block=16, kv_block=16)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
+
+
+def test_flash_attention_q_offset_rows_are_the_whole_call_rows():
+    """``flash_attention(q[:, P:], k, v, q_offset=P)`` gives the rows ``P:``
+    of the call over every row (to f32 rounding here: the plain version's
+    products are BLAS calls whose kernel depends on the row count, where
+    the CUDA kernel's rows are bitwise equal, held on the card);
+    ``q_offset=0`` is the default call; a negative offset is refused."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 96, n, 64), np.float32))
+               for n in (4, 2, 2))
+    whole = ops.flash_attention(q, k, v, causal=True)
+    for P in (1, 32, 57, 95):
+        np.testing.assert_allclose(
+            ops.flash_attention(q[:, P:], k, v, causal=True, q_offset=P),
+            whole[:, P:], **TOL["float32"])
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True, q_offset=0),
+                       whole)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=-1)
 
 
 def test_flash_attention_bhsd_is_the_transposed_entry():
