@@ -23,10 +23,12 @@ Phases, in order; any failure raises and the process exits non-zero:
              an overlapping one (gather and scatter) beside the PyTorch
              expression ``p[:, dst] = p[:, src]``.  Flash attention also runs
              at the prefix-hit shape (512 query rows after a 512-token cached
-             prefix, over 1,024 keys) on both routes: against its plain
-             version, and bit for bit the same rows of the ``q_offset = 0``
-             call over all 1,024 rows, beside ``scaled_dot_product_attention``
-             with the same (lower-right causal) mask.
+             prefix, over 1,024 keys) on both routes, and at a chunked
+             prefill's last chunk (256 rows at offset 768) in bf16: against
+             its plain version, and bit for bit the same rows of the
+             ``q_offset = 0`` call over all 1,024 rows, beside
+             ``scaled_dot_product_attention`` with the same (lower-right
+             causal) mask.
 4. engine  — the paged serving engine on the full-width qwen3-1.7b (28
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
@@ -34,7 +36,9 @@ Phases, in order; any failure raises and the process exits non-zero:
              just after; each of the engine's three (paged attention, the
              compaction move, flash attention on its tensor-core route) must
              have grown.  It reports how many compaction plans were staged
-             (a destination that is another move's source).
+             (a destination that is another move's source), and the median
+             and largest wall of a dispatch (CUDA events around each
+             ``step()``).
 5. tokens  — one request at float32 through the engine (the kernels) and
              through the plain ``greedy_decode``: the tokens must be equal,
              or the first mismatch must sit on a near-tie (top-2 logit
@@ -66,8 +70,20 @@ Phases, in order; any failure raises and the process exits non-zero:
              host schedule on the CPU: ``scripts/rehearse_schedule.py``) and
              one with room to spare: ``preemptions`` >= 1, ``resumes`` equal
              to it, and every request's tokens equal to the big pool's.
-             Each of these two phases zeroes the launch counters before it
-             and reads them after, and fails unless its kernels launched.
+9. chunked — the engine phase's 32 requests with chunked prefill (256
+             tokens, 16 pages, per fused dispatch: a prompt of 256-1,024
+             tokens makes 1-4 chunks at offsets 0, 256, 512, 768) through
+             the same pool: every request's token count, one chunk per
+             ceil(prompt / 256), >= 1 compaction, pool invariants, all three
+             engine kernels launched and flash launches with a query offset;
+             wall, tokens/s, dispatches, launches and the median and largest
+             dispatch wall beside the engine phase's monolithic run and a
+             second, warm one (whose tokens must repeat the first's), and
+             the share of requests whose bf16 tokens equal them (reported).
+             Then 4 requests of 300-1,000 tokens at f32 (TF32 off), chunked:
+             equal to the plain decode, or a first mismatch on a near-tie.
+             Each of the last three phases zeroes the launch counters before
+             it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -137,6 +153,7 @@ POOL = dict(n_slabs=30, blocks_per_slab=16, page_T=16, max_batch=8,
             max_decode_chunk=32)
 PREFIX_LEN = 512             # the shared system prompt: 32 pages of 16
 PREEMPT_SLABS = (24, 40)     # a pool that preempts, and one with room
+PREFILL_CHUNK = 256          # the chunked phase's budget: 16 pages of 16
 
 
 def emit(obj) -> None:
@@ -459,6 +476,9 @@ def phase_kernels() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         r = check_flash_offset(dtype, timer)
         emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})
+    # a chunked prefill's last chunk of a 1,024-token prompt
+    r = check_flash_offset(torch.bfloat16, timer, Sq=PREFILL_CHUNK)
+    emit({"phase": "kernel", "name": "flash_attention", "dtype": "torch.bfloat16", **r})
     for dtype, E in ((torch.bfloat16, 16384), (torch.int32, 16383)):
         r = check_segment_compact(dtype, E, timer)
         emit({"phase": "kernel", "name": "segment_compact", "dtype": str(dtype), **r})
@@ -575,45 +595,31 @@ def phase_engine(cfg) -> dict:
     """32 requests (prompts 256-1024 tokens, 32-128 new tokens) through a
     pool of 30 slabs x 16 pages x 16 tokens: 8 slots of such requests hold
     up to ~9k tokens, so a 7,680-token pool with one open stream fills,
-    checkerboards and compacts under pressure (no forced compaction)."""
+    checkerboards and compacts under pressure (no forced compaction).
+    Returns the run (``serve``), for the chunked phase to compare with."""
     model = Model(cfg, device="cuda", seed=SEED)
-    eng = PagedServingEngine(model, **POOL, device="cuda")
     prompts, news = engine_requests(cfg.vocab_size)
-    plens = np.array([len(p) for p in prompts])
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, int(n)) for p, n in zip(prompts, news)]
-    eng.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    routes, plans = dict(ops.flash_routes), dict(ops.move_plans)
-    for rid, n in zip(rids, news):
-        if len(eng.finished[rid]) != n:
-            raise AssertionError(f"request {rid}: {len(eng.finished[rid])} "
-                                 f"tokens, want {n}")
-    eng.pool.check_invariants()
-    m = eng.metrics()
+    run = serve(model, [(p, int(n)) for p, n in zip(prompts, news)])
+    del model
+    m, launches = run["metrics"], run["launches"]
     if m["compactions"] < 1:
         raise AssertionError("the pool never compacted under pressure")
     missing = [k for k in ENGINE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    if routes["wgmma"] == 0:
+    if run["flash_routes"]["wgmma"] == 0:
         raise AssertionError("the prefill's flash attention never took the "
                              "tensor-core route")
-    gen = int(news.sum())
     emit({"phase": "engine", "model": cfg.name, "dtype": "bfloat16",
-          "requests": len(rids), "prompt_tokens": int(plens.sum()),
-          "generated_tokens": gen, "wall_s": wall, "tokens_per_s": gen / wall,
-          "compactions": m["compactions"], "blocks_written": m["blocks_written"],
+          "requests": len(prompts), "prompt_tokens": int(sum(map(len, prompts))),
+          **stream_summary(run), "compactions": m["compactions"],
+          "blocks_written": m["blocks_written"],
           "blocks_moved": m["blocks_moved"], "wamp": m["wamp"],
-          "dispatches": m["dispatches"], "launches": launches,
-          "flash_routes": routes, "staged_plans": plans["staged"],
-          "direct_plans": plans["direct"],
+          "flash_routes": run["flash_routes"],
+          "staged_plans": run["move_plans"]["staged"],
+          "direct_plans": run["move_plans"]["direct"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return launches
+    return run
 
 
 def oracle_margins(params, prompt, cfg, n_new):
@@ -661,32 +667,46 @@ def phase_tokens(cfg) -> None:
                              f"(top-2 margin {at})")
 
 
-def serve(model, requests, **kw) -> dict:
-    """One engine over ``requests`` on the card, launch counters zeroed just
-    before and read just after; each admission's prefill is bracketed by
-    CUDA events (the stream's time from its first launch to its last, host
-    gaps included: the eager prefill is host-bound)."""
-    eng = PagedServingEngine(model, **{**POOL, **kw}, device="cuda")
-    events = []
-    start = eng._start
-
-    def timed_start(*args, **kwargs):
+def timed(fn, events: list):
+    """``fn`` with each call bracketed by a pair of CUDA events, appended to
+    ``events``."""
+    def call(*args, **kwargs):
         ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev[0].record()
-        start(*args, **kwargs)
+        out = fn(*args, **kwargs)
         ev[1].record()
         events.append(ev)
+        return out
+    return call
 
-    eng._start = timed_start
+
+def serve(model, requests, **kw) -> dict:
+    """One engine over ``requests`` on the card, launch counters zeroed just
+    before and read just after.  Each admission's prefill and each
+    ``step()`` that dispatched are bracketed by CUDA events: the stream's
+    time from the first launch to the last, host gaps included (the eager
+    engine is host-bound), so a dispatch's time is its wall and the largest
+    is the longest any decoding slot waited for its next tokens."""
+    eng = PagedServingEngine(model, **{**POOL, **kw}, device="cuda")
+    events, steps = [], []
+    eng._start = timed(eng._start, events)
+    step = timed(eng.step, steps)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     rids = [eng.submit(p, n) for p, n in requests]
-    eng.run_to_completion()
+    dispatched = []
+    for _ in range(100_000):
+        before = eng.dispatches
+        step()
+        dispatched.append(eng.dispatches > before)
+        if not eng.has_work():
+            break
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"launches": dict(ops.launches), "flash_routes": dict(ops.flash_routes),
-              "flash_offsets": dict(ops.flash_offsets)}
+              "flash_offsets": dict(ops.flash_offsets),
+              "move_plans": dict(ops.move_plans)}
     eng.pool.check_invariants()
     if eng.prefix_cache is not None:
         eng.prefix_cache.check_invariants()
@@ -696,7 +716,20 @@ def serve(model, requests, **kw) -> dict:
             raise AssertionError(f"a request emitted {len(t)} tokens, want {n}")
     return {"tokens": tokens, "metrics": eng.metrics(), "wall_s": wall,
             "prefill_stream_ms": sum(a.elapsed_time(b) for a, b in events),
-            "prefills": len(events), **counts}
+            "prefills": len(events),
+            "dispatch_ms": [a.elapsed_time(b) for (a, b), d in zip(steps, dispatched)
+                            if d], **counts}
+
+
+def stream_summary(run) -> dict:
+    """Throughput and per-dispatch wall of one ``serve`` run."""
+    gen = sum(len(t) for t in run["tokens"])
+    return {"generated_tokens": gen, "wall_s": run["wall_s"],
+            "tokens_per_s": gen / run["wall_s"],
+            "dispatches": run["metrics"]["dispatches"],
+            "dispatch_ms_median": statistics.median(run["dispatch_ms"]),
+            "dispatch_ms_max": max(run["dispatch_ms"]),
+            "launches": run["launches"]}
 
 
 def phase_prefix(cfg) -> dict:
@@ -819,6 +852,79 @@ def phase_preemption(cfg) -> dict:
     return small["launches"]
 
 
+def phase_chunked(cfg, mono) -> dict:
+    """The engine phase's 32 requests with chunked prefill (PREFILL_CHUNK
+    tokens per fused dispatch) through the same pool, beside the engine
+    phase's monolithic run ``mono`` and a second monolithic run after it
+    (``mono`` was the process's first engine run, so its first dispatch
+    also pays the first calls of every GEMM shape); then the f32 leg: 4
+    requests of 300 to 1,000 tokens (f32 weights and pool, TF32 off) whose
+    chunked tokens must be the plain decode's, or part from it on a
+    near-tie."""
+    prompts, news = engine_requests(cfg.vocab_size)
+    reqs = [(p, int(n)) for p, n in zip(prompts, news)]
+    model = Model(cfg, device="cuda", seed=SEED)
+    run = serve(model, reqs, prefill_chunk=PREFILL_CHUNK)
+    again = serve(model, reqs)
+    del model
+    if again["tokens"] != mono["tokens"]:
+        raise AssertionError("a repeated monolithic run gave other tokens")
+    torch.cuda.empty_cache()
+    m = run["metrics"]
+    chunks = sum(-(-len(p) // PREFILL_CHUNK) for p, _ in reqs)
+    if m["prefill_chunks_dispatched"] != chunks:
+        raise AssertionError(f"{m['prefill_chunks_dispatched']} chunks "
+                             f"dispatched, want {chunks}")
+    if m["compactions"] < 1:
+        raise AssertionError("the chunked run never compacted")
+    missing = [k for k in ENGINE_KERNELS if run["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the chunked path never launched {missing}")
+    if run["flash_offsets"]["nonzero"] == 0:
+        raise AssertionError("no chunk ran flash_attention with a query offset")
+    same = sum(a == b for a, b in zip(run["tokens"], mono["tokens"]))
+
+    # f32 leg: the tokens phase's weights at f32, an f32 pool, TF32 off
+    bf = Model(cfg, device="cuda", seed=SEED).params
+    model = Model(cfg, unflatten((p, t.float()) for p, t in flatten(bf)))
+    del bf
+    rng = np.random.default_rng(SEED + 2)
+    small = [(rng.integers(1, cfg.vocab_size, int(n)), 16)
+             for n in rng.integers(300, 1001, 4)]
+    f32 = serve(model, small, prefill_chunk=PREFILL_CHUNK,
+                pool_dtype=torch.float32)
+    mismatches = []
+    for (prompt, n), got in zip(small, f32["tokens"]):
+        want = tfm.greedy_decode(model.params, prompt, cfg, n,
+                                 cache_dtype=torch.float32)
+        first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                     None)
+        if first is None:
+            continue
+        _, margins = oracle_margins(model.params, prompt, cfg, n)
+        mismatches.append({"first_mismatch": first,
+                           "margin_at_mismatch": margins[first]})
+        if not margins[first] < 1e-3:
+            raise AssertionError(f"f32 chunked: tokens differ from the plain "
+                                 f"decode at {first} (top-2 margin "
+                                 f"{margins[first]})")
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "chunked", "model": cfg.name, "dtype": "bfloat16",
+          "requests": len(reqs), "prefill_chunk": PREFILL_CHUNK,
+          "prefill_chunks_dispatched": m["prefill_chunks_dispatched"],
+          "compactions": m["compactions"], "wamp": m["wamp"],
+          "flash_offsets": run["flash_offsets"],
+          "tokens_equal_share": same / len(reqs),
+          "chunked": stream_summary(run),
+          "monolithic": [stream_summary(r) for r in (mono, again)],
+          "f32": {"requests": len(small),
+                  "prompt_tokens": [len(p) for p, _ in small],
+                  "chunks": f32["metrics"]["prefill_chunks_dispatched"],
+                  "equal": not mismatches, "mismatches": mismatches}})
+    return run["launches"]
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -826,12 +932,14 @@ def main() -> None:
     phase_build()
     results = phase_kernels()
     cfg = get_config("qwen3-1.7b")
-    launches = phase_engine(cfg)
+    mono = phase_engine(cfg)
+    launches = dict(mono["launches"])
     torch.cuda.empty_cache()
     phase_tokens(cfg)
     torch.cuda.empty_cache()
     results["mdc_priority"], launches["mdc_priority"] = phase_victims()
-    paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg)}
+    paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg),
+             "chunked": phase_chunked(cfg, mono)}
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims" if name == "mdc_priority" else "engine"

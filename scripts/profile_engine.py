@@ -4,8 +4,8 @@
     python3 scripts/profile_engine.py
 
 Builds the full-width qwen3-1.7b (random bf16 weights from a seed) and the
-paged engine of ``chip_smoke.py``'s engine phase, then profiles two windows
-with ``torch.profiler`` (CPU and CUDA activities):
+paged engine of ``chip_smoke.py``'s engine phase, then profiles these
+windows with ``torch.profiler`` (CPU and CUDA activities):
 
 * decode  — eight slots admitted (prompts of 512 tokens), then dispatches
             of a full batch with no admission in the window;
@@ -16,16 +16,27 @@ with ``torch.profiler`` (CPU and CUDA activities):
             Cold: the whole prompt (bucket 1,024).  Hit: the prefix K/V
             gathered from pool pages as the engine does, then
             ``tfm.prefill_with_prefix`` of the 256-token tail over a
-            1,024-key extent (flash attention with ``q_offset`` 512).
+            1,024-key extent (flash attention with ``q_offset`` 512);
+* fused_chunk — chunked prefill (256 tokens per dispatch): a 1,024-token
+            prompt's four fused dispatches, each one chunk (at offsets 0,
+            256, 512, 768) plus the decode of the other slots, 8 tokens
+            each (the 8-row decode batch, 5 to 7 slots decoding: after a
+            warm-up prompt, one runs unprofiled, the next under the
+            profiler).
 
 Each window runs without the profiler (``wall_ms``; for the prefix pair the
 median of five runs in turns) and once under it (``wall_ms_profiled``,
-which carries the profiler's own cost).  For each it prints one JSON line:
-wall ms, the device's busy ms (sum of kernel times under the profiler), the
-idle share against the unprofiled wall, kernel launches, the kernels that
-take the most device time, the time of each of the port's own kernels, and
-the host operators with the most self CPU time under the profiler (with
-their calls).  Measurement only: nothing here is asserted.
+which carries the profiler's own cost).  The decode and fused_chunk windows
+also count the calls that wait for the card (``host_syncs``: PyTorch's
+sync debug mode, less the window's closing synchronise), and the fused one
+splits its unprofiled wall into the chunk and the decode (``chunk_ms``,
+``decode_ms``: CUDA events around each, so host gaps count, as the eager
+engine is host-bound).  For each window it prints one JSON line: wall ms,
+the device's busy ms (sum of kernel times under the profiler), the idle
+share against the unprofiled wall, kernel launches, the kernels that take
+the most device time, the time of each of the port's own kernels, and the
+host operators with the most self CPU time under the profiler (with their
+calls).  Measurement only: nothing here is asserted.
 """
 
 from __future__ import annotations
@@ -35,15 +46,18 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from chip_smoke import timed  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -84,6 +98,20 @@ def kernel_table(prof, wall_ms: float, n_units: int) -> dict:
             "port_kernels_ms": {k: t for k, t in port.items() if t}}
 
 
+def count_syncs(fn):
+    """(fn(), the synchronising CUDA calls it made): PyTorch's sync debug
+    mode warns at each call that waits for the device (a read to the host,
+    an upload from pageable memory, an explicit synchronise)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")
@@ -119,9 +147,11 @@ def main() -> None:
     plain_ms, plain_steps = steps(3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, token_steps = steps(3)
+    (_, sync_steps), syncs = count_syncs(lambda: steps(1))
     print(json.dumps({"window": "decode", "batch": eng.max_batch,
                       "per": "token step",
                       "token_steps": token_steps,
+                      "host_syncs": (syncs - 1) / sync_steps,
                       "wall_ms_profiled": wall / token_steps,
                       **kernel_table(prof, plain_ms / plain_steps * token_steps,
                                      token_steps)}), flush=True)
@@ -189,6 +219,61 @@ def main() -> None:
                           "wall_ms_profiled": wall, "flash_offsets": offsets,
                           **kernel_table(prof, statistics.median(walls[name]),
                                          1)}), flush=True)
+
+    # fused_chunk: 5 slots decoding in step, then 1,024-token prompts, one
+    # at a time, each prefilling in four 256-token chunks fused with that
+    # decode (the first prompt warms the chunk's shapes up).  The 5 are
+    # admitted in one monolithic dispatch, so that all sit at 512 tokens
+    # and cross a page at the same token: every dispatch then decodes the 8
+    # tokens of max_decode_chunk
+    del eng
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(1)
+    eng = PagedServingEngine(model, n_slabs=30, blocks_per_slab=16, page_T=16,
+                             max_batch=8, max_seq=2048, streams=1,
+                             max_decode_chunk=8, device="cuda")
+    for _ in range(5):
+        eng.submit(rng.integers(1, cfg.vocab_size, 512), 150)
+    eng.step()
+    eng.prefill_chunk = 256   # chunked from here on (16 whole pages)
+    torch.cuda.synchronize()
+    decoded = []              # token steps of each dispatch's decode
+    parts = {"chunk": [], "decode": []}   # CUDA events around each part
+    chunk, decode = eng._prefill_chunk, eng._decode
+    eng._prefill_chunk = timed(chunk, parts["chunk"])
+    eng._decode = timed(lambda n: (decoded.append(n), decode(n))[1],
+                        parts["decode"])
+
+    def prompt_chunks() -> tuple[float, int, int]:
+        """One 1,024-token prompt's fused dispatches: (wall ms, dispatches,
+        token steps).  ``parts`` keeps only this prompt's events."""
+        for events in parts.values():
+            events.clear()
+        eng.submit(rng.integers(1, cfg.vocab_size, 1024), 100)
+        d0, k0 = eng.dispatches, len(decoded)
+        t0 = time.perf_counter()
+        eng.step()                   # admits it and runs its first chunk
+        while eng._pf is not None:
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        return wall, eng.dispatches - d0, sum(decoded[k0:])
+
+    _, syncs = count_syncs(prompt_chunks)  # also the warm-up
+    plain_ms, plain_n, plain_steps = prompt_chunks()
+    split = {f"{k}_ms": sum(a.elapsed_time(b) for a, b in v) / plain_n
+             for k, v in parts.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, n_disp, token_steps = prompt_chunks()
+    print(json.dumps({"window": "fused_chunk", "chunk_tokens": 256,
+                      "per": "dispatch", "dispatches": n_disp,
+                      "token_steps_per_dispatch": token_steps / n_disp,
+                      "unprofiled": {"dispatches": plain_n,
+                                     "token_steps": plain_steps, **split},
+                      "host_syncs": (syncs - 1) / plain_n,
+                      "wall_ms_profiled": wall / n_disp,
+                      **kernel_table(prof, plain_ms / plain_n * n_disp,
+                                     n_disp)}), flush=True)
     print(smi, flush=True)
 
 

@@ -4,6 +4,7 @@ the CPU, to size a pool before a run on the card.
 
     PYTHONPATH=src python3 scripts/rehearse_schedule.py preemption 10 12 16 64
     PYTHONPATH=src python3 scripts/rehearse_schedule.py prefix 30
+    PYTHONPATH=src python3 scripts/rehearse_schedule.py chunked 30
 
 Without a stop token the pool's decisions (admission, placement, cleaning,
 preemption, prefix hits) depend on the prompts' lengths and shared pages,
@@ -11,7 +12,9 @@ not on the model's values, so the smoke model on the CPU, at the same pool
 geometry (``chip_smoke.POOL``), replays the full-width schedule.  For each
 pool size (in slabs) it prints one JSON line: preemptions, resumes,
 recomputed tokens, compactions, Wamp, dispatches and, for the prefix
-stream, the hit rate and the prefill tokens saved.
+stream, the hit rate and the prefill tokens saved; for the chunked stream
+(the engine phase's 32 requests with ``chip_smoke.PREFILL_CHUNK``) the
+chunks dispatched.
 """
 
 from __future__ import annotations
@@ -44,8 +47,13 @@ def main() -> None:
     elif stream == "prefix":
         reqs = chip_smoke.prefix_requests(full.vocab_size)
         kw = dict(prefix_cache=True)
+    elif stream == "chunked":
+        prompts, news = chip_smoke.engine_requests(full.vocab_size)
+        reqs = [(p, int(n)) for p, n in zip(prompts, news)]
+        kw = dict(prefill_chunk=chip_smoke.PREFILL_CHUNK)
     else:
-        raise SystemExit(f"unknown stream {stream!r}: preemption or prefix")
+        raise SystemExit(f"unknown stream {stream!r}: preemption, prefix or "
+                         f"chunked")
     for n_slabs in slabs:
         eng = PagedServingEngine(model, **{**chip_smoke.POOL, **kw,
                                            "n_slabs": n_slabs},
@@ -58,7 +66,8 @@ def main() -> None:
         print(json.dumps({"stream": stream, "n_slabs": n_slabs, **{
             k: m[k] for k in ("preemptions", "resumes", "recomputed_tokens",
                               "compactions", "wamp", "dispatches",
-                              "prefix_hit_rate", "prefill_tokens_saved")
+                              "prefix_hit_rate", "prefill_tokens_saved",
+                              "prefill_chunks_dispatched")
             if k in m}}), flush=True)
 
 

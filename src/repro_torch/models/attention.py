@@ -1,8 +1,9 @@
 """GQA attention: the projections, the plain chunked attention, and the
 prefill / decode wrappers of the dense serving path.
 
-``gqa_prefill`` and ``gqa_prefill_cont`` (the tail after a cached prefix)
-run their attention through the hand-written flash kernel
+``gqa_prefill``, ``gqa_prefill_cont`` (the tail after a cached prefix) and
+``gqa_prefill_chunk`` (one chunk of a chunked prefill) run their attention
+through the hand-written flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`); ``chunked_attention`` is
 the plain online-softmax function the JAX package lowers through XLA, kept
 here for the token oracle (``transformer.greedy_decode``).
@@ -181,6 +182,44 @@ def gqa_prefill_cont(x, p, cfg, k_pre, v_pre, *, kv_len: int | None = None,
         out = ops.flash_attention(q, k_cat, v_cat, causal=True, q_offset=P)
     else:
         out = chunked_attention(q, k_cat, v_cat, causal=True, q_offset=P,
+                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
+
+
+def gqa_prefill_chunk(x, p, cfg, k_ext, v_ext, pos0: int, *,
+                      kernel: bool = True):
+    """Prefill continuation at any chunk boundary ``pos0`` (chunked
+    prefill).  ``x`` holds positions ``[pos0, pos0 + S)`` of a prompt whose
+    earlier chunks' K/V sit in the serving pool; ``k_ext``/``v_ext``
+    (B, kv_len, Kh, hd) are the prompt's full padded key extent gathered
+    from the pool pages: rows ``< pos0`` are the earlier chunks' values,
+    later rows stale pool content that the causal mask hides.
+
+    The fresh chunk K/V are spliced into the extent at ``pos0`` in the
+    compute dtype, before any pool round trip, and the rows past ``kv_len``
+    (pad rows of a final chunk) are cut.  An extent already in the compute
+    dtype is written in place (the engine gathers a fresh one per chunk);
+    another dtype is cast to a copy first.  With ``kv_len`` the full
+    prompt's padded bucket, each row attends the key extent a whole prefill
+    of the prompt attends, so its result is that prefill's row.  ``kernel``
+    as in :func:`gqa_prefill`.
+
+    Returns (attn out, (k_chunk, v_chunk))."""
+    B, S, _ = x.shape
+    kv_len = k_ext.shape[1]
+    if not 0 <= pos0 < kv_len:
+        raise ValueError(f"chunk start {pos0} outside the key extent {kv_len}")
+    positions = pos0 + torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    if k_ext.dtype != k.dtype:
+        k_ext, v_ext = k_ext.to(k.dtype), v_ext.to(v.dtype)
+    n = min(S, kv_len - pos0)
+    k_ext[:, pos0:pos0 + n] = k[:, :n]
+    v_ext[:, pos0:pos0 + n] = v[:, :n]
+    if kernel:
+        out = ops.flash_attention(q, k_ext, v_ext, causal=True, q_offset=pos0)
+    else:
+        out = chunked_attention(q, k_ext, v_ext, causal=True, q_offset=pos0,
                                 q_block=cfg.q_block, kv_block=cfg.kv_block)
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 

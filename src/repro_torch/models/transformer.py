@@ -1,6 +1,6 @@
 """Model assembly for the dense GQA family: parameter specs, the prompt
-prefill (whole, or the tail after a cached prefix), and the dense-cache
-decode that serves as the token oracle.
+prefill (whole, the tail after a cached prefix, or one chunk of it), and
+the dense-cache decode that serves as the token oracle.
 
 Parameters keep the JAX package's layout (stacked per-layer leaves with a
 leading layers axis; ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``,
@@ -122,6 +122,44 @@ def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
         vs.append(F.pad(v, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
     n = S if true_len is None else int(true_len)
     logits = _unembed(params, x[:, n - 1:n], cfg)[:, 0]
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+def prefill_chunk(params, tokens, cfg, ext_k, ext_v, pos0: int,
+                  last_idx: int | None, *, kernel: bool = True):
+    """One fixed-size chunk of a prompt prefill (chunked prefill):
+    :func:`prefill_with_prefix` generalized from a continuation at a cached
+    prefix boundary to one at any chunk boundary.
+
+    ``tokens`` (B, S) is one chunk of the prompt starting at absolute
+    position ``pos0`` (the last chunk right-padded past the prompt end).
+    ``ext_k``/``ext_v`` (L, B, kv_len, Kh, hd) are the prompt's full padded
+    key extent, gathered from the serving pool once for all layers: rows
+    ``< pos0`` hold the earlier chunks' K/V, later rows are stale and
+    causally masked.  Each layer writes its fresh chunk K/V into its rows
+    (:func:`attention.gqa_prefill_chunk`), in place when the extent has the
+    compute dtype (otherwise the extent is cast once, here), and attends
+    its layer's view of the buffer as it lies.
+
+    Returns (the logits of row ``last_idx`` — the prompt's last token, on
+    the final chunk; None when ``last_idx`` is None —, k_chunk (L, B, S,
+    Kh, hd), v_chunk): only this chunk's K/V, for the engine to scatter
+    into the chunk's pages."""
+    x = _embed(params, tokens)
+    if ext_k.dtype != x.dtype:
+        ext_k, ext_v = ext_k.to(x.dtype), ext_v.to(x.dtype)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer(params["blocks"], i)
+        a, (k, v) = att.gqa_prefill_chunk(rmsnorm(x, lp["ln1"]), lp["attn"],
+                                          cfg, ext_k[i], ext_v[i], pos0,
+                                          kernel=kernel)
+        x = x + a
+        x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+        ks.append(k)
+        vs.append(v)
+    logits = (None if last_idx is None else
+              _unembed(params, x[:, last_idx:last_idx + 1], cfg)[:, 0])
     return logits, torch.stack(ks), torch.stack(vs)
 
 

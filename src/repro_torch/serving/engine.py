@@ -15,6 +15,17 @@ the device the two data paths the host-side pool manager plans:
 plus the bucketed monolithic prefill, whose attention is the
 ``flash_attention`` kernel, and the scatter of the prompt's K/V into pages.
 
+Chunked prefill (``prefill_chunk=C``) co-schedules prefill with decode: a
+prompt prefills ``C`` tokens per dispatch instead of one monolithic
+prefill at admission, so the decoding slots never wait a whole prompt.  A
+*fused* dispatch gathers the prefilling slot's key extent from the pool
+(padded to the whole prompt's bucket), runs one chunk through the flash
+kernel with a query offset at the chunk's position, scatters the chunk's
+K/V into its pages, runs the usual decode loop for the other slots, and
+reads the decode tokens and the chunk's first token in one host sync.
+One prefill is in flight at a time; its slot stays out of the decode
+batch until its final chunk lands.
+
 Two scheduling features ride on the pool's reference counts:
 
   * prefix cache (``prefix_cache=True``) — full prompt pages enter a radix
@@ -42,8 +53,8 @@ updates the pools in place.
 
 Batch slots are fixed (``max_batch``); inactive slots point at a reserved
 trash page and are masked out.  Per-slot bookkeeping is numpy arrays
-(``rid``, ``lens``, ``to_gen``, ``npages``, ``tokens``) plus the ``bt``
-block-table matrix.  Supported family: dense (GQA attention).
+(``rid``, ``lens``, ``to_gen``, ``npages``, ``tokens``, ``_prefilling``)
+plus the ``bt`` block-table matrix.  Supported family: dense (GQA attention).
 """
 
 from __future__ import annotations
@@ -64,7 +75,8 @@ from ..models.layers import rmsnorm
 from .kvcache import LogStructuredKVPool
 from .prefix_cache import PrefixCache
 from .scheduler import (AdmissionShed, choose_preempt_victims,
-                        make_length_predictor, retry_after_estimate)
+                        make_length_predictor, normalize_prefill_chunk,
+                        retry_after_estimate)
 
 
 @dataclasses.dataclass
@@ -100,7 +112,8 @@ class PagedServingEngine:
                  pool_dtype=torch.bfloat16, stop_token: int | None = None,
                  predictor: str = "ewma", prefix_cache: bool = False,
                  prefix_cache_pages: int = 0, preemption: bool = False,
-                 shed_queue_depth: int = 0, device=None):
+                 shed_queue_depth: int = 0, prefill_chunk: int = 0,
+                 admit_every_dispatch: bool = True, device=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
@@ -115,6 +128,13 @@ class PagedServingEngine:
         self.max_pages_per_seq = (max_seq + page_T - 1) // page_T
         self.max_decode_chunk = max_decode_chunk
         self.pool_dtype = pool_dtype
+        # prefill_chunk > 0: prompts prefill that many tokens (whole pages)
+        # per fused dispatch; 0 keeps the monolithic prefill at admission.
+        # admit_every_dispatch: with work waiting under stop-token decode,
+        # dispatches shrink to one token so a slot's exit is seen (and
+        # admission re-run) at the next token
+        self.prefill_chunk = normalize_prefill_chunk(prefill_chunk, page_T)
+        self.admit_every_dispatch = admit_every_dispatch
 
         self.pool = LogStructuredKVPool(
             n_slabs, blocks_per_slab, policy=policy, streams=streams,
@@ -153,12 +173,17 @@ class PagedServingEngine:
         # a resumed slot re-decodes its already-emitted span; _jskip[i] is
         # how many output tokens were delivered before it was preempted
         self._jskip = np.zeros(B, np.int32)
+        # chunked prefill: the slot whose prompt is still prefilling (out of
+        # the decode batch), and the one in-flight prefill's progress
+        self._prefilling = np.zeros(B, bool)
+        self._pf: dict | None = None
+        self.prefill_chunks_dispatched = 0
 
         # --- device mirrors, uploaded only when an event dirties them ------
         self._bt_dev = self._put(self.bt)
         self._lens_dev = self._put(self.lens)
         self._tok_dev = self._put(self.tokens)
-        self._act_dev = self._put(self.rid >= 0)
+        self._act_dev = self._put(self._decoding())
         self._bt_dirty = False
         self._state_dirty = False
 
@@ -215,6 +240,10 @@ class PagedServingEngine:
 
     def slot_active(self, i: int) -> bool:
         return self.rid[i] >= 0
+
+    def _decoding(self) -> np.ndarray:
+        """Slots in the decode batch: active and not prefilling."""
+        return (self.rid >= 0) & ~self._prefilling
 
     def slot_pages(self, i: int) -> np.ndarray:
         """Physical pages held by slot i (a view of the block-table row)."""
@@ -283,6 +312,10 @@ class PagedServingEngine:
         started: list[int] = []
         self._admit_stalled = False
         for i in np.flatnonzero(self.rid < 0):
+            if self._pf is not None:
+                # chunked mode admits one prefill at a time; admission runs
+                # every step(), so the next waits at most the chunk cadence
+                break
             # preempted requests resume first: they were admitted once and
             # already carry emitted tokens the caller is waiting on
             q = self._resume if self._resume else self.queue
@@ -420,6 +453,10 @@ class PagedServingEngine:
             self.recomputed_tokens += plen + req.out_n - 1
         self._prefill_tokens_total += plen
         self._prefill_tokens_saved += n_shared * T
+        if self.prefill_chunk:
+            # step() feeds the prompt one chunk per fused dispatch
+            self._start_chunked(i, req, n_pages, n_shared, est)
+            return
 
         # bucketed prefill (of the uncached tail on a hit), then scatter the
         # whole bucket's pages; pages beyond the allocation land in the
@@ -445,36 +482,51 @@ class PagedServingEngine:
         self.k_pools[:, pages_dev] = ks[:, 0].reshape(L, nb, T, Kh, hd)
         self.v_pools[:, pages_dev] = vs[:, 0].reshape(L, nb, T, Kh, hd)
 
-        # register the prompt's full (immutable) pages for future sharing;
-        # keys already cached keep their page, so a recomputed boundary page
-        # stays private to this sequence
+        self._own(i, req)
+        self._bt_dirty = True
+        if self._graduate(i, prompt, est, first_tok, resume,
+                          req.max_new_tokens):
+            self._admit_done.append(req.rid)
+
+    def _own(self, i: int, req: Request) -> None:
+        """Slot ``i`` takes ``req``: its id, prompt, and the tokens a
+        resumed request carries."""
+        self.rid[i] = req.rid
+        self._prompt[i] = req.prompt
+        self._out[i] = req.out
+        self._out_n[i] = req.out_n
+
+    def _graduate(self, i: int, prompt: np.ndarray, est: float,
+                  first_tok: int, resume: bool, max_new: int) -> bool:
+        """Slot ``i``'s prompt is prefilled and ``first_tok`` is its first
+        output token: register the prompt's full pages for sharing and
+        start decoding.  Returns True when that token already completes the
+        request (cap reached, or a fresh start's stop token), which is then
+        finished."""
+        T, plen = self.page_T, len(prompt)
+        # keys already cached keep their page, so a recomputed boundary
+        # page stays private to this sequence
         if self.prefix_cache is not None and plen // T:
             self.prefix_cache.insert(prompt, self.bt[i, :plen // T].copy(),
                                      est)
-
-        self.rid[i] = req.rid
         self.lens[i] = plen
-        self._prompt[i] = req.prompt
         self.tokens[i] = first_tok
-        self.to_gen[i] = req.max_new_tokens - 1
+        self.to_gen[i] = max_new - 1
         if resume:
             # keep the carried buffer: decode re-emits the same tokens, and
             # a preemption mid-replay still knows the whole span (_jskip)
-            out = req.out
-            self._jskip[i] = req.out_n
+            self._jskip[i] = self._out_n[i]
         else:
-            out = np.empty(req.max_new_tokens, np.int32)
+            self._out[i] = np.empty(max_new, np.int32)
             self._jskip[i] = 0
-        out[0] = first_tok
-        self._out[i] = out
+        self._out[i][0] = first_tok
         self._out_n[i] = 1
-        self._bt_dirty = self._state_dirty = True
-        # the prefill token may already complete the request: cap reached,
-        # or (stop-token decode) the first emitted token is the stop token
+        self._state_dirty = True
         if self.to_gen[i] <= 0 or (not resume and self.stop_token is not None
                                    and first_tok == self.stop_token):
-            self._admit_done.append(req.rid)
             self._finish(i)
+            return True
+        return False
 
     def _prefill_cont(self, i: int, prompt: np.ndarray, n_shared: int,
                       n_pages: int):
@@ -501,9 +553,96 @@ class PagedServingEngine:
             cache_dtype=self.pool_dtype)
         return logits, ks, vs, max_len
 
+    def _start_chunked(self, i: int, req: Request, n_pages: int,
+                       n_shared: int, est: float) -> None:
+        """Park slot ``i`` in the prefilling state: its pages are allocated
+        (and a cached prefix spliced) as for a monolithic start, and
+        ``step()`` feeds one ``prefill_chunk``-token chunk per fused
+        dispatch until :meth:`_pf_complete` moves it into decode.  The slot
+        owns its request, pages and prompt from the first chunk, so a
+        preemption mid-prefill releases it like a decoding slot."""
+        T = self.page_T
+        plen = len(req.prompt)
+        self._own(i, req)
+        self._jskip[i] = 0           # parked: _out_n is the known span
+        self.tokens[i] = 0
+        self.to_gen[i] = req.max_new_tokens - req.out_n
+        # lens tracks prefill progress on the host; the slot is out of the
+        # decode batch, so the device never reads it
+        self.lens[i] = n_shared * T
+        self._prefilling[i] = True
+        # kv_len, the whole prompt's token bucket, is the key extent every
+        # chunk attends: the extent a monolithic prefill attends
+        self._pf = dict(slot=i, prompt=req.prompt, plen=plen,
+                        pos=n_shared * T,
+                        kv_len=self._prefill_bucket(plen, n_pages)[0],
+                        est=est, resume=req.out is not None and req.out_n > 0,
+                        max_new=req.max_new_tokens)
+        self._bt_dirty = self._state_dirty = True
+
+    def _prefill_chunk(self, pf: dict) -> torch.Tensor | None:
+        """One chunk of the in-flight prefill on the device: gather the
+        slot's key extent (its block-table row padded with the trash page
+        to the prompt's bucket) once for all layers, run the chunk at
+        ``pf["pos"]``, scatter its K/V into the chunk's allocated pages.
+        The gather reads the pool before the chunk's own scatter, so the
+        chunk attends its K/V unrounded, as a monolithic prefill does.
+        Returns the first output token (a (1,) device tensor) on the final
+        chunk, else None."""
+        C, T = self.prefill_chunk, self.page_T
+        i, pos, plen, kv_len = pf["slot"], pf["pos"], pf["plen"], pf["kv_len"]
+        nb = -(-kv_len // T)
+        ext = np.full(nb, self.trash_page, np.int64)
+        m = min(nb, self.max_pages_per_seq)
+        ext[:m] = self.bt[i, :m]
+        # the chunk's own pages; a final chunk's pages past the allocation
+        # hold only pad rows and are not written
+        p0 = pos // T
+        n_own = int(np.clip(self.npages[i] - p0, 0, C // T))
+        toks = np.zeros(C, np.int64)
+        seg = pf["prompt"][pos:pos + C]
+        toks[:len(seg)] = seg
+        # one upload: extent pages, the chunk's pages, its tokens
+        host = np.concatenate([ext, self.bt[i, p0:p0 + n_own], toks])
+        dev = self._put(host)
+        ext_dev, own_dev, tok_dev = dev[:nb], dev[nb:nb + n_own], dev[nb + n_own:]
+        L, _, _, Kh, hd = self.k_pools.shape
+        ext_k = self.k_pools[:, ext_dev].reshape(L, 1, nb * T, Kh, hd)
+        ext_v = self.v_pools[:, ext_dev].reshape(L, 1, nb * T, Kh, hd)
+        is_last = pos + C >= plen
+        logits, ks, vs = tfm.prefill_chunk(
+            self.params, tok_dev[None], self.cfg, ext_k[:, :, :kv_len],
+            ext_v[:, :, :kv_len], pos, plen - 1 - pos if is_last else None)
+        rows = n_own * T
+        self.k_pools[:, own_dev] = ks[:, 0, :rows].reshape(
+            L, n_own, T, Kh, hd).to(self.pool_dtype)
+        self.v_pools[:, own_dev] = vs[:, 0, :rows].reshape(
+            L, n_own, T, Kh, hd).to(self.pool_dtype)
+        if not is_last:
+            return None
+        return torch.argmax(logits[0]).to(torch.int32).reshape(1)
+
+    def _pf_complete(self, first_tok: int) -> int | None:
+        """The final chunk landed: move the prefilling slot into the decode
+        batch.  Returns the request id if the prefill token already
+        completed the request, else None.  The prefix-cache insert waits
+        until now: an in-flight prefill's later pages hold stale K/V that
+        no other request may splice."""
+        pf, self._pf = self._pf, None
+        i = pf["slot"]
+        self._prefilling[i] = False
+        rid = int(self.rid[i])
+        done = self._graduate(i, pf["prompt"], pf["est"], first_tok,
+                              pf["resume"], pf["max_new"])
+        return rid if done else None
+
     def _release_slot(self, i: int) -> None:
         """Free slot i's pages (one decref each — shared prefix pages
-        survive for their other referencers) and reset its state."""
+        survive for their other referencers) and reset its state; an
+        in-flight prefill of the slot is abandoned."""
+        if self._pf is not None and self._pf["slot"] == i:
+            self._pf = None
+        self._prefilling[i] = False
         self.pool.free_pages(self.slot_pages(i).astype(np.int64))
         self.bt[i, :] = self.trash_page
         self.rid[i] = -1
@@ -545,22 +684,24 @@ class PagedServingEngine:
         if self._state_dirty:
             self._lens_dev = self._put(self.lens)
             self._tok_dev = self._put(self.tokens)
-            self._act_dev = self._put(self.rid >= 0)
+            self._act_dev = self._put(self._decoding())
             self._state_dirty = False
 
     def _event_horizon(self, active: np.ndarray) -> int:
         """Tokens until the earliest host event: a slot crossing into an
         unallocated page (from ``seq_len % page_T``) or finishing.  With
         stop-token decode and work waiting, a slot's exit is invisible to
-        the horizon, so dispatches shrink to one token (every exit is seen
-        — and admission re-run — at the next token)."""
+        the horizon, so with ``admit_every_dispatch`` dispatches shrink to
+        one token (every exit is seen — and admission re-run — at the next
+        token); without it they keep the horizon's length."""
         if active.any():
             room = self.npages * self.page_T - self.lens
             until = np.minimum(room, self.to_gen)[active]
             n = min(int(until.min()), self.max_decode_chunk)
         else:
             n = 1
-        if self.stop_token is not None and (self.queue or self._resume):
+        if (self.admit_every_dispatch and self.stop_token is not None
+                and (self.queue or self._resume)):
             n = 1
         return max(n, 1)
 
@@ -614,11 +755,12 @@ class PagedServingEngine:
 
     def step(self) -> list[int]:
         """Admit, then decode up to ``max_decode_chunk`` tokens for every
-        active slot in one dispatch.  Returns finished request ids."""
+        decoding slot in one dispatch — fused with one chunk of the
+        in-flight prefill in chunked mode.  Returns finished request ids."""
         self._admit()
         done, self._admit_done = self._admit_done, []
-        active = self.rid >= 0
-        if not active.any():
+        active = self._decoding()
+        if not active.any() and self._pf is None:
             return done
         self.dispatches += 1
         t0 = time.perf_counter()
@@ -634,9 +776,11 @@ class PagedServingEngine:
             avail = self.pool.free_blocks() + self._evictable()
             if avail < growing.size:
                 self._preempt_for(growing.size - avail, min_active=1)
-                active = self.rid >= 0
+                active = self._decoding()   # the prefill may be evicted too
                 growing = np.flatnonzero(
                     active & (self.lens >= self.npages * self.page_T))
+                if not active.any() and self._pf is None:
+                    return done
         if growing.size:
             rem = np.array([self._predict_remaining(
                 int(self._out_n[j] + self.to_gen[j]), int(self._out_n[j]))
@@ -651,18 +795,32 @@ class PagedServingEngine:
 
         n = self._event_horizon(active)
         self._sync_device()
-        toks = self._decode(n).cpu().numpy()   # the one host sync
+        pf = self._pf
+        # the chunk's gather reads the pool before the decode writes it; the
+        # two touch disjoint pages (the prefilling slot decodes nothing)
+        first = self._prefill_chunk(pf) if pf is not None else None
+        act = np.flatnonzero(active)
+        reads = [self._decode(n).reshape(-1)] if act.size else []
+        if first is not None:
+            reads.append(first)
+        # the one host sync: decode tokens and the chunk's first token
+        host = torch.cat(reads).cpu().numpy() if reads else None
+        if pf is not None:
+            pf["pos"] += self.prefill_chunk
+            self.lens[pf["slot"]] = min(pf["pos"], pf["plen"])
+            self.prefill_chunks_dispatched += 1
 
         # with stop tokens a slot may have stopped mid-dispatch: it emitted
         # tokens up to and including its first stop token
-        act = np.flatnonzero(active)
         emitted = np.full(self.max_batch, n, np.int32)
         stopped = np.zeros(self.max_batch, bool)
-        if self.stop_token is not None:
-            hit = toks[:, act] == self.stop_token          # (n, |act|)
-            has = hit.any(axis=0)
-            emitted[act[has]] = hit.argmax(axis=0)[has] + 1
-            stopped[act[has]] = True
+        if act.size:
+            toks = host[:n * self.max_batch].reshape(n, self.max_batch)
+            if self.stop_token is not None:
+                hit = toks[:, act] == self.stop_token      # (n, |act|)
+                has = hit.any(axis=0)
+                emitted[act[has]] = hit.argmax(axis=0)[has] + 1
+                stopped[act[has]] = True
         for i in act:
             e = int(emitted[i])
             w = self._out_n[i]
@@ -675,6 +833,10 @@ class PagedServingEngine:
             if stopped[i] or self.to_gen[i] <= 0:
                 done.append(int(self.rid[i]))
                 self._finish(int(i))
+        if first is not None:
+            fin = self._pf_complete(int(host[-1]))
+            if fin is not None:
+                done.append(fin)
         tot = int(emitted[act].sum())
         if tot > 0:   # decode-rate EWMA feeds the shed retry-after hint
             dt = time.perf_counter() - t0
@@ -743,6 +905,8 @@ class PagedServingEngine:
         }
         if self.shed_queue_depth:
             m["shed_count"] = self.shed_count
+        if self.prefill_chunk:
+            m["prefill_chunks_dispatched"] = self.prefill_chunks_dispatched
         if self.prefix_cache is not None:
             total = self._prefill_tokens_total
             saved = self._prefill_tokens_saved

@@ -1,5 +1,5 @@
-"""Scheduling helpers of the serving engine: output-length prediction,
-preemption victims and load shedding.
+"""Scheduling helpers of the serving engine: the chunked-prefill budget,
+output-length prediction, preemption victims and load shedding.
 
 With stop-token decode a request's output length — and therefore every
 page's lifetime — is data-dependent, so the ``est_death`` the engine hands
@@ -15,6 +15,20 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import policies as P
+
+# default fused-dispatch prefill budget (tokens) when chunking is enabled
+# without an explicit size: one page at the engine's default page_T=8
+DEFAULT_PREFILL_CHUNK = 8
+
+
+def normalize_prefill_chunk(chunk: int, page_T: int) -> int:
+    """Round the chunked-prefill budget up to a whole number of pages
+    (``0`` keeps monolithic prefill).  Chunk boundaries must be page
+    boundaries: each chunk's K/V scatters into whole pool pages, and a
+    cached-prefix hit starts the first chunk at a full-page offset."""
+    if chunk <= 0:
+        return 0
+    return -(-int(chunk) // page_T) * page_T
 
 
 class EwmaLengthPredictor:

@@ -142,6 +142,29 @@ def test_flash_attention_q_offset(dev, B, Sq, Skv, H, Kh, D, q_offset, dtype):
     assert torch.equal(got, whole[:, q_offset:])
 
 
+@pytest.mark.parametrize("q_offset", [256, 512, 768])
+def test_flash_attention_at_the_chunk_shapes(dev, q_offset):
+    """One chunk of a chunked prefill of a 1,024-token prompt at qwen3-1.7b's
+    heads: 256 query rows at ``q_offset`` over the whole 1,024-key extent
+    (the keys past the chunk stand for the stale rows the mask hides), bf16
+    on the tensor-core route: against the plain version, and bit for bit the
+    same rows of the ``q_offset = 0`` call over all 1,024 rows."""
+    rng = np.random.default_rng(5)
+    q_all = _randn(rng, (1, 1024, 16, 128), torch.bfloat16, dev)
+    k = _randn(rng, (1, 1024, 8, 128), torch.bfloat16, dev)
+    v = _randn(rng, (1, 1024, 8, 128), torch.bfloat16, dev)
+    q = q_all[:, q_offset:q_offset + 256]
+    r0 = ops.flash_routes["wgmma"]
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert ops.flash_routes["wgmma"] == r0 + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    whole = ops.flash_attention(q_all, k, v, causal=True)
+    assert torch.equal(got, whole[:, q_offset:q_offset + 256])
+
+
 # sha256 (first 16 hex digits) of the outputs of the flash kernel as it was
 # before it took a query offset, on an NVIDIA H100 80GB HBM3 (inputs from
 # numpy seed 11): the q_offset = 0 call must reproduce them bit for bit
@@ -522,6 +545,90 @@ def test_prefix_hit_engine_on_card_matches_cpu_engine(dev):
     assert results[0] == results[1]
     assert results[1][1]["prefix_hit_rate"] >= 5 / 6
     assert ops.flash_offsets["nonzero"] > 0   # the card's tail prefills
+
+
+def _mixed_requests(vocab, n=8, seed=3):
+    """test_chunked_prefill.py::_mixed_reqs."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, vocab, size=int(rng.integers(4, 60))),
+             int(rng.integers(4, 25))) for _ in range(n)]
+
+
+def _chunked_engine(cfg, params, device, **kw):
+    return PagedServingEngine(
+        Model(cfg, _f32(params, device)), n_slabs=6, blocks_per_slab=4,
+        page_T=8, max_batch=3, max_seq=96, compact_trigger=1,
+        compact_batch=2, prefill_chunk=16, pool_dtype=torch.float32,
+        device=device, **kw)
+
+
+def test_chunked_engine_on_card_matches_cpu_engine(dev):
+    """test_chunked_prefill.py's concurrent mixed stream at f32 on the smoke
+    model, chunked at 16 tokens: the card's engine (its chunks through the
+    flash kernel with a query offset, fused with decode) gives the CPU
+    engine's tokens and counters, under compaction."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    reqs = _mixed_requests(cfg.vocab_size, n=10)
+    results = []
+    ops.reset_launches()
+    for device in ("cpu", dev):
+        eng = _chunked_engine(cfg, params, device)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        eng.run_to_completion()
+        eng.pool.check_invariants()
+        m = eng.metrics()
+        results.append(([eng.finished[r] for r in rids],
+                        {k: m[k] for k in ("blocks_written", "blocks_moved",
+                                           "compactions", "wamp", "dispatches",
+                                           "prefill_chunks_dispatched")}))
+    assert results[0] == results[1]
+    assert results[1][1]["compactions"] >= 1
+    assert ops.flash_offsets["nonzero"] > 0 and ops.launches["paged_attention"] > 0
+
+
+def test_fused_dispatch_reads_the_card_once(dev, monkeypatch):
+    """Every fused ``step()`` (one chunk plus the decode of the other slots)
+    reads the card once: the decode tokens and the chunk's first token come
+    back in one copy, and no other value is read to the host."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    eng = _chunked_engine(cfg, params, dev)
+    for p, n in _mixed_requests(cfg.vocab_size, n=10):
+        eng.submit(p, n)
+    reads = []
+
+    def counting(name):
+        orig = getattr(torch.Tensor, name)
+
+        def read(self, *a, **k):
+            if self.is_cuda:
+                reads.append(name)
+            return orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, read)
+
+    for name in ("cpu", "item", "tolist", "__int__", "__float__", "__bool__",
+                 "__index__", "numpy"):
+        counting(name)
+    firsts = []   # per chunk run: whether it returned the first token
+    run_chunk = eng._prefill_chunk
+
+    def chunk(pf):
+        first = run_chunk(pf)
+        firsts.append(first is not None)
+        return first
+
+    eng._prefill_chunk = chunk
+    while eng.has_work():
+        decoding = bool(eng._decoding().any())  # admission adds no decoder
+        n0 = len(firsts)
+        reads.clear()
+        eng.step()
+        if len(firsts) > n0:
+            assert reads == (["cpu"] if decoding or firsts[-1] else [])
+        else:
+            assert len(reads) <= 1
+    assert len(firsts) == eng.prefill_chunks_dispatched > 0
 
 
 def _slot_kv(eng):
