@@ -82,7 +82,25 @@ Phases, in order; any failure raises and the process exits non-zero:
              the share of requests whose bf16 tokens equal them (reported).
              Then 4 requests of 300-1,000 tokens at f32 (TF32 off), chunked:
              equal to the plain decode, or a first mismatch on a near-tie.
-             Each of the last three phases zeroes the launch counters before
+10. async  — the engine phase's 32 requests and pool with asynchronous,
+             budgeted compaction (the default clean budget; the moves on a
+             side CUDA stream) and ``audit()`` after every dispatch: every
+             request's token count, bf16 tokens equal to the engine phase's
+             (synchronous) run in every request, the host-determined counters
+             (compactions, blocks moved, Wamp, moves planned and committed,
+             sub-plans, step boundaries crossed with a move in flight, hazard
+             commits, drains, direct and staged plans) equal to the CPU
+             rehearsal's (``scripts/rehearse_schedule.py async 30``), no debt
+             and no fenced slab left, and ``segment_move`` launched on the
+             side stream; wall, tokens/s, dispatches and the median and
+             largest dispatch wall beside the engine phase's run and the
+             chunked phase's warm rerun, and Wamp beside the synchronous
+             run's.  Then the f32 leg's 4 long requests (16-128 new tokens,
+             f32 weights and pool, TF32 off) through a pool small enough to
+             compact (``rehearse_schedule.py async-f32 8``), async and sync:
+             equal tokens, and equal to the plain decode or parting from it
+             on a near-tie.
+             Each of the last four phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
@@ -114,6 +132,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import PagedServingEngine  # noqa: E402
+from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # tensor-core rate, f32 rate outside the tensor cores
@@ -154,6 +173,18 @@ POOL = dict(n_slabs=30, blocks_per_slab=16, page_T=16, max_batch=8,
 PREFIX_LEN = 512             # the shared system prompt: 32 pages of 16
 PREEMPT_SLABS = (24, 40)     # a pool that preempts, and one with room
 PREFILL_CHUNK = 256          # the chunked phase's budget: 16 pages of 16
+# the async phase's host-determined counters, rehearsed on the CPU with
+# ``scripts/rehearse_schedule.py async 30`` (the engine phase's stream)
+ASYNC_REHEARSED = dict(dispatches=141, compactions=5, blocks_moved=140,
+                       gc_planned=140, gc_committed=140, sub_plans=19,
+                       inflight_boundaries=19, hazard_commits=0, drains=0,
+                       dead_destination_waits=2)
+ASYNC_PLANS = {"direct": 19, "staged": 0}
+# the async f32 leg: long_requests' prompts with these new tokens through a
+# pool that compacts (``rehearse_schedule.py async-f32 8``: 1 compaction,
+# 29 moves in 4 sub-plans, 4 step boundaries with a move in flight)
+ASYNC_F32_NEW = (16, 64, 32, 128)
+ASYNC_F32_SLABS = 8
 
 
 def emit(obj) -> None:
@@ -572,6 +603,14 @@ def phase_victims() -> tuple[dict, int]:
     return results[0], sum(r["launches"] for r in results)
 
 
+def long_requests(vocab: int, news=(16, 16, 16, 16)) -> list:
+    """The f32 legs' 4 requests: prompts of 300-1,000 tokens (seed 2),
+    ``news`` new tokens (16 each in the chunked phase)."""
+    rng = np.random.default_rng(SEED + 2)
+    return [(rng.integers(1, vocab, int(n)), int(m))
+            for n, m in zip(rng.integers(300, 1001, 4), news)]
+
+
 def engine_requests(vocab: int) -> tuple[list, np.ndarray]:
     """The engine phase's 32 requests: prompts of 256-1024 tokens, 32-128
     new tokens (seed 0)."""
@@ -706,7 +745,9 @@ def serve(model, requests, **kw) -> dict:
     wall = time.perf_counter() - t0
     counts = {"launches": dict(ops.launches), "flash_routes": dict(ops.flash_routes),
               "flash_offsets": dict(ops.flash_offsets),
-              "move_plans": dict(ops.move_plans)}
+              "move_plans": dict(ops.move_plans),
+              "stream_launches": {k: dict(v) for k, v in ops.stream_launches.items()},
+              "side_stream": eng._side.cuda_stream if eng._side is not None else None}
     eng.pool.check_invariants()
     if eng.prefix_cache is not None:
         eng.prefix_cache.check_invariants()
@@ -852,7 +893,23 @@ def phase_preemption(cfg) -> dict:
     return small["launches"]
 
 
-def phase_chunked(cfg, mono) -> dict:
+def first_mismatches(model, cfg, requests, runs) -> list:
+    """Each request whose tokens in ``runs`` part from the plain decode:
+    where, and the plain decode's top-2 margin there."""
+    out = []
+    for (prompt, n), got in zip(requests, runs):
+        want = tfm.greedy_decode(model.params, prompt, cfg, n,
+                                 cache_dtype=torch.float32)
+        first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                     None)
+        if first is not None:
+            _, margins = oracle_margins(model.params, prompt, cfg, n)
+            out.append({"first_mismatch": first,
+                        "margin_at_mismatch": margins[first]})
+    return out
+
+
+def phase_chunked(cfg, mono) -> tuple[dict, dict]:
     """The engine phase's 32 requests with chunked prefill (PREFILL_CHUNK
     tokens per fused dispatch) through the same pool, beside the engine
     phase's monolithic run ``mono`` and a second monolithic run after it
@@ -860,7 +917,8 @@ def phase_chunked(cfg, mono) -> dict:
     also pays the first calls of every GEMM shape); then the f32 leg: 4
     requests of 300 to 1,000 tokens (f32 weights and pool, TF32 off) whose
     chunked tokens must be the plain decode's, or part from it on a
-    near-tie."""
+    near-tie.  Returns the chunked run's launches and the second
+    monolithic run."""
     prompts, news = engine_requests(cfg.vocab_size)
     reqs = [(p, int(n)) for p, n in zip(prompts, news)]
     model = Model(cfg, device="cuda", seed=SEED)
@@ -888,26 +946,13 @@ def phase_chunked(cfg, mono) -> dict:
     bf = Model(cfg, device="cuda", seed=SEED).params
     model = Model(cfg, unflatten((p, t.float()) for p, t in flatten(bf)))
     del bf
-    rng = np.random.default_rng(SEED + 2)
-    small = [(rng.integers(1, cfg.vocab_size, int(n)), 16)
-             for n in rng.integers(300, 1001, 4)]
+    small = long_requests(cfg.vocab_size)
     f32 = serve(model, small, prefill_chunk=PREFILL_CHUNK,
                 pool_dtype=torch.float32)
-    mismatches = []
-    for (prompt, n), got in zip(small, f32["tokens"]):
-        want = tfm.greedy_decode(model.params, prompt, cfg, n,
-                                 cache_dtype=torch.float32)
-        first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
-                     None)
-        if first is None:
-            continue
-        _, margins = oracle_margins(model.params, prompt, cfg, n)
-        mismatches.append({"first_mismatch": first,
-                           "margin_at_mismatch": margins[first]})
-        if not margins[first] < 1e-3:
-            raise AssertionError(f"f32 chunked: tokens differ from the plain "
-                                 f"decode at {first} (top-2 margin "
-                                 f"{margins[first]})")
+    mismatches = first_mismatches(model, cfg, small, f32["tokens"])
+    if any(not x["margin_at_mismatch"] < 1e-3 for x in mismatches):
+        raise AssertionError(f"f32 chunked: tokens part from the plain decode "
+                             f"off a near-tie: {mismatches}")
     del model
     torch.cuda.empty_cache()
     emit({"phase": "chunked", "model": cfg.name, "dtype": "bfloat16",
@@ -922,6 +967,95 @@ def phase_chunked(cfg, mono) -> dict:
                   "prompt_tokens": [len(p) for p, _ in small],
                   "chunks": f32["metrics"]["prefill_chunks_dispatched"],
                   "equal": not mismatches, "mismatches": mismatches}})
+    return run["launches"], again
+
+
+def phase_async(cfg, mono, warm) -> dict:
+    """The engine phase's 32 requests and pool with async compaction at the
+    default clean budget, ``audit()`` after every dispatch, beside the
+    engine phase's synchronous run ``mono`` and the chunked phase's warm
+    synchronous rerun ``warm``; then the f32 leg, async against sync and the
+    plain decode.  Every check is made before any fails, and the phase's
+    line names each failure."""
+    t0 = time.perf_counter()
+    prompts, news = engine_requests(cfg.vocab_size)
+    reqs = [(p, int(n)) for p, n in zip(prompts, news)]
+    model = Model(cfg, device="cuda", seed=SEED)
+    run = serve(model, reqs, async_compaction=True, audit_every=1)
+    del model
+    torch.cuda.empty_cache()
+    m, sync_m = run["metrics"], mono["metrics"]
+    failures = []
+    diff = [i for i, (a, b) in enumerate(zip(run["tokens"], mono["tokens"]))
+            if a != b]
+    if diff:
+        failures.append(f"bf16 tokens differ from the synchronous run's in "
+                        f"requests {diff}, first request {diff[0]}")
+    counters = {k: m[k] for k in ASYNC_REHEARSED}
+    if counters != ASYNC_REHEARSED or run["move_plans"] != ASYNC_PLANS:
+        failures.append(f"counters {counters} {run['move_plans']} are not the "
+                        f"rehearsal's {ASYNC_REHEARSED} {ASYNC_PLANS}")
+    if not m["gc_planned"] == m["gc_committed"] > 0:
+        failures.append(f"planned {m['gc_planned']} != committed "
+                        f"{m['gc_committed']}, or no move")
+    if m["compaction_debt_moves"] or m["fenced_slabs"]:
+        failures.append(f"left {m['compaction_debt_moves']} moves and "
+                        f"{m['fenced_slabs']} fenced slabs")
+    if m["inflight_boundaries"] < 1:
+        failures.append("no step boundary crossed with a move in flight")
+    side = run["stream_launches"]["segment_move"].get(run["side_stream"], 0)
+    if side < 1:
+        failures.append("segment_move never launched on the side stream")
+    missing = [k for k in ENGINE_KERNELS if run["launches"][k] == 0]
+    if missing:
+        failures.append(f"the async path never launched {missing}")
+
+    # f32 leg: the tokens phase's weights at f32, an f32 pool, TF32 off
+    bf = Model(cfg, device="cuda", seed=SEED).params
+    model = Model(cfg, unflatten((p, t.float()) for p, t in flatten(bf)))
+    del bf
+    small = long_requests(cfg.vocab_size, ASYNC_F32_NEW)
+    kw = dict(n_slabs=ASYNC_F32_SLABS, pool_dtype=torch.float32)
+    f32 = serve(model, small, async_compaction=True, audit_every=1, **kw)
+    f32_sync = serve(model, small, **kw)
+    if f32["tokens"] != f32_sync["tokens"]:
+        failures.append("f32 async tokens differ from the sync run's")
+    if f32["metrics"]["gc_planned"] == 0:
+        failures.append("the f32 leg's pool never compacted")
+    mismatches = first_mismatches(model, cfg, small, f32["tokens"])
+    if any(not x["margin_at_mismatch"] < 1e-3 for x in mismatches):
+        failures.append(f"f32 async tokens part from the plain decode off a "
+                        f"near-tie: {mismatches}")
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "async", "model": cfg.name, "dtype": "bfloat16",
+          "requests": len(reqs), "clean_budget": DEFAULT_CLEAN_BUDGET,
+          "tokens_equal": not diff, "differing_requests": diff,
+          **{k: m[k] for k in ("compactions", "blocks_moved", "wamp",
+                               "gc_planned", "gc_committed", "sub_plans",
+                               "inflight_boundaries", "hazard_commits",
+                               "drains", "dead_destination_waits",
+                               "compaction_debt_moves", "fenced_slabs")},
+          "direct_plans": run["move_plans"]["direct"],
+          "staged_plans": run["move_plans"]["staged"],
+          "move_launches": run["launches"]["segment_move"],
+          "side_stream_move_launches": side,
+          "sync_wamp": sync_m["wamp"], "sync_compactions": sync_m["compactions"],
+          "wamp_equal": m["wamp"] == sync_m["wamp"],
+          "wamp_within_half_percent":
+              abs(m["wamp"] - sync_m["wamp"]) <= 0.005 * sync_m["wamp"],
+          "async": stream_summary(run),
+          "sync": [stream_summary(r) for r in (mono, warm)],
+          "f32": {"requests": len(small), "n_slabs": ASYNC_F32_SLABS,
+                  "new_tokens": list(ASYNC_F32_NEW),
+                  "gc_planned": f32["metrics"]["gc_planned"],
+                  "sub_plans": f32["metrics"]["sub_plans"],
+                  "inflight_boundaries": f32["metrics"]["inflight_boundaries"],
+                  "equal_to_sync": f32["tokens"] == f32_sync["tokens"],
+                  "equal_to_plain": not mismatches, "mismatches": mismatches},
+          "phase_seconds": time.perf_counter() - t0, "failures": failures})
+    if failures:
+        raise AssertionError(f"async phase: {failures}")
     return run["launches"]
 
 
@@ -938,8 +1072,9 @@ def main() -> None:
     phase_tokens(cfg)
     torch.cuda.empty_cache()
     results["mdc_priority"], launches["mdc_priority"] = phase_victims()
-    paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg),
-             "chunked": phase_chunked(cfg, mono)}
+    paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg)}
+    paths["chunked"], warm = phase_chunked(cfg, mono)
+    paths["async"] = phase_async(cfg, mono, warm)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims" if name == "mdc_priority" else "engine"

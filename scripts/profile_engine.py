@@ -22,7 +22,18 @@ windows with ``torch.profiler`` (CPU and CUDA activities):
             256, 512, 768) plus the decode of the other slots, 8 tokens
             each (the 8-row decode batch, 5 to 7 slots decoding: after a
             warm-up prompt, one runs unprofiled, the next under the
-            profiler).
+            profiler);
+* async_move — one decode dispatch of an 8-slot batch like the decode
+            window's (on an engine with async compaction) with one
+            compaction sub-plan (the default clean budget's 8 pages: K and
+            V of 28 layers) issued on the engine's side stream just before
+            it, as the async pump does.  From the profiler's kernel
+            intervals and their streams: the move's device time, the share
+            of it that overlaps kernels of the main stream, and the share
+            that falls in the main stream's idle gaps.  Beside it, the wall
+            of the same dispatch carrying the move synchronously (on the
+            main stream, as synchronous compaction moves) against the move
+            issued async (median of 5 each, in turns).
 
 Each window runs without the profiler (``wall_ms``; for the prefix pair the
 median of five runs in turns) and once under it (``wall_ms_profiled``,
@@ -62,7 +73,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.serving import PagedServingEngine  # noqa: E402
+from repro_torch.serving import CompactionPlan, PagedServingEngine  # noqa: E402
+from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
 
 
 # the device functions of the port's kernels (kernels/csrc), by kernel
@@ -110,6 +122,102 @@ def count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def merged(intervals: list) -> list:
+    """The union of (start, end) intervals, as disjoint sorted intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def covered(a: float, b: float, union: list) -> float:
+    """Length of [a, b] inside the disjoint intervals ``union``."""
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in union)
+
+
+def async_move(model, cfg) -> None:
+    """The async_move window: eight slots admitted (prompts of 512 tokens,
+    as in the decode window) on an engine with async compaction, then a
+    sub-plan of DEFAULT_CLEAN_BUDGET moves between pages of two slabs no
+    sequence holds (the free list's last two, taken last), issued through
+    the engine's own ``_issue`` on its side stream, and one dispatch."""
+    eng = PagedServingEngine(model, n_slabs=30, blocks_per_slab=16, page_T=16,
+                             max_batch=8, max_seq=2048, streams=1,
+                             max_decode_chunk=32, async_compaction=True,
+                             device="cuda")
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        eng.submit(rng.integers(1, cfg.vocab_size, 512), 400)
+    eng.step()
+    eng.step()
+    S, n = eng.pool.S, DEFAULT_CLEAN_BUDGET
+    a, b = eng.pool.core.free_list[:2]
+    # the pages hold no block (owner -1), as the plan's owners say
+    plan = CompactionPlan(np.arange(a * S, a * S + n),
+                          np.arange(b * S, b * S + n), np.full(n, -1))
+
+    def issue_async() -> None:
+        eng._issue(plan)
+        eng._move_events.pop(id(plan))
+
+    def issue_sync() -> None:
+        eng._move_plan(plan)
+
+    def dispatch(issue) -> float:
+        t0 = time.perf_counter()
+        issue()
+        eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    runs = (("sync", issue_sync), ("async", issue_async))
+    walls: dict[str, list[float]] = {name: [] for name, _ in runs}
+    for _, fn in runs:
+        dispatch(fn)  # warm-up
+    for _ in range(5):  # in turns: the host's load drifts
+        for name, fn in runs:
+            walls[name].append(dispatch(fn))
+    # three dispatches under one profile: a move the profiler drops (one
+    # call on the card missed the first) still leaves two to read
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = [dispatch(issue_async) for _ in range(3)]
+    issued = ops.launches["segment_move"]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def stream_of(e):
+        sid = getattr(e, "device_resource_id", None)
+        return e.thread if sid is None else sid
+
+    move = [e for e in kernels if PORT_KERNELS["segment_move"] in e.name]
+    side_ids = {stream_of(e) for e in move}
+    main = merged([(e.time_range.start, e.time_range.end) for e in kernels
+                   if stream_of(e) not in side_ids])
+    move_us = sum(e.time_range.end - e.time_range.start for e in move)
+    over_us = sum(covered(e.time_range.start, e.time_range.end, main)
+                  for e in move)
+    L, page = eng.k_pools.shape[0], eng.k_pools[0, 0]
+    print(json.dumps({
+        "window": "async_move", "per": "dispatch", "moves": n,
+        # each page of K and V in every layer read once and written once
+        "move_bytes": 4 * n * L * page.numel() * page.element_size(),
+        "move_launches_issued": issued, "move_launches_profiled": len(move),
+        "move_streams": len(side_ids),
+        "move_device_ms": move_us / 1e3 / len(move) if move else None,
+        "move_overlap_share": over_us / move_us if move_us else None,
+        "move_in_main_gaps_share": 1 - over_us / move_us if move_us else None,
+        "wall_ms_profiled": statistics.median(wall),
+        "device_busy_ms": sum(e.time_range.end - e.time_range.start
+                              for e in kernels) / 1e3 / len(wall),
+        "launches": len(kernels) / len(wall),
+        "dispatch_wall_ms": {k: statistics.median(v) for k, v in walls.items()},
+        "dispatch_wall_ms_runs": walls}), flush=True)
 
 
 def main() -> None:
@@ -274,6 +382,9 @@ def main() -> None:
                       "wall_ms_profiled": wall / n_disp,
                       **kernel_table(prof, plain_ms / plain_n * n_disp,
                                      n_disp)}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    async_move(model, cfg)
     print(smi, flush=True)
 
 

@@ -11,10 +11,14 @@ and the prefix cache lives until its last reference drops
 (:meth:`FrameLog.incref_slots`, :meth:`FrameLog.kill_slots`), and its death
 estimate is the maximum over its holders (:meth:`FrameLog.raise_up2`).
 
+Asynchronous cleaning fences its victims (:meth:`FrameLog.evacuate` with
+``fence=True``): their accounting leaves with the survivors at plan time,
+but the frames stay un-allocatable (``FENCED``) until the owner commits the
+deferred device move (:meth:`LogStructureBase.commit_fenced`).
+
 What the serving path does not run is left out: the byte-accounted log and
-its journal, fenced (asynchronous) cleaning, the simulator's item
-back-pointers, the oracle update probabilities and the observability
-hooks.
+its journal, the simulator's item back-pointers, the oracle update
+probabilities and the observability hooks.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from . import policies as P
 FREE = 0  # on the free list
 OPEN = 1  # currently being filled (multi-log open segments)
 USED = 2  # sealed, eligible for cleaning
+FENCED = 3  # evacuated under an uncommitted (async) plan: not allocatable,
+#             not re-victimizable, until the owner commits the move
 
 # stream cuts before the log has 4 live death tags: everything in stream 0
 _STREAM_HORIZON = 1e9
@@ -62,6 +68,11 @@ class StoreStats:
     sum_E_cleaned: float = 0.0  # Σ empty-fraction of cleaned segments
     frames_shared: int = 0     # extra references taken on live frames
     ref_drops: int = 0         # decrefs that did NOT free (sharing survived)
+    # async cleaning's deferred-move debt: items whose move was *planned*
+    # (fenced evacuation) and *committed* (remap applied, victims released);
+    # planned - committed = moves in flight
+    gc_planned: int = 0
+    gc_committed: int = 0
     stream_writes: list = dataclasses.field(default_factory=list)
     stream_moves: list = dataclasses.field(default_factory=list)
 
@@ -229,6 +240,30 @@ class LogStructureBase:
         self.seg_up2sum[victims] = 0.0
         self.seg_stream[victims] = -1
         self.free_list.extend(int(s) for s in victims)
+
+    def fence(self, victims: np.ndarray) -> None:
+        """→ FENCED: accounting has left the victims (their survivors were
+        re-placed at plan time), but the frames must not be reallocated
+        until the owner commits the deferred device move and remap: until
+        then a reader still resolves to the source frames."""
+        victims = np.asarray(victims, dtype=np.int64)
+        self.seg_state[victims] = FENCED
+        self.seg_live[victims] = 0
+        self.seg_up2sum[victims] = 0.0
+        self.seg_stream[victims] = -1
+
+    def commit_fenced(self, victims: np.ndarray) -> None:
+        """FENCED → FREE: the deferred move committed; the frames rejoin the
+        free list."""
+        victims = np.asarray(victims, dtype=np.int64)
+        if len(victims) == 0:
+            return
+        assert (self.seg_state[victims] == FENCED).all(), \
+            "commit_fenced on a non-fenced segment"
+        self.release(victims)
+
+    def fenced_count(self) -> int:
+        return int((self.seg_state == FENCED).sum())
 
     # -- death-stream routing -------------------------------------------------
     def _stream_death_sample(self) -> np.ndarray:
@@ -500,11 +535,16 @@ class FrameLog(LogStructureBase):
             seal_time=self.seg_seal_time, u_now=self.u_now,
             eligible=eligible)
 
-    def evacuate(self, victims: np.ndarray) -> EvacResult:
+    def evacuate(self, victims: np.ndarray, *,
+                 fence: bool = False) -> EvacResult:
         """Gather victims' live frames, free the victims, account the cycle.
 
         GC moves are counted here (once); re-appending the survivors should
-        use ``kind="gc"`` (uncounted)."""
+        use ``kind="gc"`` (uncounted).  ``fence=True`` (async cleaning): the
+        victims go to FENCED instead of FREE — their accounting is cleared,
+        but the frames stay un-allocatable until :meth:`commit_fenced`,
+        because the deferred device move still reads them and stale external
+        page ids still resolve to them."""
         victims = np.asarray(victims, dtype=np.int64)
         assert (self.seg_state[victims] == USED).all()
         rows = self.slot_item[victims]                    # (k, S)
@@ -525,12 +565,27 @@ class FrameLog(LogStructureBase):
         self.stats.cleaned_segments += len(victims)
         self.stats.gc_moves += len(items)
         self.stats.cleanings += 1
-        self.release(victims)
+        if fence:
+            self.stats.gc_planned += len(items)
+            self.fence(victims)
+        else:
+            self.release(victims)
         return res
 
     def release(self, victims: np.ndarray) -> None:
         victims = np.asarray(victims, dtype=np.int64)
         super().release(victims)
+        self._clear_slots(victims)
+
+    def fence(self, victims: np.ndarray) -> None:
+        victims = np.asarray(victims, dtype=np.int64)
+        super().fence(victims)
+        # slot accounting leaves with the survivors (block_owner reads of a
+        # fenced frame see -1, so an unresolved free trips "double free"
+        # instead of corrupting the destination's refcount)
+        self._clear_slots(victims)
+
+    def _clear_slots(self, victims: np.ndarray) -> None:
         self.slot_item[victims] = -1
         self.slot_up2[victims] = 0.0
         self.slot_ref[victims] = 0
@@ -546,6 +601,14 @@ class FrameLog(LogStructureBase):
             "slot_ref / slot_item disagree on liveness"
         assert (self.seg_live[self.seg_state == FREE] == 0).all()
         assert self.free_count() == int((self.seg_state == FREE).sum())
+        # fenced segments: accounting already left (live == 0, untagged),
+        # but the frames are NOT free — never on the free list
+        fenced = self.seg_state == FENCED
+        assert (self.seg_live[fenced] == 0).all(), "fenced segment has live"
+        assert (self.seg_stream[fenced] == -1).all(), \
+            "FENCED segment still tagged with a stream"
+        assert not (fenced[np.asarray(self.free_list, dtype=np.int64)].any()
+                    if self.free_list else False), "fenced segment in free list"
         # stream bookkeeping: open-stream segments are OPEN and tagged; FREE
         # segments carry no stream (no frame is stranded in a ghost stream)
         open_ids = self.streams.open[self.streams.open >= 0]

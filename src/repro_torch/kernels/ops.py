@@ -10,7 +10,9 @@ which path it took; ``flash_routes`` splits flash attention's launches by
 route, ``flash_offsets`` by whether the query rows start at position 0 (a
 whole prompt) or later (a continuation after a cached prefix), and
 ``move_plans`` counts the compaction plans ``segment_move`` moved
-directly and staged.
+directly and staged, and ``stream_launches`` splits each kernel's launches
+by the CUDA stream they went to (keyed by the stream's handle, as
+``torch.cuda.Stream.cuda_stream`` gives it).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ flash_offsets = {"zero": 0, "nonzero": 0}
 # segment_move plans by form, on any device: one launch pool to pool, or a
 # gather and a scatter launch because a destination is another move's source
 move_plans = {"direct": 0, "staged": 0}
+# launches by stream: kernel name -> {stream handle: launches}
+stream_launches: dict[str, dict[int, int]] = {name: {} for name in launches}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FLASH_ROUTE = {"simt": 0, "wgmma": 1}
@@ -42,6 +46,8 @@ def reset_launches() -> None:
     for counts in (launches, flash_routes, flash_offsets, move_plans):
         for name in counts:
             counts[name] = 0
+    for by_stream in stream_launches.values():
+        by_stream.clear()
 
 
 def _on_cpu(name: str, *tensors) -> bool:
@@ -79,6 +85,8 @@ def _launch(name: str, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (error {rc})")
     launches[name] += 1
+    by_stream = stream_launches[name]
+    by_stream[stream] = by_stream.get(stream, 0) + 1
 
 
 def _operand_strides(name: str, t) -> tuple[int, int, int]:

@@ -8,9 +8,10 @@ the device the two data paths the host-side pool manager plans:
                   dispatch; each token writes its K/V in place at
                   ``(page, off)`` and attends through the block tables with
                   the ``paged_attention`` kernel;
-  * compaction  — the paper's cleaning: gather the live pages of MDC victims
-                  with the ``segment_compact`` kernel, scatter them to their
-                  new pages, and remap the block tables;
+  * compaction  — the paper's cleaning: move the live pages of MDC victims
+                  to their new pages with the ``segment_move`` kernel (K and
+                  V of every layer in one launch), and remap the block
+                  tables;
 
 plus the bucketed monolithic prefill, whose attention is the
 ``flash_attention`` kernel, and the scatter of the prompt's K/V into pages.
@@ -42,6 +43,38 @@ Two scheduling features ride on the pool's reference counts:
     A resume waits for capacity and never preempts a peer: two sequences
     restarting each other would discard each other's progress forever.
 
+Asynchronous, budgeted compaction (``async_compaction=True``) takes the
+cleaning out of the dispatch path.  Where the pool's reserve needs upkeep,
+the alloc path *fences* the victims a synchronous cycle would pick and
+places their survivors (host accounting only), and queues the moves as
+sub-plans of at most ``clean_budget`` blocks.  A pump at the start of
+every ``step()`` commits the sub-plans moved by the previous step (remaps
+the block tables and the prefix tree, releases the victims) and moves the
+next ones, up to the scheduler's deficit-weighted budget; the decode of
+the same step reads the sources through the not-yet-remapped tables.  On
+the card the moves run on a side CUDA stream of their own, ordered against
+the main stream only by events (no host sync):
+
+  1. before a move is issued, the side stream waits for the main stream,
+     whose earlier work wrote the source pages;
+  2. a commit makes the tables point at the destinations, so the main
+     stream waits for the move's event before anything it reads next;
+  3. a sub-plan whose source the upcoming dispatch writes (a slot's
+     current page) commits at once, and the main stream waits for its move
+     before the decode writes the destination;
+  4. when a moved block dies inside the window (its last reference
+     dropped, as by a prefix-cache eviction in admission), its destination
+     can be handed out again: the main stream then waits for every move in
+     flight before its next write.  A block that dies before its move is
+     issued is not moved at all;
+  5. a staged move's buffer is allocated while the side stream is current,
+     so the caching allocator ties it to that stream;
+  6. a drain from the alloc path (capacity needed now) commits the moves in
+     flight and moves the rest on the main stream, as synchronous cleaning
+     does.
+
+On the CPU the moves run inline, with the same host logic.
+
 Block tables, sequence lengths and last tokens live on the device between
 dispatches and are uploaded only when a host event dirtied them.  The host
 intervenes only at pre-computed *events* (the next page-boundary crossing,
@@ -66,7 +99,7 @@ import time
 import numpy as np
 import torch
 
-from ..core.logstructure import Placement
+from ..core.logstructure import FENCED, Placement
 from ..device import resolve_device
 from ..kernels import ops
 from ..models import attention as att
@@ -74,7 +107,8 @@ from ..models import transformer as tfm
 from ..models.layers import rmsnorm
 from .kvcache import LogStructuredKVPool
 from .prefix_cache import PrefixCache
-from .scheduler import (AdmissionShed, choose_preempt_victims,
+from .scheduler import (DEFAULT_CLEAN_BUDGET, AdmissionShed,
+                        choose_preempt_victims, clean_budget,
                         make_length_predictor, normalize_prefill_chunk,
                         retry_after_estimate)
 
@@ -113,7 +147,9 @@ class PagedServingEngine:
                  predictor: str = "ewma", prefix_cache: bool = False,
                  prefix_cache_pages: int = 0, preemption: bool = False,
                  shed_queue_depth: int = 0, prefill_chunk: int = 0,
-                 admit_every_dispatch: bool = True, device=None):
+                 admit_every_dispatch: bool = True,
+                 async_compaction: bool = False, clean_budget: int = 0,
+                 audit_every: int = 0, device=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
@@ -144,6 +180,32 @@ class PagedServingEngine:
         # synchronous plan execution: tensor move + block-table remap happen
         # before any compaction-freed page id can be re-allocated
         self.pool.on_compaction = self._execute_plan
+        # async, budgeted compaction: planned → in flight → committed.  The
+        # synchronous callback above stays the fallback under real pressure
+        # (the pool drains the pipeline through on_drain first)
+        self.async_compaction = bool(async_compaction)
+        self.clean_budget = (int(clean_budget) if clean_budget > 0
+                             else DEFAULT_CLEAN_BUDGET)
+        self._inflight_plans: list = []   # moved, remap pending
+        self._move_events: dict = {}      # id(plan) -> its move's CUDA event
+        # the side stream of the moves (on the card) and a hook run on it
+        # just before each move there
+        self._side = None
+        self.before_side_move = None
+        self.hazard_commits = 0      # sub-plans committed at once (hazard 3)
+        self.drains = 0              # pipeline drains from the alloc path
+        self.dead_destination_waits = 0   # hazard 4 occurrences
+        self.inflight_boundaries = 0      # steps that ended with a move in flight
+        self.sub_plans = 0                # async sub-plans committed
+        if self.async_compaction:
+            self.pool.on_drain = self._drain_compaction
+            # alloc-path trigger crossings fence-plan at this grain
+            self.pool.plan_budget = self.clean_budget
+            self.pool.on_dead_destination = self._on_dead_destination
+            if self.device.type == "cuda":
+                self._side = torch.cuda.Stream(self.device)
+        # audit() every that many dispatches (0: never)
+        self.audit_every = audit_every
         # shared-prefix KV reuse: full-page prompt prefixes keyed in a radix
         # tree over the pool's physical pages (refcounted)
         self.prefix_cache = (
@@ -300,13 +362,18 @@ class PagedServingEngine:
         return self.prefix_cache.evictable() if self.prefix_cache else 0
 
     def _gate_avail(self, hit_pages: list[int]) -> int:
-        """Blocks the admission gate may count: free blocks, plus cached
-        prefixes reclaimable on demand (the pool's pressure hook evicts them
-        before OOM) — minus the matched pages only the tree still
-        references, which the request is about to splice, not reclaim."""
-        overlap = (int((self.pool.block_ref[np.asarray(hit_pages, np.int64)]
-                        == 1).sum()) if hit_pages else 0)
-        return self.pool.free_blocks() + max(self._evictable() - overlap, 0)
+        """Blocks the admission gate may count: free blocks, fenced victim
+        slabs (the alloc path drains the async pipeline when frames run
+        short), plus cached prefixes reclaimable on demand (the pool's
+        pressure hook evicts them before OOM) — minus the matched pages only
+        the tree still references, which the request is about to splice,
+        not reclaim.  Cached ids may be stale across a pending remap, so
+        they resolve first."""
+        pool = self.pool
+        overlap = (int((pool.block_ref[pool.resolve(
+            np.asarray(hit_pages, np.int64))] == 1).sum()) if hit_pages else 0)
+        return (pool.free_blocks() + pool.core.fenced_count() * pool.S
+                + max(self._evictable() - overlap, 0))
 
     def _admit(self) -> None:
         started: list[int] = []
@@ -368,9 +435,16 @@ class PagedServingEngine:
         ``min_active``: stop before the active count drops below it (the
         growth path keeps the last sequence running, or it would preempt a
         sequence to fund its own growth, forever)."""
-        def avail() -> int:
-            return self.pool.free_blocks() + self._evictable()
+        pool = self.pool
 
+        def avail() -> int:
+            return (pool.free_blocks() + pool.core.fenced_count() * pool.S
+                    + self._evictable())
+
+        # committing the async pipeline frees fenced slabs without evicting
+        # anyone: always cheaper than preemption, so it goes first
+        if pool.on_drain is not None and pool.deferred_moves():
+            pool.on_drain()
         start = avail()
         keep = set(int(k) for k in keep)
         while avail() - start < deficit:
@@ -381,8 +455,8 @@ class PagedServingEngine:
             # pages whose *last* reference a preemption drops (shared prefix
             # pages survive in the tree or with other referencers)
             freeable = np.array(
-                [int((self.pool.block_ref[self.bt[j, :self.npages[j]]
-                                          .astype(np.int64)] == 1).sum())
+                [int((pool.block_ref[pool.resolve(
+                    self.bt[j, :self.npages[j]].astype(np.int64))] == 1).sum())
                  for j in cand])
             remaining = np.array(
                 [self._predict_remaining(int(self._out_n[j] + self.to_gen[j]),
@@ -756,7 +830,10 @@ class PagedServingEngine:
     def step(self) -> list[int]:
         """Admit, then decode up to ``max_decode_chunk`` tokens for every
         decoding slot in one dispatch — fused with one chunk of the
-        in-flight prefill in chunked mode.  Returns finished request ids."""
+        in-flight prefill in chunked mode.  With async compaction the pump
+        runs first.  Returns finished request ids."""
+        if self.async_compaction:
+            self._pump_compaction()
         self._admit()
         done, self._admit_done = self._admit_done, []
         active = self._decoding()
@@ -841,6 +918,8 @@ class PagedServingEngine:
         if tot > 0:   # decode-rate EWMA feeds the shed retry-after hint
             dt = time.perf_counter() - t0
             self._tpot_ewma = 0.8 * self._tpot_ewma + 0.2 * (dt / tot)
+        if self.audit_every and self.dispatches % self.audit_every == 0:
+            self.audit()
         return done
 
     def run_to_completion(self, max_steps: int = 100_000) -> dict:
@@ -884,6 +963,215 @@ class PagedServingEngine:
         self._move_plan(plan)
         self._apply_remap(plan)
 
+    # --- async pipeline: planned → in flight → committed -----------------
+    def _main_wait(self, event) -> None:
+        """Order the main stream's later work after ``event`` (on the
+        device: no host sync)."""
+        torch.cuda.current_stream(self.device).wait_event(event)
+
+    def _live_moves(self, plan):
+        """The moves of a planned sub-plan whose block is still alive: a
+        block whose owner died after planning is not moved, since its
+        destination page may have been handed out again.  A block's newest
+        location is its destination resolved through the pending LUT (a
+        later plan may move it on)."""
+        pool = self.pool
+        keep = pool.block_owner[pool.resolve(plan.dst_pages)] == plan.owners
+        if keep.all():
+            return plan
+        return dataclasses.replace(plan, src_pages=plan.src_pages[keep],
+                                   dst_pages=plan.dst_pages[keep],
+                                   owners=plan.owners[keep])
+
+    def _issue(self, plan) -> None:
+        """Move one sub-plan.  On the card it goes to the side stream after
+        everything the main stream has queued (whose writes it reads), and
+        records the event its commit waits on; a staged plan's buffer is
+        allocated there, tied to that stream.  On the CPU it moves inline."""
+        if self._side is None:
+            self._move_plan(self._live_moves(plan))
+            return
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            if self.before_side_move is not None:
+                self.before_side_move()
+            self._move_plan(self._live_moves(plan))
+            event = torch.cuda.Event()
+            event.record()
+        self._move_events[id(plan)] = event
+
+    def _commit_plan(self, plan) -> None:
+        """Commit one moved sub-plan: the main stream waits for its move
+        (the remapped tables point at the destinations), every holder is
+        remapped, and its fenced victims are released."""
+        event = self._move_events.pop(id(plan), None)
+        if event is not None:
+            self._main_wait(event)
+        if len(plan):
+            self._apply_remap(plan)
+        self.pool.commit_plan(plan)
+        self.sub_plans += 1
+
+    def _commit_inflight(self) -> None:
+        """Commit every sub-plan in flight, in plan order."""
+        while self._inflight_plans:
+            self._commit_plan(self._inflight_plans.pop(0))
+
+    def _hot_pages(self) -> np.ndarray:
+        """Pages the upcoming dispatch may write: each live slot's pages
+        from its current length on (decode appends K/V there), a prefilling
+        slot's from its chunk position on.  A planned move whose source is
+        among them cannot stay uncommitted across the dispatch: the write
+        would land on the source after the move copied it."""
+        hot = []
+        for i in np.flatnonzero(self.rid >= 0):
+            lo = int(self.lens[i]) // self.page_T
+            if self._pf is not None and self._pf["slot"] == i:
+                lo = min(lo, int(self._pf["pos"]) // self.page_T)
+            hot.append(self.bt[i, lo:self.npages[i]].astype(np.int64))
+        return (np.concatenate(hot) if hot
+                else np.empty(0, dtype=np.int64))
+
+    def _pump_compaction(self) -> None:
+        """The per-step pump, run before admission.
+
+        1. **commit** — the sub-plans moved last step are committed, in plan
+           order (the pending LUT and chained moves compose only so).
+        2. **issue** — pending sub-plans are moved up to the scheduler's
+           deficit-weighted clean budget, beside this step's dispatch.  A
+           sub-plan whose source the dispatch writes commits at once, and
+           the main stream waits for its move (hazard 3).
+
+        The pump does not plan: victims become worth cleaning in the middle
+        of admission, sealed by the writes that drain the reserve, so the
+        alloc path plans them (``pool._compact_until``), at the state
+        synchronous cleaning would have used."""
+        pool = self.pool
+        if self._inflight_plans:
+            self.inflight_boundaries += 1
+        if not (self._inflight_plans or pool.pending_plans):
+            return
+        self._commit_inflight()
+        if not pool.pending_plans:
+            return
+        # the deficit is judged on projected free slabs: reclamation in
+        # flight is demand already served
+        budget = clean_budget(
+            self.clean_budget, free_slabs=pool.projected_free_slabs(),
+            trigger=pool.compact_trigger, blocks_per_slab=pool.S,
+            queue_depth=len(self.queue) + len(self._resume))
+        hot = self._hot_pages()
+        moved = 0
+        while pool.pending_plans and moved < budget:
+            plan = pool.pending_plans.pop(0)
+            self._issue(plan)
+            moved += len(plan)
+            if len(plan) and np.isin(plan.src_pages, hot).any():
+                self.hazard_commits += 1
+                self._commit_inflight()
+                self._commit_plan(plan)
+                # the commits remapped the tables: a chained later sub-plan
+                # (its source an earlier one's destination) must see it
+                hot = self._hot_pages()
+            else:
+                self._inflight_plans.append(plan)
+
+    def _drain_compaction(self) -> None:
+        """The pool's ``on_drain``: commit the whole pipeline now, in order
+        — the moves in flight need only their commit; the sub-plans not yet
+        moved are moved on the main stream and committed, as synchronous
+        cleaning does.  Called from the alloc path when capacity is needed
+        at once."""
+        if not (self._inflight_plans or self.pool.pending_plans):
+            return
+        self.drains += 1
+        self._commit_inflight()
+        while self.pool.pending_plans:
+            plan = self.pool.pending_plans.pop(0)
+            self._move_plan(self._live_moves(plan))
+            self._commit_plan(plan)
+
+    def _on_dead_destination(self, pages: np.ndarray) -> None:
+        """The pool's ``on_dead_destination``: a free killed the
+        destinations ``pages`` of uncommitted moves, so their pages can be
+        handed out again.  If a move in flight writes one, the main stream
+        waits for every move in flight before its next write (hazard 4)."""
+        if not any(np.isin(p.dst_pages, pages).any()
+                   for p in self._inflight_plans):
+            return
+        self.dead_destination_waits += 1
+        for plan in self._inflight_plans:
+            event = self._move_events.get(id(plan))
+            if event is not None:
+                self._main_wait(event)
+
+    # ------------------------------------------------------------ integrity
+    def audit(self) -> None:
+        """Cross-check every reference holder against the pool's refcounts:
+        each page's count is the number of block-table rows holding it plus
+        one if the prefix tree caches it (no leak, no double free), read
+        through the pending-move LUT across an async window; then the
+        fenced cross-checks and each slot's length and output ledgers."""
+        pool = self.pool
+        pool.check_invariants()
+        if self.prefix_cache is not None:
+            self.prefix_cache.check_invariants()
+        expected = np.zeros_like(pool.block_ref)
+        for i in range(self.max_batch):
+            if self.rid[i] >= 0:
+                np.add.at(expected,
+                          pool.resolve(self.slot_pages(i).astype(np.int64)), 1)
+        if self.prefix_cache is not None:
+            tree = self.prefix_cache.pages()
+            if tree:
+                np.add.at(expected, pool.resolve(np.asarray(tree, np.int64)),
+                          1)
+        assert (expected == pool.block_ref).all(), \
+            f"refcount mismatch at pages {np.flatnonzero(expected != pool.block_ref)}"
+        self._audit_fenced()
+        for i in range(self.max_batch):
+            if self.rid[i] >= 0 and not self._prefilling[i]:
+                # lens counts the prompt and the consumed outputs (all
+                # emitted but the last, the next decode input)
+                assert self.lens[i] == (len(self._prompt[i])
+                                        + self._out_n[i] - 1), \
+                    f"slot {i}: lens ledger broken"
+                assert self.to_gen[i] == len(self._out[i]) - self._out_n[i], \
+                    f"slot {i}: to_gen ledger broken"
+
+    def _audit_fenced(self) -> None:
+        """A FENCED slab is a victim whose moves are planned or in flight:
+        it must be invisible to allocation (never on the free list),
+        unreachable from any holder (no resolved table or tree page lands
+        in one), and the home of every uncommitted plan's sources (the
+        destinations are survivor placements, never in a fenced slab)."""
+        pool, core = self.pool, self.pool.core
+        fenced = np.flatnonzero(core.seg_state == FENCED)
+        plans = list(pool.pending_plans) + list(self._inflight_plans)
+        if len(fenced) == 0 and not plans:
+            assert pool.deferred_moves() == 0, "move debt with no plans"
+            return
+        assert not np.isin(np.asarray(core.free_list, np.int64),
+                           fenced).any(), "fenced slab on the free list"
+        S = pool.S
+        for i in range(self.max_batch):
+            if self.rid[i] >= 0:
+                held = pool.resolve(self.slot_pages(i).astype(np.int64))
+                assert not np.isin(held // S, fenced).any(), \
+                    f"slot {i} holds a page in a fenced slab"
+        if self.prefix_cache is not None and self.prefix_cache.n_pages:
+            tree = pool.resolve(np.asarray(self.prefix_cache.pages(),
+                                           np.int64))
+            assert not np.isin(tree // S, fenced).any(), \
+                "prefix tree holds a page in a fenced slab"
+        for plan in plans:
+            if len(plan) == 0:
+                continue
+            assert np.isin(plan.src_pages // S, fenced).all(), \
+                "uncommitted plan source outside fenced slabs"
+            assert not np.isin(plan.dst_pages // S, fenced).any(), \
+                "uncommitted plan destination inside a fenced slab"
+
     # ------------------------------------------------------------- metrics
     def metrics(self) -> dict:
         st = self.pool.stats
@@ -898,6 +1186,10 @@ class PagedServingEngine:
             "stream_moves": list(st.stream_moves),
             "per_stream_wamp": st.per_stream_wamp(),
             "free_blocks": self.pool.free_blocks(),
+            # async-cleaning debt: moves planned but not committed, and the
+            # slabs they will hand back (0 when synchronous)
+            "compaction_debt_moves": self.pool.deferred_moves(),
+            "fenced_slabs": self.pool.core.fenced_count(),
             "preemptions": self.preemptions,
             "resumes": self.resumes,
             "recomputed_tokens": self.recomputed_tokens,
@@ -907,6 +1199,12 @@ class PagedServingEngine:
             m["shed_count"] = self.shed_count
         if self.prefill_chunk:
             m["prefill_chunks_dispatched"] = self.prefill_chunks_dispatched
+        if self.async_compaction:
+            m.update(gc_planned=st.gc_planned, gc_committed=st.gc_committed,
+                     sub_plans=self.sub_plans,
+                     hazard_commits=self.hazard_commits, drains=self.drains,
+                     dead_destination_waits=self.dead_destination_waits,
+                     inflight_boundaries=self.inflight_boundaries)
         if self.prefix_cache is not None:
             total = self._prefill_tokens_total
             saved = self._prefill_tokens_saved

@@ -172,8 +172,10 @@ class PrefixCache:
                   if n is not self.root and not n.children]
         if not leaves:
             return []
-        ref = self.pool.block_ref[np.asarray([n.page for n in leaves],
-                                             np.int64)]
+        # tree ids may be pending-move sources: read refcounts through the
+        # pool's LUT (a fenced source's own count is 0)
+        ref = self.pool.block_ref[self.pool.resolve(
+            np.asarray([n.page for n in leaves], np.int64))]
         return [n for n, r in zip(leaves, ref) if r == 1]
 
     def evictable(self) -> int:
@@ -186,8 +188,8 @@ class PrefixCache:
         nodes = [n for n in self.root.depth_first() if n is not self.root]
         if not nodes:
             return 0
-        unref = self.pool.block_ref[np.asarray([n.page for n in nodes],
-                                               np.int64)] == 1
+        unref = self.pool.block_ref[self.pool.resolve(
+            np.asarray([n.page for n in nodes], np.int64))] == 1
         reclaim: dict[int, bool] = {}
         count = 0
         for n, u in zip(nodes, unref):
@@ -246,7 +248,9 @@ class PrefixCache:
         assert len(pages) == self.n_pages
         assert len(set(pages)) == len(pages), "page cached twice"
         if pages:
-            arr = np.asarray(pages, np.int64)
+            # across a pending async-compaction window the tree still holds
+            # source ids (its remap defers with the block tables')
+            arr = self.pool.resolve(np.asarray(pages, np.int64))
             assert (self.pool.block_owner[arr] >= 0).all(), \
                 "cached page is dead"
             assert (self.pool.block_ref[arr] >= 1).all()

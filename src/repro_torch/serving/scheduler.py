@@ -1,5 +1,6 @@
 """Scheduling helpers of the serving engine: the chunked-prefill budget,
-output-length prediction, preemption victims and load shedding.
+the clean budget of async compaction, output-length prediction, preemption
+victims and load shedding.
 
 With stop-token decode a request's output length — and therefore every
 page's lifetime — is data-dependent, so the ``est_death`` the engine hands
@@ -29,6 +30,28 @@ def normalize_prefill_chunk(chunk: int, page_T: int) -> int:
     if chunk <= 0:
         return 0
     return -(-int(chunk) // page_T) * page_T
+
+
+# default per-dispatch clean budget (blocks moved) of async compaction: one
+# default-sized slab's worth, a typical sub-plan per dispatch at steady state
+DEFAULT_CLEAN_BUDGET = 8
+
+
+def clean_budget(base: int, *, free_slabs: int, trigger: int,
+                 blocks_per_slab: int, queue_depth: int = 0) -> int:
+    """Per-dispatch clean budget in blocks moved.
+
+    At or above comfortable free-slab headroom the budget is ``base`` (a
+    steady trickle); below it, it grows by the slab deficit converted to
+    blocks — the deeper the pool digs into its reserve, the more moves each
+    dispatch retires — plus a small queue-depth term (waiting admissions are
+    reclamation demand too)."""
+    base = max(int(base), 1)
+    deficit = max(int(trigger) + 1 - int(free_slabs), 0)
+    if deficit == 0:
+        return base
+    return (base + deficit * max(int(blocks_per_slab), 1)
+            + 2 * min(int(queue_depth), 8))
 
 
 class EwmaLengthPredictor:

@@ -641,3 +641,195 @@ def _slot_kv(eng):
 def _f32(tree, dev):
     return {k: _f32(v, dev) if isinstance(v, dict)
             else v.to(dev, torch.float32) for k, v in tree.items()}
+
+
+# -------------------------------------------- async compaction on the card
+
+def _cast(tree, dev, dtype):
+    return {k: _cast(v, dev, dtype) if isinstance(v, dict)
+            else v.to(dev, dtype) for k, v in tree.items()}
+
+
+def _async_requests(vocab):
+    """test_async_compaction.py::_reqs."""
+    rng = np.random.default_rng(1)
+    lens = [5, 17, 9, 24, 3, 12, 20, 7, 15, 11]
+    news = [16, 20, 14, 18, 22, 15, 19, 21, 13, 17]
+    return [(rng.integers(1, vocab, size=n), m) for n, m in zip(lens, news)]
+
+
+def _serve_all(eng, requests):
+    rids = [eng.submit(p, n) for p, n in requests]
+    eng.run_to_completion()
+    eng.audit()
+    m = eng.metrics()
+    return [eng.finished[r] for r in rids], {
+        k: m[k] for k in ("blocks_written", "blocks_moved", "compactions",
+                          "wamp", "compaction_debt_moves", "fenced_slabs")}
+
+
+ASYNC_KW = dict(n_slabs=8, blocks_per_slab=2, page_T=8, max_batch=3,
+                max_seq=96, policy="mdc", compact_trigger=2, compact_batch=2,
+                audit_every=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_async_engine_on_card_matches_sync_on_card(dev, dtype):
+    """test_async_compaction.py's stream (through 8 slabs, where a moved
+    page's owner dies inside a window): the async engine on the card, its
+    moves on the side stream, gives the sync engine's tokens on the card bit
+    for bit; at f32 both also give the CPU engine's tokens."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = Model(cfg, device="cpu", seed=0).params
+    reqs = _async_requests(cfg.vocab_size)
+    runs = {}
+    for device in ((dev, "cpu") if dtype == torch.float32 else (dev,)):
+        model = Model(cfg, _cast(params, device, dtype))
+        for mode, kw in (("sync", {}), ("async", {"async_compaction": True})):
+            ops.reset_launches()
+            eng = PagedServingEngine(model, pool_dtype=dtype, device=device,
+                                     **ASYNC_KW, **kw)
+            runs[str(device), mode] = _serve_all(eng, reqs)
+            if device != "cpu" and mode == "async":
+                assert eng.pool.stats.gc_planned == eng.pool.stats.gc_committed > 0
+                side = ops.stream_launches["segment_move"]
+                assert side.get(eng._side.cuda_stream, 0) > 0
+    tokens = {k: v[0] for k, v in runs.items()}
+    assert tokens[str(dev), "async"] == tokens[str(dev), "sync"]
+    if dtype == torch.float32:
+        assert tokens[str(dev), "async"] == tokens["cpu", "async"]
+        assert runs[str(dev), "async"] == runs["cpu", "async"]
+
+
+# a move waits this long on the side stream (~50 ms at the H100's clock), so
+# that a missing wait shows as other tokens
+SLEEP_CYCLES = 100_000_000
+
+
+def _shared_stream(vocab, n_sys):
+    """One system prompt (test_prefix_cache.py's shared stream, 10 users)
+    or three (12 users, tails of 3-13 tokens)."""
+    if n_sys == 1:
+        rng = np.random.default_rng(1)
+        sys_prompt = np.random.default_rng(42).integers(1, vocab, size=24)
+        return [(np.concatenate([sys_prompt, rng.integers(
+            1, vocab, size=int(rng.integers(3, 14)))]), int(rng.integers(4, 12)))
+            for _ in range(10)]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, vocab, size=16) for _ in range(n_sys)]
+    return [(np.concatenate([prompts[int(rng.integers(n_sys))],
+                             rng.integers(1, vocab, size=int(rng.integers(3, 14)))]),
+             int(rng.integers(2, 12))) for _ in range(12)]
+
+
+# the streams of the widened window, each with the counter of its hazard:
+# a sub-plan committed at once because the next dispatch writes its source
+# (hazard 3), and a moved page that a prefix-cache eviction kills and the same
+# admission hands out again while its move is in flight (hazard 4)
+WINDOW_STREAMS = {
+    "hazard_commit": (1, {}, "hazard_commits"),
+    "dead_destination": (3, {"prefix_cache_pages": 6},
+                         "dead_destination_waits"),
+}
+
+
+def _window_run(dev, stream, *, widen: bool, **kw):
+    n_sys, extra, counter = WINDOW_STREAMS[stream]
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, dev)
+    eng = PagedServingEngine(
+        Model(cfg, params), n_slabs=8, blocks_per_slab=2, page_T=8,
+        max_batch=3, max_seq=96, policy="mdc", streams=1, compact_trigger=2,
+        compact_batch=3, prefix_cache=True, pool_dtype=torch.float32,
+        clean_budget=4, device=dev, **extra, **kw)
+    if widen:
+        eng.before_side_move = lambda: torch.cuda._sleep(SLEEP_CYCLES)
+    rids = [eng.submit(p, n) for p, n in _shared_stream(cfg.vocab_size, n_sys)]
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    return [eng.finished[r] for r in rids], eng, counter
+
+
+@pytest.mark.parametrize("stream", list(WINDOW_STREAMS))
+def test_async_widened_window_keeps_tokens(dev, stream):
+    """Each move sleeps ~50 ms on the side stream before it copies: the
+    events still order everything, so the tokens are the sync engine's, on
+    a stream where the window's hazard occurs."""
+    want, _, _ = _window_run(dev, stream, widen=False)
+    got, eng, counter = _window_run(dev, stream, widen=True,
+                                    async_compaction=True)
+    assert getattr(eng, counter) >= 1
+    assert eng.pool.stats.gc_planned == eng.pool.stats.gc_committed > 0
+    eng.audit()
+    assert got == want
+
+
+@pytest.mark.parametrize("stream,removed", [
+    ("hazard_commit", "every wait"),
+    ("dead_destination", "the dead-destination wait")])
+def test_async_widened_window_without_waits_gives_other_tokens(
+        dev, stream, removed, monkeypatch):
+    """The same streams with the main stream's waits taken out (only in this
+    test): the widened window then shows as other tokens, so the tokens of
+    the test above depend on the waits.  On the dead-destination stream
+    only that hazard's wait goes: the commit waits then hold the main
+    stream until the late move has overwritten the page handed out again,
+    and the new owner's decode reads it (with every wait gone, the new
+    owner can finish within the ~50 ms before the move lands)."""
+    want, _, _ = _window_run(dev, stream, widen=False)
+    if removed == "every wait":
+        monkeypatch.setattr(PagedServingEngine, "_main_wait",
+                            lambda self, event: None)
+    else:
+        monkeypatch.setattr(PagedServingEngine, "_on_dead_destination",
+                            lambda self, pages: None)
+    got, _, _ = _window_run(dev, stream, widen=True, async_compaction=True)
+    assert got != want
+
+
+def _count_syncs(fn, counts):
+    """``fn`` with the calls that wait for the card (PyTorch's sync debug
+    mode, as ``scripts/profile_engine.py`` counts them) added to
+    ``counts``."""
+    import warnings
+
+    def call(*args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append((sum("synchronizing" in str(w.message) for w in caught),
+                       args[0] if args else 0))
+        return out
+    return call
+
+
+def test_async_adds_no_host_sync(dev):
+    """The pump (commits, hazard checks, moves on the side stream) makes no
+    call that waits for the card, and a decode token step makes no more
+    than in the sync engine."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, dev)
+    per_step, calls = {}, {}
+    # a first, unmeasured run: the process's first decode at these shapes
+    # makes one more synchronising call (lazy initialisation)
+    _serve_all(PagedServingEngine(Model(cfg, params), pool_dtype=torch.float32,
+                                  device=dev, **ASYNC_KW),
+               _async_requests(cfg.vocab_size))
+    for mode, kw in (("sync", {}), ("async", {"async_compaction": True})):
+        eng = PagedServingEngine(Model(cfg, params), pool_dtype=torch.float32,
+                                 device=dev, **ASYNC_KW, **kw)
+        decode, pump = [], []
+        eng._decode = _count_syncs(eng._decode, decode)
+        eng._pump_compaction = _count_syncs(eng._pump_compaction, pump)
+        _serve_all(eng, _async_requests(cfg.vocab_size))
+        per_step[mode] = (sum(s for s, _ in decode)
+                          / sum(n for _, n in decode))
+        calls[mode] = decode
+        if mode == "async":
+            assert eng.pool.stats.gc_committed > 0 and pump
+            assert sum(s for s, _ in pump) == 0
+    assert 0 < per_step["async"] <= per_step["sync"], (per_step, calls)
