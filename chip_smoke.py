@@ -100,7 +100,32 @@ Phases, in order; any failure raises and the process exits non-zero:
              compact (``rehearse_schedule.py async-f32 8``), async and sync:
              equal tokens, and equal to the plain decode or parting from it
              on a near-tie.
-             Each of the last four phases zeroes the launch counters before
+11. recovery — crash safety.  The engine phase's 32 requests through its
+             pool with the session journal on and a snapshot every
+             ``RECOVERY_SNAPSHOT_EVERY`` dispatches (4 snapshots): bf16
+             tokens equal to the engine phase's in 32 of 32 (the journal is
+             passive), >= 1 ``mv`` record.  The journal directory is cloned
+             the moment three records chosen by rule are appended (a kill
+             at that record boundary: right after the first ``mv``, right
+             after the first ``snap``, and the first ``emit`` past half the
+             records with every slot live); from each clone
+             ``recover_engine(..., device="cuda")`` drains the session: the
+             bf16 tokens of every request whose ``sub`` survived equal the
+             unkilled run's, ``audit()`` passes, flash and paged attention
+             launch.  Then a kill inside the async window (the async
+             phase's configuration, each side-stream move held back ~50 ms,
+             the engine dropped with a move in flight and recovered in the
+             same process): tokens equal to the async phase's.  Then the f32
+             leg (the async phase's f32 requests and pool, TF32 off), killed
+             at its middle record boundary: tokens equal to the unkilled
+             run's, and to the plain decode or parting from it on a
+             near-tie.  Host counters (records, snapshots, the cuts' seqs,
+             records replayed, sequences resumed, requests requeued, tokens
+             replayed) equal ``scripts/rehearse_schedule.py recovery 30``'s.
+             Reported per cut: ``load_session`` ms and the time to recover
+             (from ``recover_engine`` until every resumed sequence has
+             re-derived its journaled span).
+             Each of the last five phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
@@ -109,12 +134,14 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -131,7 +158,8 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.serving import PagedServingEngine  # noqa: E402
+from repro_torch.serving import PagedServingEngine, recover_engine  # noqa: E402
+from repro_torch.serving import recovery  # noqa: E402
 from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
@@ -185,6 +213,34 @@ ASYNC_PLANS = {"direct": 19, "staged": 0}
 # 29 moves in 4 sub-plans, 4 step boundaries with a move in flight)
 ASYNC_F32_NEW = (16, 64, 32, 128)
 ASYNC_F32_SLABS = 8
+# the recovery phase: a snapshot every this many dispatches (4 snapshots in
+# the engine phase's 146), and its host-determined counters, rehearsed on
+# the CPU with ``scripts/rehearse_schedule.py recovery 30``
+RECOVERY_SNAPSHOT_EVERY = 36
+RECOVERY_REHEARSED = {
+    "records": 439, "snapshots": 4,
+    "cuts": {"after_first_mv": 133, "after_first_snap": 152,
+             "mid_all_live": 220},
+    "per_cut": {
+        "after_first_mv": dict(snapshot_id=0, records_replayed=134,
+                               sequences_resumed=8, requests_requeued=16,
+                               tokens_replayed=5971),
+        "after_first_snap": dict(snapshot_id=1, records_replayed=0,
+                                 sequences_resumed=8, requests_requeued=15,
+                                 tokens_replayed=6279),
+        "mid_all_live": dict(snapshot_id=1, records_replayed=68,
+                             sequences_resumed=8, requests_requeued=10,
+                             tokens_replayed=6643)},
+    "async": dict(dispatch=49, snapshot_id=0, records_replayed=199,
+                  sequences_resumed=8, requests_requeued=11,
+                  tokens_replayed=6317),
+    "f32_records": 55,
+    "f32": dict(records=55, snapshot_id=0, records_replayed=28,
+                sequences_resumed=1, requests_requeued=1, tokens_replayed=529),
+}
+# the async-window kill: the first step boundary with a move in flight from
+# this dispatch on
+RECOVERY_ASYNC_FROM = 40
 
 
 def emit(obj) -> None:
@@ -719,14 +775,17 @@ def timed(fn, events: list):
     return call
 
 
-def serve(model, requests, **kw) -> dict:
+def serve(model, requests, setup=None, **kw) -> dict:
     """One engine over ``requests`` on the card, launch counters zeroed just
     before and read just after.  Each admission's prefill and each
     ``step()`` that dispatched are bracketed by CUDA events: the stream's
     time from the first launch to the last, host gaps included (the eager
     engine is host-bound), so a dispatch's time is its wall and the largest
-    is the longest any decoding slot waited for its next tokens."""
+    is the longest any decoding slot waited for its next tokens.
+    ``setup(engine)`` runs before the first submission."""
     eng = PagedServingEngine(model, **{**POOL, **kw}, device="cuda")
+    if setup is not None:
+        setup(eng)
     events, steps = [], []
     eng._start = timed(eng._start, events)
     step = timed(eng.step, steps)
@@ -1059,6 +1118,270 @@ def phase_async(cfg, mono, warm) -> dict:
     return run["launches"]
 
 
+def recovery_cuts(half: int):
+    """The recovery phase's kill points, by rule, as ``pick(engine, seq,
+    record)`` → the cut's name or None: right after the first ``mv``
+    record, right after the first ``snap`` record, and the first ``emit``
+    record at or after record ``half`` with every slot live."""
+    seen = set()
+
+    def pick(eng, seq, rec):
+        t = rec["t"]
+        if t == "mv" and "after_first_mv" not in seen:
+            name = "after_first_mv"
+        elif t == "snap" and "after_first_snap" not in seen:
+            name = "after_first_snap"
+        elif (t == "emit" and seq >= half and "mid_all_live" not in seen
+              and bool((eng.rid >= 0).all())):
+            name = "mid_all_live"
+        else:
+            return None
+        seen.add(name)
+        return name
+    return pick
+
+
+def capture(eng, root: Path, pick) -> dict:
+    """Clone ``eng``'s journal directory into ``root / name`` the moment a
+    record that ``pick`` names is appended: the disk state a kill at that
+    record boundary leaves (the journal segments and the snapshot store as
+    they were then).  Returns {name: (seq, submissions so far, directory)};
+    its ``"kinds"`` entry counts the records of each type."""
+    cuts, kinds = {}, {}
+    cuts["kinds"] = kinds
+    append = eng.journal.append
+
+    def hooked(payload):
+        seq = append(payload)
+        rec = json.loads(payload)
+        kinds[rec["t"]] = kinds.get(rec["t"], 0) + 1
+        name = pick(eng, seq, rec)
+        if name is not None:
+            d = Path(root) / name
+            shutil.copytree(eng.journal.root, d)
+            cuts[name] = (seq, kinds.get("sub", 0), d)
+        return seq
+
+    eng.journal.append = hooked
+    return cuts
+
+
+def recover_drain(model, jdir, **kw) -> tuple[dict, dict]:
+    """Recover a killed session from ``jdir`` and drain it.  Returns the
+    finished tokens and a summary: the recovery report's counters, the
+    ``load_session`` time, the time to recover (from ``recover_engine``
+    until every resumed sequence has re-derived its journaled span), the
+    drain's wall and the kernels' launches from ``recover_engine`` on."""
+    sync = (torch.cuda.synchronize if torch.device(kw["device"]).type == "cuda"
+            else (lambda: None))
+    t = time.perf_counter()
+    recovery.load_session(jdir, stop_token=kw.get("stop_token"))
+    load_ms = (time.perf_counter() - t) * 1e3
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    eng, rep = recover_engine(model, jdir, **kw)
+    spans = {r.rid: r.out_n for r in eng._resume}
+
+    def caught_up():
+        return all(rid in eng.finished or any(
+            eng.rid[i] == rid and not eng._prefilling[i]
+            and eng._out_n[i] >= span for i in range(eng.max_batch))
+            for rid, span in spans.items())
+
+    recovered_s = None
+    for _ in range(100_000):
+        if recovered_s is None and caught_up():
+            sync()
+            recovered_s = time.perf_counter() - t0
+        if not eng.has_work():
+            break
+        eng.step()
+    sync()
+    wall = time.perf_counter() - t0
+    eng.audit()
+    finished = dict(eng.finished)
+    summary = {k: rep[k] for k in ("snapshot_id", "records_replayed",
+                                   "sequences_resumed", "requests_requeued",
+                                   "tokens_replayed", "journal_torn_bytes")}
+    summary.update(load_session_ms=load_ms, time_to_recover_s=recovered_s,
+                   drain_s=wall, launches=dict(ops.launches),
+                   journal_records_after=eng.metrics()["journal_records"])
+    eng.journal.close()
+    return finished, summary
+
+
+# the counters a recovery's summary must share with the CPU rehearsal
+RECOVERY_COUNTERS = ("snapshot_id", "records_replayed", "sequences_resumed",
+                     "requests_requeued", "tokens_replayed")
+
+
+def phase_recovery(cfg, mono) -> dict:
+    """Crash safety on the card: the journaled run, three kills in it, a
+    kill inside the async window, and the f32 leg (see the module's
+    docstring).  Every check is made before any fails, and the phase's
+    line names each failure."""
+    t0 = time.perf_counter()
+    reh = RECOVERY_REHEARSED
+    prompts, news = engine_requests(cfg.vocab_size)
+    reqs = [(p, int(n)) for p, n in zip(prompts, news)]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_recovery_"))
+    failures, launches = [], {k: 0 for k in KERNELS}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    try:
+        model = Model(cfg, device="cuda", seed=SEED)
+        held = {}
+
+        def setup(eng):
+            held["eng"] = eng
+            held["cuts"] = capture(eng, root / "cuts",
+                                   recovery_cuts(reh["records"] // 2))
+
+        run = serve(model, reqs, setup=setup, journal_dir=root / "journal",
+                    snapshot_every=RECOVERY_SNAPSHOT_EVERY)
+        add(run["launches"])
+        eng, cuts = held.pop("eng"), held.pop("cuts")
+        kinds = cuts.pop("kinds")
+        m = run["metrics"]
+        gen = sum(len(t) for t in run["tokens"])
+        snap_files = [p for p in (root / "journal" / "snap").rglob("*")
+                      if p.is_file()]
+        journal = {
+            "records": m["journal_records"], "bytes": m["journal_bytes"],
+            "bytes_per_generated_token": m["journal_bytes"] / gen,
+            "journal_wamp": m["journal_wamp"], "snapshots": eng._snap_id,
+            "snapshot_store_bytes": sum(p.stat().st_size for p in snap_files),
+            "snapshot_store_bytes_written": eng._snap_store.stats.user_bytes,
+            "snapshot_store_wamp": eng._snap_store.stats.wamp(),
+            "record_kinds": kinds,
+            "wall_s": run["wall_s"], "tokens_per_s": gen / run["wall_s"],
+            "engine_phase_wall_s": mono["wall_s"],
+            "engine_phase_tokens_per_s": gen / mono["wall_s"]}
+        eng.journal.close()
+        del eng, held
+        gc.collect()
+        torch.cuda.empty_cache()
+        diff = [i for i, (a, b) in enumerate(zip(run["tokens"], mono["tokens"]))
+                if a != b]
+        if diff:
+            failures.append(f"journaled run: tokens differ from the engine "
+                            f"phase's in requests {diff}")
+        if (m["compactions"] < 1 or run["launches"]["segment_move"] == 0
+                or kinds.get("mv", 0) < 1):
+            failures.append("the journaled run never moved a page")
+        if m["journal_wamp"] != 0.0:
+            failures.append(f"journal Wamp {m['journal_wamp']} != 0")
+        host = {"records": m["journal_records"], "snapshots": journal["snapshots"],
+                "cuts": {n: cuts[n][0] for n in sorted(cuts)}}
+        if host != {k: reh[k] for k in host}:
+            failures.append(f"journal {host} is not the rehearsal's")
+
+        per_cut = {}
+        want = run["tokens"]
+        for name in sorted(cuts):
+            seq, n_sub, d = cuts[name]
+            got, summ = recover_drain(model, d, **POOL, device="cuda")
+            add(summ["launches"])
+            summ.update(seq=seq, submissions=n_sub)
+            per_cut[name] = summ
+            bad = [r for r in range(n_sub) if got.get(r) != want[r]]
+            if bad:
+                failures.append(f"cut {name}: tokens differ in requests {bad}")
+            if {k: summ[k] for k in RECOVERY_COUNTERS} != reh["per_cut"][name]:
+                failures.append(f"cut {name}: {summ} is not the rehearsal's "
+                                f"{reh['per_cut'][name]}")
+            if not (summ["launches"]["flash_attention"]
+                    and summ["launches"]["paged_attention"]):
+                failures.append(f"cut {name}: a recovery kernel never launched")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # a kill inside the async window, recovered in the same process
+        akw = dict(POOL, async_compaction=True, audit_every=1, device="cuda")
+        eng = PagedServingEngine(model, journal_dir=root / "async", **akw)
+        eng.before_side_move = lambda: torch.cuda._sleep(100_000_000)
+        for p, n in reqs:
+            eng.submit(p, n)
+        while eng.has_work() and not (eng.dispatches >= RECOVERY_ASYNC_FROM
+                                      and eng._inflight_plans):
+            eng.step()
+        kill = {"dispatch": eng.dispatches,
+                "inflight_plans": len(eng._inflight_plans),
+                "inflight_moves": sum(len(p) for p in eng._inflight_plans)}
+        if not kill["inflight_moves"]:
+            failures.append("async kill: no move in flight")
+        eng = None                  # the kill, with the move still running
+        gc.collect()
+        got, asum = recover_drain(model, root / "async", **akw)
+        add(asum["launches"])
+        bad = [r for r in range(len(reqs)) if got.get(r) != mono["tokens"][r]]
+        if bad:
+            failures.append(f"async kill: tokens differ in requests {bad}")
+        if {"dispatch": kill["dispatch"],
+                **{k: asum[k] for k in RECOVERY_COUNTERS}} != reh["async"]:
+            failures.append(f"async kill: {kill} {asum} is not the "
+                            f"rehearsal's {reh['async']}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # f32 leg: the tokens phase's weights at f32, an f32 pool, TF32 off
+        bf = Model(cfg, device="cuda", seed=SEED).params
+        model = Model(cfg, unflatten((p, t.float()) for p, t in flatten(bf)))
+        del bf
+        small = long_requests(cfg.vocab_size, ASYNC_F32_NEW)
+        fkw = dict(n_slabs=ASYNC_F32_SLABS, pool_dtype=torch.float32)
+        held = {}
+
+        def setup32(eng):
+            held["cuts"] = capture(
+                eng, root / "f32cuts",
+                lambda e, seq, rec: "middle" if seq == reh["f32_records"] // 2
+                else None)
+
+        run32 = serve(model, small, setup=setup32, journal_dir=root / "f32",
+                      **fkw)
+        add(run32["launches"])
+        seq, n_sub, d = held["cuts"]["middle"]
+        f32_records = run32["metrics"]["journal_records"]
+        got, fsum = recover_drain(model, d, **{**POOL, **fkw}, device="cuda")
+        add(fsum["launches"])
+        fsum.update(seq=seq, submissions=n_sub)
+        tokens32 = [got[r] for r in range(len(small))]
+        if tokens32 != run32["tokens"]:
+            failures.append("f32 leg: recovered tokens differ from the "
+                            "unkilled run's")
+        mismatches = first_mismatches(model, cfg, small, tokens32)
+        if any(not x["margin_at_mismatch"] < 1e-3 for x in mismatches):
+            failures.append(f"f32 leg: tokens part from the plain decode off "
+                            f"a near-tie: {mismatches}")
+        if ({"records": f32_records,
+             **{k: fsum[k] for k in RECOVERY_COUNTERS}} != reh["f32"]):
+            failures.append(f"f32 leg: {fsum} is not the rehearsal's "
+                            f"{reh['f32']}")
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "recovery", "model": cfg.name, "dtype": "bfloat16",
+          "requests": len(reqs), "snapshot_every": RECOVERY_SNAPSHOT_EVERY,
+          "tokens_equal": not diff, "journal": journal,
+          "cuts": per_cut, "estimate_time_to_recover_s": [6, 9],
+          "async_kill": {**kill, **asum},
+          "f32": {"requests": len(small), "records": f32_records, **fsum,
+                  "equal_to_unkilled": tokens32 == run32["tokens"],
+                  "equal_to_plain": not mismatches, "mismatches": mismatches},
+          "launches": launches, "phase_seconds": time.perf_counter() - t0,
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"recovery phase: {failures}")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1075,6 +1398,7 @@ def main() -> None:
     paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg)}
     paths["chunked"], warm = phase_chunked(cfg, mono)
     paths["async"] = phase_async(cfg, mono, warm)
+    paths["recovery"] = phase_recovery(cfg, mono)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims" if name == "mdc_priority" else "engine"

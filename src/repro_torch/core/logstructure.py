@@ -1,10 +1,23 @@
-"""The log-structure substrate behind the serving KV pool (fixed-size pages).
+"""The log-structure substrate behind the serving KV pool, the session
+journal and the snapshot store.
 
-A copy of the ``FrameLog`` path of ``repro.core.logstructure``: segment
-lifecycle (FREE → OPEN → USED → FREE), per-segment {A, C, u_p2} accounting
-(§5.1.1), the §5.2.2 u_p2 carry-forward rules, declining-cost victim
-selection, and death-stream placement (SepBIT arXiv:2104.12425: ``k`` open
-segments, each append routed by running quantiles of its predicted death).
+A copy of ``repro.core.logstructure``: segment lifecycle (FREE → OPEN →
+USED → FREE), per-segment {A, C, u_p2} accounting (§5.1.1), the §5.2.2
+u_p2 carry-forward rules, declining-cost victim selection, and death-stream
+placement (SepBIT arXiv:2104.12425: ``k`` open segments, each append routed
+by running quantiles of its predicted death).  Two accounting modes cover
+the paper's two page models:
+
+  FrameLog  — fixed-size pages ("frames", the KV pool's pages): a segment is
+              ``S`` slots; A is derived as S - C free frames.
+  ByteLog   — variable-size pages (§4.4): segments are byte extents that
+              grow monotonically; A = written − live bytes.  Segment ids are
+              never reused (they name files on disk).  :class:`JournalLog`
+              (the engine's durable record journal) and the snapshot store
+              (``checkpoint.logstore``) are its frontends.
+
+Both share one :class:`StoreStats` that counts frames *and* bytes, so
+``wamp()`` means the same thing everywhere.
 
 Reference counts are kept per frame: a page shared by several sequences
 and the prefix cache lives until its last reference drops
@@ -16,14 +29,18 @@ Asynchronous cleaning fences its victims (:meth:`FrameLog.evacuate` with
 but the frames stay un-allocatable (``FENCED``) until the owner commits the
 deferred device move (:meth:`LogStructureBase.commit_fenced`).
 
-What the serving path does not run is left out: the byte-accounted log and
-its journal, the simulator's item back-pointers, the oracle update
-probabilities and the observability hooks.
+What no ported path runs is left out: the simulator's item back-pointers,
+the oracle update probabilities and the observability hooks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import struct
+import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -40,7 +57,8 @@ _STREAM_HORIZON = 1e9
 
 
 class Clock:
-    """The paper's update clock: ticks once per death (the KV pool)."""
+    """The paper's update clock: ticks once per death (the KV pool, the
+    snapshot store); the owner decides what a death is."""
 
     __slots__ = ("now",)
 
@@ -54,14 +72,18 @@ class Clock:
 
 @dataclasses.dataclass
 class StoreStats:
-    """Cumulative counters (paper eq. 2, with uniform frames); the serving
-    vocabulary (blocks, compactions) is read-only alias properties.
+    """Cumulative counters in items *and* bytes (paper eq. 2); the serving
+    vocabulary (blocks, compactions) is read-only alias properties.  The
+    fields and their order are the JAX package's, so a session snapshot
+    either package wrote loads in the other.
 
     ``stream_writes`` / ``stream_moves`` break the item counters down by
     placement stream (index = stream, 0 hottest)."""
 
-    user_writes: int = 0       # user items (blocks) written
+    user_writes: int = 0       # user items (blocks / chunks / records)
+    user_bytes: int = 0
     gc_moves: int = 0          # items relocated by cleaning
+    gc_bytes: int = 0
     deaths: int = 0            # items freed (refcount hit zero)
     cleaned_segments: int = 0
     cleanings: int = 0         # clean cycles (pool: compactions)
@@ -77,8 +99,10 @@ class StoreStats:
     stream_moves: list = dataclasses.field(default_factory=list)
 
     def wamp(self) -> float:
-        """Write amplification: moved / written (frames are uniform, so this
-        is the byte ratio too).  0.0 with no user writes."""
+        """Write amplification: bytes moved / bytes written (the item ratio
+        where no bytes were counted).  0.0 with no user writes."""
+        if self.user_bytes:
+            return self.gc_bytes / self.user_bytes
         return self.gc_moves / self.user_writes if self.user_writes else 0.0
 
     def per_stream_wamp(self) -> list:
@@ -156,15 +180,18 @@ class Placement:
     kind      : "user" | "gc" — write accounting ("gc" moves are counted
                 once, at evacuation).
     refs      : per-item reference counts carried through relocation.
+    up2       : the §5.2.2 per-item tag; defaults to ``est_death`` (the KV
+                pool tags slots with death estimates), else 0.
     """
 
     est_death: "np.ndarray | float | None" = None
     stream: "np.ndarray | int | None" = None
     kind: str | None = "user"
     refs: np.ndarray | None = None
+    up2: "np.ndarray | float | None" = None
 
     def up2_values(self, n: int) -> np.ndarray:
-        src = self.est_death
+        src = self.up2 if self.up2 is not None else self.est_death
         return np.zeros(n) if src is None else _per_item(src, n)
 
 
@@ -174,10 +201,30 @@ class StreamSet:
     stream k-1 the coldest.  Holds the routing state only; lifecycle stays
     with the owning log."""
 
-    def __init__(self, k: int):
+    def __init__(self, k: int, window: int = 4096):
         self.k = max(1, int(k))
         self.open = np.full(self.k, -1, dtype=np.int64)  # stream -> OPEN seg
         self.bounds = np.empty(0, dtype=np.float64)      # k-1 quantile cuts
+        # ring of recently appended est_death values: the quantile sample of
+        # a log that cannot enumerate its live deaths (ByteLog)
+        self._ring = np.zeros(window, dtype=np.float64)
+        self._n = 0
+        self._pos = 0
+
+    def observe(self, deaths: np.ndarray) -> None:
+        deaths = np.asarray(deaths, dtype=np.float64).ravel()[-len(self._ring):]
+        end = self._pos + len(deaths)
+        if end <= len(self._ring):
+            self._ring[self._pos:end] = deaths
+        else:
+            cut = len(self._ring) - self._pos
+            self._ring[self._pos:] = deaths[:cut]
+            self._ring[:end - len(self._ring)] = deaths[cut:]
+        self._pos = end % len(self._ring)
+        self._n = min(self._n + len(deaths), len(self._ring))
+
+    def sample(self) -> np.ndarray:
+        return self._ring[:self._n]
 
     def clear_seg(self, s: int) -> None:
         self.open[self.open == s] = -1
@@ -188,7 +235,8 @@ class LogStructureBase:
 
     _oom_msg = "store out of free segments (cleaning failed to keep up)"
 
-    def __init__(self, nseg: int, *, n_streams: int = 1):
+    def __init__(self, nseg: int, *, clock: Clock | None = None,
+                 use_free_list: bool = True, n_streams: int = 1):
         self.nseg = int(nseg)
         self.seg_state = np.full(nseg, FREE, dtype=np.int8)
         self.seg_live = np.zeros(nseg, dtype=np.int64)       # C (live items)
@@ -199,13 +247,19 @@ class LogStructureBase:
         # cleaning to demote survivors one stream colder
         self.seg_stream = np.full(nseg, -1, dtype=np.int16)
         self.streams = StreamSet(n_streams)
-        self.free_list: list[int] = list(range(nseg - 1, -1, -1))
-        self.clock = Clock()
+        self._use_free_list = use_free_list
+        self.free_list: list[int] = (
+            list(range(nseg - 1, -1, -1)) if use_free_list else [])
+        self.clock = clock if clock is not None else Clock()
         self.stats = StoreStats()
 
     @property
     def u_now(self) -> float:
         return self.clock.now
+
+    @u_now.setter
+    def u_now(self, v: float) -> None:
+        self.clock.now = v
 
     def tick(self, n: float = 1.0) -> float:
         return self.clock.tick(n)
@@ -222,13 +276,13 @@ class LogStructureBase:
         self.seg_state[s] = OPEN
         return s
 
-    def seal(self, s: int) -> None:
+    def seal(self, s: int, seal_time: float | None = None) -> None:
         """OPEN → USED.  Paper §5.2.2: segment u_p2 = mean of its live
         items' u_p2 (frozen until the segment is cleaned)."""
         assert self.seg_state[s] == OPEN
         live = int(self.seg_live[s])
         self.seg_up2[s] = self.seg_up2sum[s] / live if live else self.u_now
-        self.seg_seal_time[s] = self.u_now
+        self.seg_seal_time[s] = self.u_now if seal_time is None else seal_time
         self.seg_state[s] = USED
         self.streams.clear_seg(s)
 
@@ -239,7 +293,8 @@ class LogStructureBase:
         self.seg_live[victims] = 0
         self.seg_up2sum[victims] = 0.0
         self.seg_stream[victims] = -1
-        self.free_list.extend(int(s) for s in victims)
+        if self._use_free_list:
+            self.free_list.extend(int(s) for s in victims)
 
     def fence(self, victims: np.ndarray) -> None:
         """→ FENCED: accounting has left the victims (their survivors were
@@ -267,7 +322,8 @@ class LogStructureBase:
 
     # -- death-stream routing -------------------------------------------------
     def _stream_death_sample(self) -> np.ndarray:
-        raise NotImplementedError
+        """Quantile sample for the stream cuts (default: recent appends)."""
+        return self.streams.sample()
 
     def refresh_stream_bounds(self) -> None:
         """Recompute the k-1 death-quantile cuts between streams."""
@@ -295,24 +351,31 @@ class LogStructureBase:
             return np.zeros(n, dtype=np.int64)
         deaths = _per_item(p.est_death, n)
         self.refresh_stream_bounds()
-        return (np.searchsorted(self.streams.bounds, deaths)
-                if len(self.streams.bounds) else np.zeros(n, dtype=np.int64))
+        out = (np.searchsorted(self.streams.bounds, deaths)
+               if len(self.streams.bounds) else np.zeros(n, dtype=np.int64))
+        self.streams.observe(deaths)
+        return out
 
-    def demote_streams(self, src_streams: np.ndarray, est_death,
-                       overdue: np.ndarray) -> np.ndarray:
-        """SepBIT's survivor inference, restricted to ``overdue`` items
-        (predicted death demonstrably passed): those step one stream colder.
-        Elsewhere ``est_death`` is a believed future clock and survival
-        carries no information, so the item re-routes by quantile with no
-        step; unknown sources (-1) route by ``est_death`` first."""
+    def demote_streams(self, src_streams: np.ndarray, est_death=None,
+                       overdue=None) -> np.ndarray:
+        """SepBIT's survivor inference: an item that survived a clean is
+        colder than its stream predicted, so it steps one stream colder;
+        unknown sources (-1) route by ``est_death`` first.
+
+        ``overdue`` restricts the inference to items whose predicted death
+        demonstrably passed (the KV pool's absolute death clocks): elsewhere
+        ``est_death`` is a believed future clock and survival carries no
+        information, so the item re-routes by quantile with no step.  The
+        snapshot store, whose every survival means the estimate was too
+        hot, omits it."""
         k = self.streams.k
         src = np.asarray(src_streams, dtype=np.int64)
         n = len(src)
         if k <= 1:
             return np.zeros(n, dtype=np.int64)
-        overdue = np.asarray(overdue, dtype=bool)
-        need_route = (src < 0) | ~overdue
-        if need_route.any():
+        need_route = ((src < 0) if overdue is None
+                      else (src < 0) | ~np.asarray(overdue, dtype=bool))
+        if est_death is not None and need_route.any():
             self.refresh_stream_bounds()
             deaths = _per_item(est_death, n)
             routed = (np.searchsorted(self.streams.bounds, deaths)
@@ -320,11 +383,16 @@ class LogStructureBase:
                       else np.zeros(n, dtype=np.int64))
             src = np.where(need_route, routed, src)
         stepped = np.minimum(np.maximum(src, 0) + 1, k - 1)
-        return np.where(overdue, stepped, np.clip(src, 0, k - 1))
+        if overdue is None:
+            return stepped
+        return np.where(np.asarray(overdue, dtype=bool), stepped,
+                        np.clip(src, 0, k - 1))
 
-    def _count_write(self, kind: str | None, n_items: int) -> None:
+    def _count_write(self, kind: str | None, n_items: int,
+                     n_bytes: int) -> None:
         if kind == "user":
             self.stats.user_writes += n_items
+            self.stats.user_bytes += n_bytes
         # kind "gc" moves are counted once, at evacuation
 
 
@@ -387,7 +455,8 @@ class FrameLog(LogStructureBase):
         self.seg_fill[s] = start + n
         self.seg_live[s] += n
         self.seg_up2sum[s] += float(np.sum(up2))
-        self._count_write(kind, n)
+        # a frame counts one byte unit, as the JAX pool's (frame_bytes 1)
+        self._count_write(kind, n, n)
         return np.arange(start, start + n)
 
     # -- routed multi-stream placement ---------------------------------------
@@ -564,6 +633,7 @@ class FrameLog(LogStructureBase):
         self.stats.sum_E_cleaned += float((1.0 - counts / self.S).sum())
         self.stats.cleaned_segments += len(victims)
         self.stats.gc_moves += len(items)
+        self.stats.gc_bytes += len(items)
         self.stats.cleanings += 1
         if fence:
             self.stats.gc_planned += len(items)
@@ -621,3 +691,313 @@ class FrameLog(LogStructureBase):
         # nothing live past the fill pointer
         past_fill = np.arange(self.S)[None, :] >= self.seg_fill[:, None]
         assert not (live_mask & past_fill).any(), "live frame past fill"
+
+
+class ByteLog(LogStructureBase):
+    """Variable-size-page mode (§4.4): byte-extent segments, ids never reused.
+
+    The frontend owns payload placement (file offsets); this class owns every
+    counter the lifecycle and the victim keys read: B (written), B−A (live
+    bytes), C (live chunks), u_p2 sums and the state machine."""
+
+    def __init__(self, *, clock: Clock | None = None, n_streams: int = 1):
+        super().__init__(0, clock=clock, use_free_list=False,
+                         n_streams=n_streams)
+        self.seg_written = np.zeros(0, dtype=np.int64)     # B
+        self.seg_live_bytes = np.zeros(0, dtype=np.int64)  # B - A
+        self.next_sid = 0
+
+    def _grow_to(self, n: int) -> None:
+        if n <= self.nseg:
+            return
+        cap = max(16, 2 * self.nseg, n)
+        grow = cap - self.nseg
+
+        def pad(a, fill=0):
+            return np.concatenate([a, np.full(grow, fill, dtype=a.dtype)])
+
+        self.seg_state = pad(self.seg_state, FREE)
+        self.seg_live = pad(self.seg_live)
+        self.seg_up2 = pad(self.seg_up2)
+        self.seg_up2sum = pad(self.seg_up2sum)
+        self.seg_seal_time = pad(self.seg_seal_time)
+        self.seg_stream = pad(self.seg_stream, -1)
+        self.seg_written = pad(self.seg_written)
+        self.seg_live_bytes = pad(self.seg_live_bytes)
+        self.nseg = cap
+
+    # -- lifecycle ------------------------------------------------------------
+    def alloc(self) -> int:
+        s = self.next_sid
+        self.next_sid += 1
+        self._grow_to(self.next_sid)
+        self.seg_state[s] = OPEN
+        return s
+
+    def seal(self, s: int, seal_time: float | None = None) -> None:
+        # the age policy orders by segment id: ids are monotone in seal order
+        # (one open segment at a time), and survive state reloads
+        super().seal(s, float(s) if seal_time is None else seal_time)
+
+    # -- writes / deaths ------------------------------------------------------
+    def open_stream(self, stream: int) -> tuple[int, bool]:
+        """OPEN segment id for ``stream`` (allocating one if none is open);
+        returns (sid, freshly_allocated).  The frontend owns the file."""
+        s = int(self.streams.open[stream])
+        if s >= 0:
+            return s, False
+        s = self.alloc()
+        self.streams.open[stream] = s
+        self.seg_stream[s] = stream
+        return s, True
+
+    def append_bytes(self, s: int, nbytes: int, up2,
+                     kind: str | None = "user") -> None:
+        """``up2`` is a :class:`Placement` (its ``kind`` wins) or a bare
+        float u_p2 tag."""
+        if isinstance(up2, Placement):
+            kind = up2.kind
+            up2 = float(up2.up2_values(1)[0])
+        assert self.seg_state[s] == OPEN
+        self.seg_written[s] += nbytes
+        self.seg_live_bytes[s] += nbytes
+        self.seg_live[s] += 1
+        self.seg_up2sum[s] += up2
+        self.stats.note_stream(max(int(self.seg_stream[s]), 0), 1, kind)
+        self._count_write(kind, 1, nbytes)
+
+    def kill_bytes(self, s: int, nbytes: int, up2: float,
+                   tick: bool = True) -> None:
+        """One chunk died (§5.2.2: the clock ticks once per death)."""
+        self.seg_live_bytes[s] -= nbytes
+        self.seg_live[s] -= 1
+        self.seg_up2sum[s] -= up2
+        self.stats.deaths += 1
+        if tick:
+            self.tick()
+
+    # -- cleaning -------------------------------------------------------------
+    def select_victims(self, policy: str, k: int,
+                       eligible: np.ndarray | None = None) -> np.ndarray:
+        n = self.next_sid
+        if eligible is None:
+            eligible = (self.seg_state[:n] == USED) & \
+                       (self.seg_live_bytes[:n] < self.seg_written[:n])
+        return P.select_victims_bytes(
+            policy, k, live_bytes=self.seg_live_bytes[:n],
+            written=self.seg_written[:n], n_chunks=self.seg_live[:n],
+            up2=self.seg_up2[:n], seal_time=self.seg_seal_time[:n],
+            u_now=self.u_now, eligible=eligible)
+
+    def evacuate_accounting(self, victims: np.ndarray) -> None:
+        """Account one clean cycle and free the victims.  The frontend reads
+        the victims' payload bytes *before* calling this, and re-appends the
+        survivors with ``kind="gc"`` (moves are counted here, once)."""
+        victims = np.asarray(victims, dtype=np.int64)
+        assert (self.seg_state[victims] == USED).all()
+        written = self.seg_written[victims].astype(np.float64)
+        live_b = self.seg_live_bytes[victims]
+        self.stats.sum_E_cleaned += float(
+            ((written - live_b) / np.maximum(written, 1.0)).sum())
+        self.stats.cleaned_segments += len(victims)
+        self.stats.gc_moves += int(self.seg_live[victims].sum())
+        self.stats.gc_bytes += int(live_b.sum())
+        self.stats.cleanings += 1
+        self.release(victims)
+
+    def release(self, victims: np.ndarray) -> None:
+        victims = np.asarray(victims, dtype=np.int64)
+        super().release(victims)
+        self.seg_written[victims] = 0
+        self.seg_live_bytes[victims] = 0
+
+    # -- persistence ----------------------------------------------------------
+    def restore_segment(self, sid: int, *, written: int, live_bytes: int,
+                        live_chunks: int, up2: float, up2_sum: float,
+                        sealed: bool, stream: int = -1) -> None:
+        """Rebuild one segment's accounting from persisted frontend state."""
+        self._grow_to(sid + 1)
+        self.next_sid = max(self.next_sid, sid + 1)
+        self.seg_state[sid] = USED if sealed else OPEN
+        self.seg_written[sid] = written
+        self.seg_live_bytes[sid] = live_bytes
+        self.seg_live[sid] = live_chunks
+        self.seg_up2[sid] = up2
+        self.seg_up2sum[sid] = up2_sum
+        self.seg_seal_time[sid] = float(sid)
+        self.seg_stream[sid] = stream
+        if not sealed and 0 <= stream < self.streams.k:
+            self.streams.open[stream] = sid
+
+
+class JournalLog:
+    """Durable append-only record journal, accounted by a :class:`ByteLog`.
+
+    The serving engine writes one small record per state transition
+    (submission, admission, emitted tokens, page alloc / release, compaction
+    moves, preemption, snapshot markers); recovery is snapshot + replay of
+    the surviving records (``serving.recovery``).  On-disk framing per
+    record, the JAX package's byte for byte::
+
+        [u32 length][u32 crc32(payload)][u64 seq][payload bytes]
+
+    * ``seq`` is globally monotone and survives reopen, so replay order and
+      snapshot cut-points are well defined after segments are reclaimed.
+    * On open, each segment file is scanned front to back; the first frame
+      whose length overruns the file or whose checksum mismatches marks a
+      torn tail, and the file is truncated there (a crash mid-append loses
+      at most the record being written, never a committed one).
+    * ``compact(before_seq)`` kills every record older than a snapshot
+      marker; sealed segment files whose records are all dead are deleted.
+      Journal truncation is ordinary log-structured reclamation with zero
+      relocation: cleaned segments are fully empty (E = 1), so the journal
+      adds nothing to write amplification.
+    """
+
+    _HDR = struct.Struct("<IIQ")
+
+    def __init__(self, root: str | os.PathLike, *,
+                 seg_bytes: int = 256 * 1024, fsync: bool = False):
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.seg_bytes = int(seg_bytes)
+        self.fsync = bool(fsync)
+        self.core = ByteLog()
+        # live record index: seq -> (sid, byte offset, framed size)
+        self._index: dict[int, tuple[int, int, int]] = {}
+        self.next_seq = 0
+        self.torn_bytes = 0          # bytes dropped by torn-tail truncation
+        self._cur_sid: int | None = None
+        self._fh = None
+        self._open_scan()
+
+    def _seg_path(self, sid: int) -> Path:
+        return self.root / f"journal_{sid:08d}.log"
+
+    def _scan_file(self, path: Path):
+        """Parse one segment file; returns ([(seq, off, size)], valid_prefix)."""
+        data = path.read_bytes()
+        off, recs = 0, []
+        while off + self._HDR.size <= len(data):
+            ln, crc, seq = self._HDR.unpack_from(data, off)
+            end = off + self._HDR.size + ln
+            if end > len(data):
+                break                      # torn: length overruns the file
+            if zlib.crc32(data[off + self._HDR.size:end]) != crc:
+                break                      # torn: checksum mismatch
+            recs.append((seq, off, end - off))
+            off = end
+        return recs, off
+
+    def _open_scan(self) -> None:
+        sids = sorted(int(p.stem.split("_")[1])
+                      for p in self.root.glob("journal_*.log"))
+        last = sids[-1] if sids else None
+        for sid in sids:
+            path = self._seg_path(sid)
+            recs, valid = self._scan_file(path)
+            size = path.stat().st_size
+            if valid < size:               # torn tail: truncate to last good
+                with open(path, "r+b") as f:
+                    f.truncate(valid)
+                self.torn_bytes += size - valid
+            for seq, off, rsize in recs:
+                self._index[seq] = (sid, off, rsize)
+                self.next_seq = max(self.next_seq, seq + 1)
+            # every surviving record is live until the owner compacts behind
+            # the last snapshot's cut-point
+            self.core.restore_segment(
+                sid, written=valid, live_bytes=sum(r[2] for r in recs),
+                live_chunks=len(recs), up2=0.0, up2_sum=0.0,
+                sealed=sid != last)
+        if last is not None:
+            self._cur_sid = last
+            self._fh = open(self._seg_path(last), "ab")
+
+    def _rotate(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self.core.seal(self._cur_sid)
+        self._cur_sid = self.core.alloc()
+        self._fh = open(self._seg_path(self._cur_sid), "ab")
+
+    def append(self, payload: bytes) -> int:
+        """Durably append one record; returns its seq."""
+        if self._fh is None or \
+                int(self.core.seg_written[self._cur_sid]) >= self.seg_bytes:
+            self._rotate()
+        seq = self.next_seq
+        frame = self._HDR.pack(len(payload), zlib.crc32(payload), seq) + payload
+        off = int(self.core.seg_written[self._cur_sid])
+        self._fh.write(frame)
+        self._fh.flush()
+        if self.fsync:
+            os.fsync(self._fh.fileno())
+        self.core.append_bytes(self._cur_sid, len(frame), 0.0, kind="user")
+        self._index[seq] = (self._cur_sid, off, len(frame))
+        self.next_seq = seq + 1
+        return seq
+
+    def append_record(self, obj: dict) -> int:
+        """JSON wrapper over :meth:`append` (the JAX engine's encoding)."""
+        return self.append(
+            json.dumps(obj, separators=(",", ":")).encode("utf-8"))
+
+    def records(self, start_seq: int = 0):
+        """(seq, payload bytes) of the live records, in seq order."""
+        by_sid: dict[int, list[tuple[int, int, int]]] = {}
+        for seq, (sid, off, size) in self._index.items():
+            if seq >= start_seq:
+                by_sid.setdefault(sid, []).append((seq, off, size))
+        out = []
+        if self._fh is not None:
+            self._fh.flush()
+        for sid, entries in by_sid.items():
+            data = self._seg_path(sid).read_bytes()
+            for seq, off, size in entries:
+                out.append((seq, data[off + self._HDR.size:off + size]))
+        out.sort()
+        return out
+
+    def iter_records(self, start_seq: int = 0):
+        """Yield (seq, decoded JSON record) in seq order."""
+        for seq, payload in self.records(start_seq):
+            yield seq, json.loads(payload.decode("utf-8"))
+
+    def compact(self, before_seq: int) -> int:
+        """Kill records with seq < before_seq (superseded by a snapshot) and
+        delete sealed segment files left fully dead.  Returns files deleted."""
+        dead = [s for s in self._index if s < before_seq]
+        for seq in dead:
+            sid, _, size = self._index.pop(seq)
+            self.core.kill_bytes(sid, size, 0.0, tick=False)
+        n = self.core.next_sid
+        empty = (self.core.seg_state[:n] == USED) & (self.core.seg_live[:n] == 0)
+        victims = np.nonzero(empty)[0]
+        if len(victims):
+            self.core.evacuate_accounting(victims)   # E = 1, zero moves
+            for sid in victims:
+                self._seg_path(int(sid)).unlink(missing_ok=True)
+        return len(victims)
+
+    def check_tail(self) -> None:
+        """Audit hook: the open segment re-parses cleanly end to end and the
+        last durable record's seq matches the in-memory cursor."""
+        if self._cur_sid is None:
+            assert not self._index, "live records with no segment open"
+            return
+        self._fh.flush()
+        path = self._seg_path(self._cur_sid)
+        recs, valid = self._scan_file(path)
+        assert valid == path.stat().st_size, "torn tail in open journal segment"
+        if recs:
+            assert recs[-1][0] == self.next_seq - 1, \
+                f"journal tail seq {recs[-1][0]} != cursor {self.next_seq - 1}"
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.flush()
+            if self.fsync:
+                os.fsync(self._fh.fileno())
+            self._fh.close()
+            self._fh = None

@@ -1,6 +1,7 @@
 """Cleaning priorities: the NumPy keys the KV pool's victim selection uses
-(f64, on the host), and their device twins on tensors (f32; the MDC key
-through the ``mdc_priority`` kernel on the card).
+(f64, on the host), their byte-accounted twins (the journal's and the
+snapshot store's segments), and their device twins on tensors (f32; the MDC
+key through the ``mdc_priority`` kernel on the card).
 
 Every policy is a *priority key* over segments; cleaning selects the ``k``
 segments with the **smallest** key.
@@ -56,6 +57,22 @@ def key_mdc(live: np.ndarray, S: int, up2: np.ndarray, u_now: float, **_) -> np.
     return np.where(C == 0, -1.0, decline)
 
 
+def key_mdc_bytes(live_bytes: np.ndarray, free_bytes: np.ndarray,
+                  n_chunks: np.ndarray, up2: np.ndarray,
+                  u_now: float) -> np.ndarray:
+    """Variable-size-page MDC (paper §4.4 / §5.1.3), smallest first:
+    -dCost/du ∝ ((B-A)/A)^2 · 1/(C·(u_now - u_p2)) with B-A = live bytes,
+    A = free (dead + unused) bytes, C = live chunk count.  The key of the
+    byte-accounted log (the journal's and the snapshot store's segments)."""
+    BA = live_bytes.astype(np.float64)
+    A = free_bytes.astype(np.float64)
+    C = np.maximum(n_chunks.astype(np.float64), 1.0)
+    interval = np.maximum(u_now - up2, 1.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        decline = np.where(A > 0, (BA / np.maximum(A, _EPS)) ** 2 / (C * interval), _INF)
+    return np.where(BA == 0, -1.0, decline)
+
+
 _KEYS = {
     "age": key_age,
     "greedy": key_greedy,
@@ -84,6 +101,27 @@ def select_victims(policy: str, k: int, *, live: np.ndarray, S: int,
     # Never pick segments with zero reclaimable space (E == 0): cleaning them
     # frees nothing (and MDC's decline is infinite there anyway).
     key = np.where(live >= S, _INF, key)
+    return _take_smallest(key, k)
+
+
+def select_victims_bytes(policy: str, k: int, *, live_bytes: np.ndarray,
+                         written: np.ndarray, n_chunks: np.ndarray,
+                         up2: np.ndarray, seal_time: np.ndarray,
+                         u_now: float, eligible: np.ndarray) -> np.ndarray:
+    """Variable-size-page victim selection (§4.4): the byte-accounted twin
+    of :func:`select_victims`, used by :class:`ByteLog`."""
+    if policy == "mdc":
+        key = key_mdc_bytes(live_bytes, written - live_bytes, n_chunks, up2,
+                            u_now)
+    elif policy == "greedy":
+        key = live_bytes / np.maximum(written, 1.0)
+    elif policy == "age":
+        key = seal_time.astype(np.float64)
+    else:
+        raise ValueError(f"unsupported byte-mode policy: {policy!r}")
+    key = np.where(eligible, key, _INF)
+    # E == 0 segments reclaim nothing: the fixed-size path's exclusion
+    key = np.where(live_bytes >= written, _INF, key)
     return _take_smallest(key, k)
 
 

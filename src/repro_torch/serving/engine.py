@@ -73,7 +73,28 @@ the main stream only by events (no host sync):
      flight and moves the rest on the main stream, as synchronous cleaning
      does.
 
-On the CPU the moves run inline, with the same host logic.
+On the CPU the moves run inline, with the same host logic.  On the card
+each move marks both pools as used by the side stream
+(``Tensor.record_stream``), so a pool freed while a move is still in flight
+(the engine dropped mid-window, as by a kill) keeps its memory until the
+move is done, instead of handing it to the next allocation on the main
+stream.
+
+Crash safety (``journal_dir=...``): the engine appends one small durable
+record per request-level state transition to a :class:`JournalLog` (a
+byte-accounted log-structured store): submissions, admissions, first and
+emitted tokens, finishes, page allocations and releases, compaction moves
+and their commits, preemptions and snapshot markers, in the JAX engine's
+encoding and order.  ``snapshot_every=k`` checkpoints the request-level
+session every k dispatches into a log-structured snapshot store and
+truncates the journal behind it.  ``serving.recovery.recover_engine``
+rebuilds a killed session from snapshot + replay: every live sequence
+re-prefills its prompt and re-decodes its emitted span, which reproduces
+its K/V and its tokens.  A :class:`FailureInjector` (``injector=...``)
+raises faults at the engine's named operations: a transient fault is
+retried up to ``fault_retries`` times, always *before* the operation
+starts (the port updates K/V and moves pages in place, so a retry is only
+sound from unchanged state), and one at a prefill unwinds the admission.
 
 Block tables, sequence lengths and last tokens live on the device between
 dispatches and are uploaded only when a host event dirtied them.  The host
@@ -99,8 +120,9 @@ import time
 import numpy as np
 import torch
 
-from ..core.logstructure import FENCED, Placement
+from ..core.logstructure import FENCED, JournalLog, Placement
 from ..device import resolve_device
+from ..distributed.fault import TransientFault, backoff_delay
 from ..kernels import ops
 from ..models import attention as att
 from ..models import transformer as tfm
@@ -149,7 +171,10 @@ class PagedServingEngine:
                  shed_queue_depth: int = 0, prefill_chunk: int = 0,
                  admit_every_dispatch: bool = True,
                  async_compaction: bool = False, clean_budget: int = 0,
-                 audit_every: int = 0, device=None):
+                 audit_every: int = 0, journal_dir=None,
+                 snapshot_every: int = 0, injector=None,
+                 fault_retries: int = 2, fault_backoff_s: float = 0.0,
+                 journal_fsync: bool = False, device=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
@@ -274,9 +299,52 @@ class PagedServingEngine:
         self._tpot_ewma = 0.05        # s/token (host clock), seeds the hint
         self.dispatches = 0
         self._next_rid = 0
+        # --- crash safety: the session journal, snapshots, fault injection
+        self.journal = (JournalLog(journal_dir, fsync=journal_fsync)
+                        if journal_dir else None)
+        self.snapshot_every = snapshot_every
+        self.injector = injector
+        self.fault_retries = fault_retries
+        self.fault_backoff_s = fault_backoff_s
+        self.fault_retries_done = 0   # transient faults cleared by retry
+        self.fault_unwinds = 0        # admissions unwound by a fault
+        self.recovery: dict | None = None   # set by recovery.recover_engine
+        self._snap_id = 0
+        self._snap_store = None       # the snapshot store, opened lazily
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # ----------------------------------------------- crash safety plumbing
+    def _jrec(self, rec: dict) -> int | None:
+        """Append one record to the session journal (no-op when off).  An
+        append goes through the retry path like a device op: a transient
+        fault is retried, a hard one ends the engine (better than serving
+        unjournaled state)."""
+        if self.journal is None:
+            return None
+        return self._with_retries(
+            "journal", lambda: self.journal.append_record(rec))
+
+    def _with_retries(self, op: str, fn):
+        """Run ``fn`` with fault injection keyed by ``op`` and bounded
+        retry with backoff for :class:`TransientFault`.  The injector fires
+        *before* ``fn`` starts, so a failed attempt has written nothing (no
+        K/V, no page, no device mirror) and the retry starts from the same
+        state."""
+        for attempt in range(self.fault_retries + 1):
+            try:
+                if self.injector is not None:
+                    self.injector.check(self.dispatches, op=op)
+                return fn()
+            except TransientFault:
+                if attempt == self.fault_retries:
+                    raise
+                self.fault_retries_done += 1
+                delay = backoff_delay(attempt, base_s=self.fault_backoff_s)
+                if delay > 0.0:
+                    time.sleep(delay)
+        raise AssertionError("unreachable")
 
     # ------------------------------------------------------------- requests
     def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
@@ -298,6 +366,9 @@ class PagedServingEngine:
         self._next_rid += 1
         self.queue.append(Request(rid, np.asarray(prompt, np.int32),
                                   max_new_tokens))
+        self._jrec({"t": "sub", "rid": rid,
+                    "p": [int(t) for t in np.asarray(prompt)],
+                    "n": int(max_new_tokens)})
         return rid
 
     def slot_active(self, i: int) -> bool:
@@ -419,7 +490,15 @@ class PagedServingEngine:
                 self._admit_stalled = True
                 break
             q.popleft()
-            self._start(int(i), req, from_resume=q is self._resume)
+            try:
+                self._start(int(i), req, from_resume=q is self._resume)
+            except TransientFault:
+                # transactional admission: _start gave back the page
+                # references it took; the request goes back to the head of
+                # its queue and is retried at the next step()
+                self.fault_unwinds += 1
+                q.appendleft(req)
+                break
             started.append(int(i))
 
     def _preempt_for(self, deficit: int, *, keep=(),
@@ -521,12 +600,30 @@ class PagedServingEngine:
         self.bt[i, n_shared:n_pages] = pages_new
         self.npages[i] = n_pages
 
+        # the prefill's fault point, before any device write: unwinding is
+        # host bookkeeping only (drop every reference this admission took;
+        # shared prefix pages survive for their other holders)
+        if self.injector is not None:
+            try:
+                self.injector.check(self.dispatches, op="prefill")
+            except BaseException:
+                self.pool.free_pages(self.bt[i, :n_pages].astype(np.int64))
+                self.bt[i, :] = self.trash_page
+                self.npages[i] = 0
+                self._bt_dirty = True
+                raise
+
         if from_resume:
             self.resumes += 1
         if resume:  # prompt re-prefilled + consumed output tokens re-decoded
             self.recomputed_tokens += plen + req.out_n - 1
         self._prefill_tokens_total += plen
         self._prefill_tokens_saved += n_shared * T
+        # admission record: replay resumes the request before fresh queue
+        # entries; slot and pages are forensic (placement is rebuilt)
+        self._jrec({"t": "adm", "rid": req.rid, "slot": int(i),
+                    "res": int(resume), "shr": int(n_shared),
+                    "pg": [int(p) for p in pages_new]})
         if self.prefill_chunk:
             # step() feeds the prompt one chunk per fused dispatch
             self._start_chunked(i, req, n_pages, n_shared, est)
@@ -595,6 +692,11 @@ class PagedServingEngine:
             self._jskip[i] = 0
         self._out[i][0] = first_tok
         self._out_n[i] = 1
+        if not resume:
+            # journaled before any finish this token causes; a resume's
+            # first token was journaled by its original start
+            self._jrec({"t": "first", "rid": int(self.rid[i]),
+                        "tok": int(first_tok)})
         self._state_dirty = True
         if self.to_gen[i] <= 0 or (not resume and self.stop_token is not None
                                    and first_tok == self.stop_token):
@@ -717,6 +819,8 @@ class PagedServingEngine:
         if self._pf is not None and self._pf["slot"] == i:
             self._pf = None
         self._prefilling[i] = False
+        self._jrec({"t": "rel", "rid": int(self.rid[i]),
+                    "pg": [int(p) for p in self.slot_pages(i)]})
         self.pool.free_pages(self.slot_pages(i).astype(np.int64))
         self.bt[i, :] = self.trash_page
         self.rid[i] = -1
@@ -732,6 +836,7 @@ class PagedServingEngine:
         rid = int(self.rid[i])
         self.finished[rid] = self._out[i][:self._out_n[i]].tolist()
         self.length_predictor.observe(int(self._out_n[i]))
+        self._jrec({"t": "fin", "rid": rid})
         self._release_slot(i)
 
     def _preempt(self, i: int) -> None:
@@ -740,6 +845,7 @@ class PagedServingEngine:
         ``_admit`` serves first; the resume re-prefills the prompt and
         re-decodes the emitted span."""
         self.preemptions += 1
+        self._jrec({"t": "pre", "rid": int(self.rid[i])})
         # a slot preempted mid-replay (out_n < _jskip) still knows the whole
         # emitted span: the carried buffer holds it past out_n
         self._resume.append(Request(
@@ -869,19 +975,29 @@ class PagedServingEngine:
             self.bt[growing, self.npages[growing]] = pages
             self.npages[growing] += 1
             self._bt_dirty = True
+            self._jrec({"t": "al", "r": self.rid[growing].tolist(),
+                        "pg": pages.tolist()})
 
         n = self._event_horizon(active)
         self._sync_device()
         pf = self._pf
-        # the chunk's gather reads the pool before the decode writes it; the
-        # two touch disjoint pages (the prefilling slot decodes nothing)
-        first = self._prefill_chunk(pf) if pf is not None else None
         act = np.flatnonzero(active)
-        reads = [self._decode(n).reshape(-1)] if act.size else []
-        if first is not None:
-            reads.append(first)
+
+        def dispatch():
+            # the chunk's gather reads the pool before the decode writes it;
+            # the two touch disjoint pages (the prefilling slot decodes
+            # nothing)
+            first = self._prefill_chunk(pf) if pf is not None else None
+            reads = [self._decode(n).reshape(-1)] if act.size else []
+            if first is not None:
+                reads.append(first)
+            return reads, first
+
+        reads, first = self._with_retries("dispatch", dispatch)
         # the one host sync: decode tokens and the chunk's first token
-        host = torch.cat(reads).cpu().numpy() if reads else None
+        host = self._with_retries(
+            "host_sync",
+            lambda: torch.cat(reads).cpu().numpy() if reads else None)
         if pf is not None:
             pf["pos"] += self.prefill_chunk
             self.lens[pf["slot"]] = min(pf["pos"], pf["plen"])
@@ -906,6 +1022,20 @@ class PagedServingEngine:
             self.lens[i] += e            # matches the device: seq_lens froze
             self.to_gen[i] -= e          # with the active mask at the stop
             self.tokens[i] = int(toks[e - 1, i])
+        # the emitted tokens are journaled before any finish below (replay
+        # must never see a finish whose tokens were lost).  A resumed slot's
+        # re-decoded span (indices < _jskip) was journaled by its original
+        # run and is sliced off: replay appends emits blindly
+        if act.size:
+            spans = []
+            for i in act:
+                e = int(emitted[i])
+                b = int(self._out_n[i]) - e
+                s = max(b, int(self._jskip[i]))
+                spans.append([int(t) for t in self._out[i][s:b + e]])
+            if any(spans):
+                self._jrec({"t": "emit", "r": [int(self.rid[i]) for i in act],
+                            "k": spans})
         for i in act:
             if stopped[i] or self.to_gen[i] <= 0:
                 done.append(int(self.rid[i]))
@@ -918,6 +1048,9 @@ class PagedServingEngine:
         if tot > 0:   # decode-rate EWMA feeds the shed retry-after hint
             dt = time.perf_counter() - t0
             self._tpot_ewma = 0.8 * self._tpot_ewma + 0.2 * (dt / tot)
+        if (self.journal is not None and self.snapshot_every
+                and self.dispatches % self.snapshot_every == 0):
+            self.snapshot()
         if self.audit_every and self.dispatches % self.audit_every == 0:
             self.audit()
         return done
@@ -930,19 +1063,29 @@ class PagedServingEngine:
         return self.finished
 
     # ----------------------------------------------------------- compaction
-    def _move_plan(self, plan) -> None:
+    def _move_plan(self, plan, *, live: bool = False) -> None:
         """Compaction data path: pool[:, dst] = pool[:, src] for K and V.
 
         ``ops.segment_move`` moves both pools in one launch, or, when a
         survivor is placed into a page that the same plan frees (src/dst
         overlap), gathers every source into a buffer before it scatters, so
-        each destination receives the old content."""
+        each destination receives the old content.  The ``mv`` record is
+        the plan as planned (the JAX engine's record); with ``live`` (an
+        async sub-plan) only its blocks still alive move (``_live_moves``).
+        The pool's accounting already placed the survivors, so the move
+        cannot be abandoned: a transient fault retries it, before it
+        starts."""
+        self._jrec({"t": "mv", "src": plan.src_pages.tolist(),
+                    "dst": plan.dst_pages.tolist()})
+        if live:
+            plan = self._live_moves(plan)
         src = np.asarray(plan.src_pages, np.int64)
         dst = np.asarray(plan.dst_pages, np.int64)
         if ((src < 0) | (src >= self.trash_page)).any() or \
                 ((dst < 0) | (dst >= self.trash_page)).any():
             raise AssertionError("compaction plan outside the pool's pages")
-        ops.segment_move((self.k_pools, self.v_pools), src, dst)
+        self._with_retries("compaction", lambda: ops.segment_move(
+            (self.k_pools, self.v_pools), src, dst))
 
     def _apply_remap(self, plan) -> None:
         """Remap block tables: one vectorized page-id lookup over the
@@ -987,15 +1130,20 @@ class PagedServingEngine:
         """Move one sub-plan.  On the card it goes to the side stream after
         everything the main stream has queued (whose writes it reads), and
         records the event its commit waits on; a staged plan's buffer is
-        allocated there, tied to that stream.  On the CPU it moves inline."""
+        allocated there, tied to that stream.  Both pools are marked as used
+        by the side stream: the caching allocator then keeps their memory
+        from any other stream until the move is done, also when the engine
+        is dropped with the move in flight.  On the CPU it moves inline."""
         if self._side is None:
-            self._move_plan(self._live_moves(plan))
+            self._move_plan(plan, live=True)
             return
         self._side.wait_stream(torch.cuda.current_stream(self.device))
+        self.k_pools.record_stream(self._side)
+        self.v_pools.record_stream(self._side)
         with torch.cuda.stream(self._side):
             if self.before_side_move is not None:
                 self.before_side_move()
-            self._move_plan(self._live_moves(plan))
+            self._move_plan(plan, live=True)
             event = torch.cuda.Event()
             event.record()
         self._move_events[id(plan)] = event
@@ -1009,6 +1157,10 @@ class PagedServingEngine:
             self._main_wait(event)
         if len(plan):
             self._apply_remap(plan)
+            # forensic: a kill between "mv" and "mvc" recovers by replay,
+            # which rebuilds placement from scratch
+            self._jrec({"t": "mvc", "src": plan.src_pages.tolist(),
+                        "dst": plan.dst_pages.tolist()})
         self.pool.commit_plan(plan)
         self.sub_plans += 1
 
@@ -1088,7 +1240,7 @@ class PagedServingEngine:
         self._commit_inflight()
         while self.pool.pending_plans:
             plan = self.pool.pending_plans.pop(0)
-            self._move_plan(self._live_moves(plan))
+            self._move_plan(plan, live=True)
             self._commit_plan(plan)
 
     def _on_dead_destination(self, pages: np.ndarray) -> None:
@@ -1111,7 +1263,8 @@ class PagedServingEngine:
         each page's count is the number of block-table rows holding it plus
         one if the prefix tree caches it (no leak, no double free), read
         through the pending-move LUT across an async window; then the
-        fenced cross-checks and each slot's length and output ledgers."""
+        fenced cross-checks, each slot's length and output ledgers and,
+        when journaling, that the journal's tail is whole and durable."""
         pool = self.pool
         pool.check_invariants()
         if self.prefix_cache is not None:
@@ -1138,6 +1291,8 @@ class PagedServingEngine:
                     f"slot {i}: lens ledger broken"
                 assert self.to_gen[i] == len(self._out[i]) - self._out_n[i], \
                     f"slot {i}: to_gen ledger broken"
+        if self.journal is not None:
+            self.journal.check_tail()
 
     def _audit_fenced(self) -> None:
         """A FENCED slab is a victim whose moves are planned or in flight:
@@ -1172,6 +1327,60 @@ class PagedServingEngine:
             assert not np.isin(plan.dst_pages // S, fenced).any(), \
                 "uncommitted plan destination inside a fenced slab"
 
+    # ------------------------------------------------------- crash safety
+    def session_state(self) -> dict:
+        """JSON-able view of the *request-level* session, the JAX engine's
+        schema: what recovery restores.  Device state (K/V pages) is absent:
+        a live sequence re-prefills its prompt and re-decodes its emitted
+        span on the resume path instead."""
+        def entry(rid, prompt, max_new, out, out_n):
+            return {"rid": int(rid), "prompt": [int(t) for t in prompt],
+                    "max_new": int(max_new),
+                    "out": ([int(t) for t in out[:out_n]]
+                            if out is not None else [])}
+
+        # a slot mid-replay (out_n < _jskip) knows more tokens than it has
+        # re-decoded: the snapshot keeps the whole journaled span, since the
+        # emit records after it cover only indices >= _jskip
+        live = sorted(
+            (entry(self.rid[i], self._prompt[i],
+                   int(self._out_n[i]) + int(self.to_gen[i]),
+                   self._out[i],
+                   int(max(self._out_n[i], self._jskip[i])))
+             for i in np.flatnonzero(self.rid >= 0)),
+            key=lambda e: e["rid"])
+        return {
+            "live": live,
+            "resume": [entry(r.rid, r.prompt, r.max_new_tokens, r.out,
+                             r.out_n) for r in self._resume],
+            "queue": [entry(r.rid, r.prompt, r.max_new_tokens, r.out,
+                            r.out_n) for r in self.queue],
+            "finished": {str(k): v for k, v in self.finished.items()},
+            "next_rid": self._next_rid,
+            "predictor": {
+                "kind": self.length_predictor.name,
+                "value": getattr(self.length_predictor, "value", None),
+                "n_obs": int(getattr(self.length_predictor, "n_obs", 0))},
+            "counters": {
+                "preemptions": self.preemptions, "resumes": self.resumes,
+                "recomputed_tokens": self.recomputed_tokens,
+                "dispatches": self.dispatches,
+                "shed_count": self.shed_count,
+                "prefill_chunks_dispatched": self.prefill_chunks_dispatched,
+                "prefill_tokens_total": self._prefill_tokens_total,
+                "prefill_tokens_saved": self._prefill_tokens_saved},
+            "pool_stats": dataclasses.asdict(self.pool.stats),
+            "u_now": float(self.pool.u_now),
+            "prefix_tree": (self.prefix_cache.tree_state()
+                            if self.prefix_cache is not None else []),
+        }
+
+    def snapshot(self) -> int:
+        """Checkpoint the session through the snapshot store and truncate
+        the journal behind it (recovery = snapshot + bounded replay)."""
+        from . import recovery  # deferred: recovery imports this module
+        return recovery.snapshot(self)
+
     # ------------------------------------------------------------- metrics
     def metrics(self) -> dict:
         st = self.pool.stats
@@ -1197,6 +1406,16 @@ class PagedServingEngine:
         }
         if self.shed_queue_depth:
             m["shed_count"] = self.shed_count
+        if self.injector is not None:
+            m["fault_retries"] = self.fault_retries_done
+            m["fault_unwinds"] = self.fault_unwinds
+        if self.journal is not None:
+            js = self.journal.core.stats
+            m["journal_records"] = self.journal.next_seq
+            m["journal_bytes"] = js.user_bytes
+            m["journal_wamp"] = js.wamp()   # stays 0: truncation moves nothing
+        if self.recovery is not None:
+            m["recovery"] = dict(self.recovery)
         if self.prefill_chunk:
             m["prefill_chunks_dispatched"] = self.prefill_chunks_dispatched
         if self.async_compaction:

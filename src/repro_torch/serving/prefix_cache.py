@@ -1,7 +1,6 @@
 """Shared-prefix KV reuse: a refcounted radix tree over the pool's pages.
 
-A copy of the JAX package's prefix cache, without its persistence view
-(its tree state for crash-recovery snapshots comes with crash safety).
+A copy of the JAX package's prefix cache.
 
 Serving traffic at scale shares prompt prefixes — system prompts, few-shot
 templates, conversation history.  Recomputing the shared prefix's KV for
@@ -240,6 +239,26 @@ class PrefixCache:
         return [n.page for n in self.root.depth_first() if n is not self.root]
 
     # -------------------------------------------------------------- metrics
+    def tree_state(self) -> list[dict]:
+        """Serializable view of the radix tree, one entry per cached page
+        with its full token path, in the JAX tree's order: it goes into the
+        session snapshot.  Page *contents* live on the device and are not
+        persisted, so a recovered engine starts with an empty tree and
+        re-warms it as its sequences re-prefill; the view records which
+        prefixes were warm (forensics)."""
+        out: list[dict] = []
+
+        def rec(node, prefix):
+            for key, c in node.children.items():
+                path = prefix + list(key)
+                out.append({"tokens": [int(t) for t in path],
+                            "page": int(c.page),
+                            "last_use": int(c.last_use)})
+                rec(c, path)
+
+        rec(self.root, [])
+        return out
+
     def hit_rate(self) -> float:
         return self.hits / max(self.lookups, 1)
 

@@ -833,3 +833,139 @@ def test_async_adds_no_host_sync(dev):
             assert eng.pool.stats.gc_committed > 0 and pump
             assert sum(s for s, _ in pump) == 0
     assert 0 < per_step["async"] <= per_step["sync"], (per_step, calls)
+
+
+# ------------------------------------------------- crash safety on the card
+
+def test_dropped_engine_keeps_pools_until_the_side_move_is_done(dev):
+    """A sub-plan is launched on the side stream, held back ~0.5 s there by a
+    device spin, and the engine is dropped at once.  The pools were
+    allocated on the main stream: without ``record_stream`` the caching
+    allocator hands their memory straight to the next allocations there,
+    and the late move writes into them.  Two tensors of the pools' size,
+    allocated and filled on the main stream right after the drop, must
+    still hold what was written once everything has run.  The fill is a
+    distinct value per element, not zeros: the move copies pages within
+    the same memory, so over zeros it would copy zeros.  Full-width heads
+    and layers at f32 make each pool its own allocator segment (over
+    10 MB), which the next allocation of that size takes when it is free."""
+    import gc
+    cfg = get_config("qwen3-1.7b")
+    params = _cast(Model(cfg, device=dev, seed=0).params, dev, torch.float32)
+    eng = PagedServingEngine(Model(cfg, params), pool_dtype=torch.float32,
+                             device=dev, async_compaction=True,
+                             **{**ASYNC_KW, "audit_every": 0})
+    assert eng.k_pools.numel() * eng.k_pools.element_size() > 10 << 20
+    for p, n in _async_requests(cfg.vocab_size):
+        eng.submit(p, n)
+    # a step boundary with a planned sub-plan whose blocks are still alive
+    # (a block that died since its planning is not moved)
+    while eng.has_work() and not any(len(eng._live_moves(p))
+                                     for p in eng.pool.pending_plans):
+        eng.step()
+    shape, dtype = eng.k_pools.shape, eng.k_pools.dtype
+    n = int(np.prod(shape))
+    assert n < 1 << 24            # every value exact in f32
+    want = torch.arange(n, dtype=dtype, device=dev).view(shape)
+    torch.cuda.synchronize()      # (the fill's kernel is loaded by now)
+    eng.before_side_move = lambda: torch.cuda._sleep(10 * SLEEP_CYCLES)
+    eng._pump_compaction()          # the start of a step: the moves launch
+    assert any(len(eng._live_moves(p)) for p in eng._inflight_plans), \
+        "no move in flight to drop the engine on"
+    eng = None                      # the drop (its reference cycles below)
+    gc.collect()
+    fresh = [torch.arange(n, dtype=dtype, device=dev).view(shape)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, want) for t in fresh)
+
+
+def test_journal_and_snapshots_add_no_host_sync(dev):
+    """A journaled engine (a snapshot every 2 dispatches) makes exactly the
+    synchronising calls of an unjournaled one, step for step: records and
+    snapshots are host bookkeeping only."""
+    import tempfile
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, dev)
+    _serve_all(PagedServingEngine(Model(cfg, params), pool_dtype=torch.float32,
+                                  device=dev, **ASYNC_KW),
+               _async_requests(cfg.vocab_size))   # lazy initialisation
+    calls, inner = {}, {}
+    for mode in ("plain", "journal"):
+        with tempfile.TemporaryDirectory() as d:
+            kw = dict(journal_dir=d, snapshot_every=2) if mode == "journal" \
+                else {}
+            eng = PagedServingEngine(Model(cfg, params), pool_dtype=torch.float32,
+                                     device=dev, **ASYNC_KW, **kw)
+            steps, books = [], []
+            eng.step = _count_syncs(eng.step, steps)
+            eng._jrec = _count_syncs(eng._jrec, books)
+            eng.snapshot = _count_syncs(eng.snapshot, books)
+            _serve_all(eng, _async_requests(cfg.vocab_size))
+            calls[mode] = [s for s, _ in steps]
+            inner[mode] = books
+            if mode == "journal":
+                assert eng._snap_id >= 2 and eng.journal.next_seq > 0
+    assert calls["journal"] == calls["plain"]
+    assert inner["journal"] and sum(s for s, _ in inner["journal"]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_recovery_on_card_gives_the_unkilled_tokens(dev, dtype, tmp_path):
+    """Smoke width on the card: the engine journals (a snapshot every 2
+    dispatches); a recovery from a clone of the journal taken at every
+    third record boundary, on the card, drains to the unkilled run's tokens
+    and re-runs the prefill and decode kernels."""
+    import json
+    import shutil
+    from repro_torch.serving import recover_engine
+    cfg = get_config("qwen3-1.7b").smoke()
+    model = Model(cfg, _cast(Model(cfg, device="cpu", seed=0).params, dev,
+                             dtype))
+    kw = dict(ASYNC_KW, pool_dtype=dtype, device=dev)
+    reqs = _async_requests(cfg.vocab_size)
+    eng = PagedServingEngine(model, journal_dir=tmp_path / "j",
+                             snapshot_every=2, **kw)
+    cuts, append = [], eng.journal.append
+
+    def hooked(payload):
+        seq = append(payload)
+        if seq % 3 == 2:
+            shutil.copytree(tmp_path / "j", tmp_path / f"cut{seq}")
+            cuts.append((seq, json.loads(payload)))
+        return seq
+
+    eng.journal.append = hooked
+    want, _ = _serve_all(eng, reqs)
+    assert eng.pool.stats.compactions >= 1
+    n_sub = 0
+    for seq, rec in cuts:
+        n_sub = sum(1 for r in _journal_records(tmp_path / f"cut{seq}")
+                    if r["t"] == "sub")
+        ops.reset_launches()
+        reng, rep = recover_engine(model, tmp_path / f"cut{seq}", **kw)
+        reng.run_to_completion()
+        reng.audit()
+        assert {r: reng.finished.get(r) for r in range(n_sub)} == \
+            {r: want[r] for r in range(n_sub)}, f"cut at record {seq}"
+        if rep["sequences_resumed"]:
+            assert ops.launches["flash_attention"] > 0
+            assert ops.launches["paged_attention"] > 0
+    assert n_sub == len(reqs)
+
+
+def _journal_records(d):
+    """Every record in a journal directory's files, in order (the ones a
+    snapshot compacted away included, while their file survives)."""
+    import json
+    import struct
+    from pathlib import Path
+    hdr = struct.Struct("<IIQ")
+    out = []
+    for f in sorted(Path(d).glob("journal_*.log")):
+        data, off = f.read_bytes(), 0
+        while off + hdr.size <= len(data):
+            ln = hdr.unpack_from(data, off)[0]
+            out.append(json.loads(data[off + hdr.size:off + hdr.size + ln]))
+            off += hdr.size + ln
+    return out
