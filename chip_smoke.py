@@ -125,7 +125,28 @@ Phases, in order; any failure raises and the process exits non-zero:
              Reported per cut: ``load_session`` ms and the time to recover
              (from ``recover_engine`` until every resumed sequence has
              re-derived its journaled span).
-             Each of the last five phases zeroes the launch counters before
+12. serve  — observability and the serving CLI, in three legs.  (a) The
+             engine phase's 32 requests and pool with a tracer, the phase
+             split, death calibration and a metrics row every
+             ``SERVE_METRICS_EVERY`` dispatches (files under
+             ``build/serve/``): bf16 tokens equal to the engine phase's in 32
+             of 32, its compactions, blocks moved and Wamp, a Chrome trace
+             that passes the schema check of ``tests/test_obs.py`` with the
+             engine's event names, ``phase_report()`` counting every
+             dispatch, >= 2 metric rows, deaths calibrated, and all three
+             engine kernels launched; reported: wall beside the engine
+             phase's (the cost of observability, host noise included),
+             events and drops, the dispatch wall's p50 / p99 and mean per
+             phase, compaction's share of the p99 tail, the misroute rate.
+             (b) The same requests through ``launch.serve._open_loop`` at
+             ``SERVE_ARRIVAL_RATE`` requests/s (Poisson, seed 0) on a fresh
+             engine: every request's token count, pool invariants, flash and
+             paged attention launched; reported: TTFT, queue wait and TPOT
+             p50 / p99, tokens/s, compactions and the phase split.  (c) The
+             CLI, ``launch.serve.main()``, at its default smoke width on the
+             card with tracing, the phase log, metrics and calibration: both
+             policies ran, every row has tokens, the trace files exist.
+             Each of the last six phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
@@ -134,8 +155,11 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -154,10 +178,12 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import policies  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serving import PagedServingEngine, recover_engine  # noqa: E402
 from repro_torch.serving import recovery  # noqa: E402
 from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
@@ -241,6 +267,18 @@ RECOVERY_REHEARSED = {
 # the async-window kill: the first step boundary with a move in flight from
 # this dispatch on
 RECOVERY_ASYNC_FROM = 40
+# the serve phase: a metrics row every this many dispatches (18 in the
+# engine phase's 146), and the open loop's arrival rate, at or below what
+# the closed loop sustained on every recorded run (32 requests in 14.8-29.6
+# s: 1.08-2.16 requests/s), so the leg measures latency, not a queue that
+# grows without bound
+SERVE_METRICS_EVERY = 8
+SERVE_ARRIVAL_RATE = 1.0
+SERVE_EVENTS = {"step", "dispatch", "host_sync", "pool", "req", "req.admit",
+                "seg.open", "seg.seal", "seg.evacuate"}
+SERVE_CLI_ARGS = ["--requests", "8", "--policies", "mdc", "greedy",
+                  "--arrival-rate", "4", "--phase-log", "--metrics-every", "2",
+                  "--calibration"]
 
 
 def emit(obj) -> None:
@@ -1382,6 +1420,187 @@ def phase_recovery(cfg, mono) -> dict:
     return launches
 
 
+def check_chrome_trace(doc: dict) -> None:
+    """The schema check of ``tests/test_obs.py::_check_chrome_trace``: the
+    invariants Perfetto and chrome://tracing rely on."""
+    assert set(doc) >= {"traceEvents", "displayTimeUnit"}
+    stacks: dict[tuple, list] = {}
+    for ev in doc["traceEvents"]:
+        assert ev["ph"] in "BEiCbne", ev
+        assert isinstance(ev["pid"], int) and isinstance(ev["tid"], int)
+        assert isinstance(ev["name"], str) and ev["name"]
+        assert isinstance(ev["ts"], (int, float)) and ev["ts"] >= 0
+        if ev["ph"] in "bne":   # async events need an id to form a track
+            assert "id" in ev, ev
+        lane = (ev["pid"], ev["tid"])
+        if ev["ph"] == "B":
+            stacks.setdefault(lane, []).append(ev["name"])
+        elif ev["ph"] == "E":
+            assert stacks.get(lane), f"E without open B on {lane}: {ev}"
+            assert stacks[lane].pop() == ev["name"], \
+                f"span close out of order on {lane}: {ev}"
+    assert all(not s for s in stacks.values()), f"unclosed spans: {stacks}"
+    json.dumps(doc)   # exported document must round-trip as plain JSON
+
+
+def phase_split(report: dict) -> dict:
+    """The dispatch wall's percentiles and per-phase means (ms) of a
+    ``phase_report()``, and compaction's share of the p99 tail."""
+    return {k: report[k] for k in ("dispatches", "p50_ms", "p99_ms",
+                                   "phase_mean_ms", "compaction_share_p99",
+                                   "compaction_share_total")}
+
+
+def phase_serve(cfg, mono, smi) -> dict:
+    """Observability and the serving CLI on the card: the instrumented
+    closed loop, the open loop and the CLI (see the module's docstring).
+    Every check is made before any fails, and the phase's line names each
+    failure."""
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "serve"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    prompts, news = engine_requests(cfg.vocab_size)
+    reqs = [(p, int(n)) for p, n in zip(prompts, news)]
+    failures, launches = [], {k: 0 for k in KERNELS}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    model = Model(cfg, device="cuda", seed=SEED)
+
+    # a. the engine phase's run, instrumented
+    tracer, held = Tracer(capacity=1 << 18), {}
+    run = serve(model, reqs, setup=lambda eng: held.update(eng=eng),
+                tracer=tracer, phase_log=True, calibration=True,
+                metrics_every=SERVE_METRICS_EVERY,
+                metrics_sink=out / "metrics.jsonl")
+    add(run["launches"])
+    eng = held.pop("eng")
+    eng._metrics_logger.close()
+    m, mm = run["metrics"], mono["metrics"]
+    diff = [i for i, (a, b) in enumerate(zip(run["tokens"], mono["tokens"]))
+            if a != b]
+    if diff:
+        failures.append(f"traced run: tokens differ from the engine phase's "
+                        f"in requests {diff}")
+    counters = ("compactions", "blocks_moved", "wamp")
+    if {k: m[k] for k in counters} != {k: mm[k] for k in counters}:
+        failures.append(f"traced run: {({k: m[k] for k in counters})} is not "
+                        f"the engine phase's {({k: mm[k] for k in counters})}")
+    doc = tracer.export(out / "trace.json")
+    try:
+        check_chrome_trace(doc)
+    except AssertionError as e:
+        failures.append(f"trace schema: {e}")
+    names = {e["name"] for e in doc["traceEvents"]}
+    if not SERVE_EVENTS <= names:
+        failures.append(f"trace lacks {sorted(SERVE_EVENTS - names)}")
+    pr = eng.phase_report()
+    if pr["dispatches"] != m["dispatches"]:
+        failures.append(f"phase_report counts {pr['dispatches']} dispatches, "
+                        f"metrics() {m['dispatches']}")
+    rows = (out / "metrics.jsonl").read_text().splitlines()
+    if len(rows) < 2:
+        failures.append(f"{len(rows)} metric rows")
+    cal = eng.calibration.report()
+    if cal["deaths"] <= 0:
+        failures.append("no death calibrated")
+    missing = [k for k in ENGINE_KERNELS if run["launches"][k] == 0]
+    if missing:
+        failures.append(f"traced run never launched {missing}")
+    gen = sum(len(t) for t in run["tokens"])
+    traced = {"tokens_equal": not diff, **{k: m[k] for k in counters},
+              "wall_s": run["wall_s"], "tokens_per_s": gen / run["wall_s"],
+              "engine_phase_wall_s": mono["wall_s"],
+              "engine_phase_tokens_per_s": gen / mono["wall_s"],
+              "wall_over_engine_phase": run["wall_s"] / mono["wall_s"],
+              "events": len(tracer), "dropped_events": tracer.dropped,
+              "event_counts": {n: sum(e["name"] == n for e in doc["traceEvents"])
+                               for n in sorted(SERVE_EVENTS)},
+              "phase_split": phase_split(pr),
+              "misroute_rate": m["misroute_rate"],
+              "calibrated_deaths": cal["deaths"], "unrouted": cal["unrouted"],
+              "metric_rows": len(rows), "launches": run["launches"]}
+    del eng, held
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. the open loop at SERVE_ARRIVAL_RATE requests/s
+    eng = PagedServingEngine(model, **POOL, phase_log=True, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_ol = time.perf_counter()
+    dispatches, lat = serve_cli._open_loop(eng, reqs, SERVE_ARRIVAL_RATE,
+                                           np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_ol
+    ol_launches = dict(ops.launches)
+    add(ol_launches)
+    eng.pool.check_invariants()
+    got = [eng.finished.get(r, []) for r in range(len(reqs))]
+    short = [r for r, (t, (_, n)) in enumerate(zip(got, reqs)) if len(t) != n]
+    if short:
+        failures.append(f"open loop: requests {short} did not finish with "
+                        f"their token counts")
+    if not (ol_launches["flash_attention"] and ol_launches["paged_attention"]):
+        failures.append("open loop: an attention kernel never launched")
+    om = eng.metrics()
+    gen = sum(len(t) for t in got)
+    open_loop = {**lat, "requests": len(reqs), "wall_s": wall,
+                 "tokens_per_s": gen / wall, "driver_steps": dispatches,
+                 "dispatches": om["dispatches"],
+                 "compactions": om["compactions"], "wamp": om["wamp"],
+                 "tokens_equal_share": sum(a == b for a, b in
+                                           zip(got, mono["tokens"])) / len(reqs),
+                 "phase_split": phase_split(eng.phase_report()),
+                 "launches": ol_launches}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. the CLI at its default smoke width, in build/serve/ (its metrics
+    # files land in the working directory)
+    trace = out / "cli_trace.json"
+    argv, cwd, text = sys.argv, os.getcwd(), io.StringIO()
+    ops.reset_launches()
+    sys.argv = ["repro_torch.launch.serve", *SERVE_CLI_ARGS, "--trace",
+                str(trace)]
+    os.chdir(out)
+    try:
+        with contextlib.redirect_stdout(text):
+            cli_rows = serve_cli.main()
+    finally:
+        sys.argv = argv
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    cli_launches = dict(ops.launches)
+    add(cli_launches)
+    (out / "cli.txt").write_text(text.getvalue())
+    policies_ran = [r["policy"] for r in cli_rows]
+    if policies_ran != ["mdc", "greedy"]:
+        failures.append(f"CLI ran {policies_ran}")
+    for r in cli_rows:
+        if r["tokens"] <= 0:
+            failures.append(f"CLI {r['policy']}: no tokens")
+        if not (out / f"cli_trace.json.{r['policy']}").is_file():
+            failures.append(f"CLI {r['policy']}: no trace file")
+    cli = {r["policy"]: {k: r[k] for k in (
+        "tokens", "tok_per_s", "dispatches", "wamp", "compactions",
+        "ttft_p50_ms", "ttft_p99_ms", "queue_ms_p99", "tpot_p50_ms",
+        "tpot_p99_ms")} for r in cli_rows}
+    emit({"phase": "serve", "model": cfg.name, "dtype": "bfloat16",
+          "card": smi, "traced": traced, "open_loop": open_loop,
+          "cli": {"args": SERVE_CLI_ARGS, "rows": cli,
+                  "launches": cli_launches},
+          "launches": launches, "phase_seconds": time.perf_counter() - t0,
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"serve phase: {failures}")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1399,6 +1618,7 @@ def main() -> None:
     paths["chunked"], warm = phase_chunked(cfg, mono)
     paths["async"] = phase_async(cfg, mono, warm)
     paths["recovery"] = phase_recovery(cfg, mono)
+    paths["serve"] = phase_serve(cfg, mono, smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims" if name == "mdc_priority" else "engine"

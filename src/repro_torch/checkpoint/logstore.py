@@ -95,7 +95,7 @@ class LogStructuredCheckpointStore:
     def __init__(self, root: str | pathlib.Path, *, seg_bytes: int = 8 << 20,
                  chunk_bytes: int = 1 << 20, policy: str = "mdc",
                  gc_dead_frac: float = 0.35, gc_batch: int = 4,
-                 streams: int = 4):
+                 streams: int = 4, tracer=None):
         self.root = pathlib.Path(root)
         (self.root / "segments").mkdir(parents=True, exist_ok=True)
         (self.root / "manifests").mkdir(parents=True, exist_ok=True)
@@ -107,6 +107,9 @@ class LogStructuredCheckpointStore:
         self.streams = max(1, int(streams))
 
         self.core = ByteLog(n_streams=self.streams)
+        # segment-lifecycle events (seg.open/seal/evacuate/clean) flow to
+        # the optional obs tracer, like every other core frontend
+        self.core.tracer = tracer
         self.segments: dict[int, _SegView] = {}
         self.versions: dict[str, list[ChunkVersion]] = {}  # key -> versions
         self.steps: dict[int, dict] = {}  # step -> manifest dict

@@ -29,8 +29,14 @@ Asynchronous cleaning fences its victims (:meth:`FrameLog.evacuate` with
 but the frames stay un-allocatable (``FENCED``) until the owner commits the
 deferred device move (:meth:`LogStructureBase.commit_fenced`).
 
-What no ported path runs is left out: the simulator's item back-pointers,
-the oracle update probabilities and the observability hooks.
+Observability hooks (``obs``): a tracer attached to a core receives the
+segment lifecycle (``seg.open``, ``seg.seal``, ``seg.evacuate``,
+``seg.clean``) on its store lane, and :meth:`FrameLog.enable_calibration`
+records each frame's routed death estimate so its death can be compared
+with it.  Both are ``None`` by default, and then cost one check.
+
+What no ported path runs is left out: the simulator's item back-pointers
+and the oracle update probabilities.
 """
 
 from __future__ import annotations
@@ -252,6 +258,9 @@ class LogStructureBase:
             list(range(nseg - 1, -1, -1)) if use_free_list else [])
         self.clock = clock if clock is not None else Clock()
         self.stats = StoreStats()
+        # observability hooks (obs): None keeps the hot paths free
+        self.tracer = None          # obs.trace.Tracer | None
+        self.calibration = None     # obs.calibration.DeathCalibration | None
 
     @property
     def u_now(self) -> float:
@@ -267,6 +276,13 @@ class LogStructureBase:
     def free_count(self) -> int:
         return len(self.free_list)
 
+    # segment-lifecycle trace events land on their own thread lane
+    _trace_tid = 2
+
+    def _trace_seg(self, name: str, s: int, **args) -> None:
+        self.tracer.instant(name, tid=self._trace_tid, cat="segment",
+                            seg=int(s), **args)
+
     # -- lifecycle ------------------------------------------------------------
     def alloc(self) -> int:
         """FREE → OPEN: take a segment for appending."""
@@ -274,6 +290,8 @@ class LogStructureBase:
             raise RuntimeError(self._oom_msg)
         s = self.free_list.pop()
         self.seg_state[s] = OPEN
+        if self.tracer is not None:
+            self._trace_seg("seg.open", s)
         return s
 
     def seal(self, s: int, seal_time: float | None = None) -> None:
@@ -285,6 +303,10 @@ class LogStructureBase:
         self.seg_seal_time[s] = self.u_now if seal_time is None else seal_time
         self.seg_state[s] = USED
         self.streams.clear_seg(s)
+        if self.tracer is not None:
+            self._trace_seg("seg.seal", s, live=live,
+                            up2=float(self.seg_up2[s]),
+                            stream=int(self.seg_stream[s]))
 
     def release(self, victims: np.ndarray) -> None:
         """→ FREE wholesale (cleaning frees victims after evacuation)."""
@@ -416,6 +438,18 @@ class FrameLog(LogStructureBase):
         self.slot_up2 = np.zeros((nseg, self.S), dtype=np.float64)
         # reference count per slot: 0 = dead/empty, >= 1 live
         self.slot_ref = np.zeros((nseg, self.S), dtype=np.int64)
+        # death-calibration side arrays (allocated by enable_calibration)
+        self.slot_est = None    # death estimate each slot was routed with
+        self.slot_wtime = None  # clock at placement
+
+    def enable_calibration(self, cal) -> None:
+        """Attach a :class:`~repro_torch.obs.DeathCalibration`: placements
+        start recording their routed estimate and write clock per slot, so
+        each death can be compared with its prediction."""
+        self.calibration = cal
+        if self.slot_est is None:
+            self.slot_est = np.full((self.nseg, self.S), np.nan)
+            self.slot_wtime = np.zeros((self.nseg, self.S))
 
     def _stream_death_sample(self) -> np.ndarray:
         """Quantile cuts over the live slots' death tags (the KV pool's
@@ -509,6 +543,11 @@ class FrameLog(LogStructureBase):
                 pos += take
                 if self.room(s) == 0:
                     self.seal(s)
+        if self.calibration is not None and self.slot_est is not None:
+            est = (_per_item(p.est_death, n) if p.est_death is not None
+                   else np.full(n, np.nan))
+            self.slot_est[out // self.S, out % self.S] = est
+            self.slot_wtime[out // self.S, out % self.S] = self.u_now
         return out
 
     # -- sharing --------------------------------------------------------------
@@ -573,6 +612,11 @@ class FrameLog(LogStructureBase):
             segs, slots = segs[~survive], slots[~survive]
             if len(segs) == 0:
                 return np.empty(0, dtype=np.int64)
+        if self.calibration is not None and self.slot_est is not None:
+            self.calibration.record(
+                self.seg_stream[segs], self.slot_est[segs, slots],
+                self.u_now, wtime=self.slot_wtime[segs, slots],
+                bounds=self.streams.bounds)
         up2v = self.slot_up2[segs, slots]
         self.slot_item[segs, slots] = -1
         np.add.at(self.seg_live, segs, -1)
@@ -592,6 +636,8 @@ class FrameLog(LogStructureBase):
             self.seg_fill[rewind] = 0
             self.slot_up2[rewind] = 0.0
             self.seg_up2sum[rewind] = 0.0
+            if self.slot_est is not None:
+                self.slot_est[rewind] = np.nan
         return rel
 
     # -- cleaning -------------------------------------------------------------
@@ -635,6 +681,15 @@ class FrameLog(LogStructureBase):
         self.stats.gc_moves += len(items)
         self.stats.gc_bytes += len(items)
         self.stats.cleanings += 1
+        if self.tracer is not None:
+            for i, v in enumerate(victims):
+                self._trace_seg("seg.evacuate", int(v),
+                                E=float(1.0 - counts[i] / self.S),
+                                up2=float(self.seg_up2[v]),
+                                stream=int(self.seg_stream[v]))
+            self._trace_seg("seg.clean", int(victims[0]),
+                            victims=len(victims), moves=len(items),
+                            mean_E=float((1.0 - counts / self.S).mean()))
         if fence:
             self.stats.gc_planned += len(items)
             self.fence(victims)
@@ -660,6 +715,8 @@ class FrameLog(LogStructureBase):
         self.slot_up2[victims] = 0.0
         self.slot_ref[victims] = 0
         self.seg_fill[victims] = 0
+        if self.slot_est is not None:
+            self.slot_est[victims] = np.nan
 
     # -- invariant checks -----------------------------------------------------
     def check_invariants(self) -> None:
@@ -732,6 +789,8 @@ class ByteLog(LogStructureBase):
         self.next_sid += 1
         self._grow_to(self.next_sid)
         self.seg_state[s] = OPEN
+        if self.tracer is not None:
+            self._trace_seg("seg.open", s)
         return s
 
     def seal(self, s: int, seal_time: float | None = None) -> None:
@@ -803,6 +862,16 @@ class ByteLog(LogStructureBase):
         self.stats.gc_moves += int(self.seg_live[victims].sum())
         self.stats.gc_bytes += int(live_b.sum())
         self.stats.cleanings += 1
+        if self.tracer is not None:
+            E = (written - live_b) / np.maximum(written, 1.0)
+            for i, v in enumerate(victims):
+                self._trace_seg("seg.evacuate", int(v), E=float(E[i]),
+                                up2=float(self.seg_up2[v]),
+                                stream=int(self.seg_stream[v]))
+            self._trace_seg("seg.clean", int(victims[0]),
+                            victims=len(victims),
+                            moves=int(self.seg_live[victims].sum()),
+                            mean_E=float(E.mean()))
         self.release(victims)
 
     def release(self, victims: np.ndarray) -> None:

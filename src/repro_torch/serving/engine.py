@@ -96,6 +96,19 @@ retried up to ``fault_retries`` times, always *before* the operation
 starts (the port updates K/V and moves pages in place, so a retry is only
 sound from unchanged state), and one at a prefill unwinds the admission.
 
+Observability (``obs``) is opt-in: ``tracer=`` records the request
+lifecycles (lane 1), the per-dispatch phase spans (lane 0) and, through the
+pool's core and the journal's, the segment lifecycle (lane 2);
+``phase_log=True`` keeps each dispatch's wall split into its phases (admit,
+alloc, upload, dispatch, host_sync, compaction, journal: :meth:`phase_report`);
+``calibration=True`` compares each block's death estimate with its death;
+``metrics_every=k`` samples :meth:`metrics` to ``metrics_sink`` every k
+dispatches.  Every timestamp comes from one clock (``clock=``, default
+``time.perf_counter``), the host's: ``dispatch`` is the time the host takes
+to enqueue the dispatch's work and ``host_sync`` the wait for the card's
+tokens.  Disabled, each costs one ``is None`` check, and enabled, none
+changes a token or a counter, nor reads the card.
+
 Block tables, sequence lengths and last tokens live on the device between
 dispatches and are uploaded only when a host event dirtied them.  The host
 intervenes only at pre-computed *events* (the next page-boundary crossing,
@@ -114,6 +127,7 @@ plus the ``bt`` block-table matrix.  Supported family: dense (GQA attention).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 
@@ -127,6 +141,7 @@ from ..kernels import ops
 from ..models import attention as att
 from ..models import transformer as tfm
 from ..models.layers import rmsnorm
+from ..obs import DeathCalibration, MetricsLogger
 from .kvcache import LogStructuredKVPool
 from .prefix_cache import PrefixCache
 from .scheduler import (DEFAULT_CLEAN_BUDGET, AdmissionShed,
@@ -174,7 +189,10 @@ class PagedServingEngine:
                  audit_every: int = 0, journal_dir=None,
                  snapshot_every: int = 0, injector=None,
                  fault_retries: int = 2, fault_backoff_s: float = 0.0,
-                 journal_fsync: bool = False, device=None):
+                 journal_fsync: bool = False, clock=None, tracer=None,
+                 metrics_every: int = 0, metrics_sink=None,
+                 calibration: bool = False, phase_log: bool = False,
+                 device=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
@@ -311,6 +329,31 @@ class PagedServingEngine:
         self.recovery: dict | None = None   # set by recovery.recover_engine
         self._snap_id = 0
         self._snap_store = None       # the snapshot store, opened lazily
+        # --- observability (obs) ------------------------------------------
+        # one monotonic, pluggable clock for every engine timestamp:
+        # admit_wall, dispatch timing, trace spans and metric rows
+        self.clock = clock if clock is not None else time.perf_counter
+        # rid -> clock at first admission (the queue wait of TTFT)
+        self.admit_wall: dict[int, float] = {}
+        self.tracer = tracer
+        if tracer is not None:
+            self.pool.attach_tracer(tracer)
+            if self.journal is not None:
+                self.journal.core.tracer = tracer
+        self.calibration = (DeathCalibration(n_streams=self.streams)
+                            if calibration else None)
+        if self.calibration is not None:
+            self.pool.enable_calibration(self.calibration)
+        self.metrics_every = int(metrics_every)
+        self._metrics_logger = (
+            MetricsLogger(metrics_sink, clock=self.clock)
+            if self.metrics_every and metrics_sink is not None else None)
+        # per-dispatch phase splits, kept with phase_log=True or a tracer
+        # (bounded: old dispatches roll off)
+        self.phase_log = bool(phase_log)
+        self.dispatch_phases: collections.deque = collections.deque(
+            maxlen=100_000)
+        self._phase_acc: dict | None = None
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -323,8 +366,16 @@ class PagedServingEngine:
         unjournaled state)."""
         if self.journal is None:
             return None
-        return self._with_retries(
-            "journal", lambda: self.journal.append_record(rec))
+        ph = self._phase_acc
+        if ph is None:
+            return self._with_retries(
+                "journal", lambda: self.journal.append_record(rec))
+        t = self.clock()
+        try:
+            return self._with_retries(
+                "journal", lambda: self.journal.append_record(rec))
+        finally:
+            ph["journal"] = ph.get("journal", 0.0) + self.clock() - t
 
     def _with_retries(self, op: str, fn):
         """Run ``fn`` with fault injection keyed by ``op`` and bounded
@@ -346,6 +397,23 @@ class PagedServingEngine:
                     time.sleep(delay)
         raise AssertionError("unreachable")
 
+    def _timed_retries(self, op: str, fn):
+        """:meth:`_with_retries` plus phase attribution: with a phase
+        accumulator active, ``op``'s wall time lands in the current
+        dispatch's split (and a trace span when a tracer is attached)."""
+        ph, tr = self._phase_acc, self.tracer
+        if ph is None:
+            return self._with_retries(op, fn)
+        t = self.clock()
+        if tr is not None:
+            tr.begin(op, cat="engine")
+        try:
+            return self._with_retries(op, fn)
+        finally:
+            if tr is not None:
+                tr.end(op)
+            ph[op] = ph.get(op, 0.0) + self.clock() - t
+
     # ------------------------------------------------------------- requests
     def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
         if max_new_tokens < 1:
@@ -366,6 +434,10 @@ class PagedServingEngine:
         self._next_rid += 1
         self.queue.append(Request(rid, np.asarray(prompt, np.int32),
                                   max_new_tokens))
+        if self.tracer is not None:
+            self.tracer.async_begin("req", rid, tid=1, cat="request",
+                                    prompt_len=len(prompt),
+                                    max_new=int(max_new_tokens))
         self._jrec({"t": "sub", "rid": rid,
                     "p": [int(t) for t in np.asarray(prompt)],
                     "n": int(max_new_tokens)})
@@ -613,6 +685,11 @@ class PagedServingEngine:
                 self._bt_dirty = True
                 raise
 
+        self.admit_wall.setdefault(req.rid, self.clock())
+        if self.tracer is not None:
+            self.tracer.async_instant(
+                "req.resume" if from_resume else "req.admit",
+                req.rid, tid=1, cat="request")
         if from_resume:
             self.resumes += 1
         if resume:  # prompt re-prefilled + consumed output tokens re-decoded
@@ -836,6 +913,9 @@ class PagedServingEngine:
         rid = int(self.rid[i])
         self.finished[rid] = self._out[i][:self._out_n[i]].tolist()
         self.length_predictor.observe(int(self._out_n[i]))
+        if self.tracer is not None:
+            self.tracer.async_end("req", rid, tid=1, cat="request",
+                                  tokens=int(self._out_n[i]))
         self._jrec({"t": "fin", "rid": rid})
         self._release_slot(i)
 
@@ -845,6 +925,9 @@ class PagedServingEngine:
         ``_admit`` serves first; the resume re-prefills the prompt and
         re-decodes the emitted span."""
         self.preemptions += 1
+        if self.tracer is not None:
+            self.tracer.async_instant("req.preempt", int(self.rid[i]),
+                                      tid=1, cat="request")
         self._jrec({"t": "pre", "rid": int(self.rid[i])})
         # a slot preempted mid-replay (out_n < _jskip) still knows the whole
         # emitted span: the carried buffer holds it past out_n
@@ -937,16 +1020,55 @@ class PagedServingEngine:
         """Admit, then decode up to ``max_decode_chunk`` tokens for every
         decoding slot in one dispatch — fused with one chunk of the
         in-flight prefill in chunked mode.  With async compaction the pump
-        runs first.  Returns finished request ids."""
+        runs first.  Returns finished request ids.
+
+        With a tracer attached or ``phase_log=True``, each dispatch's wall
+        is split into attributed phases (admit, alloc, upload, dispatch,
+        host_sync, plus compaction and journal time wherever they fire).
+        Disabled (the default), the whole apparatus is one ``None`` check."""
+        tr = self.tracer
+        ph = {} if (self.phase_log or tr is not None) else None
+        self._phase_acc = ph
+        t_step = self.clock()
+        if tr is not None:
+            tr.begin("step", cat="engine", dispatch=self.dispatches)
+        try:
+            return self._step_impl(ph, tr)
+        finally:
+            self._phase_acc = None
+            if tr is not None:
+                tr.counter("pool", free_blocks=self.pool.free_blocks(),
+                           queue_depth=len(self.queue) + len(self._resume),
+                           active_slots=int((self.rid >= 0).sum()))
+                tr.end("step")
+            if ph is not None and ph.pop("dispatched", False):
+                ph["total"] = self.clock() - t_step
+                self.dispatch_phases.append(ph)
+            if (self._metrics_logger is not None
+                    and self.dispatches % self.metrics_every == 0):
+                self._sample_metrics()
+
+    def _step_impl(self, ph, tr) -> list[int]:
         if self.async_compaction:
             self._pump_compaction()
-        self._admit()
+        if ph is None:
+            self._admit()
+        else:
+            t_a = self.clock()
+            if tr is not None:
+                tr.begin("admit", cat="engine")
+            self._admit()
+            if tr is not None:
+                tr.end("admit")
+            ph["admit"] = self.clock() - t_a
         done, self._admit_done = self._admit_done, []
         active = self._decoding()
         if not active.any() and self._pf is None:
             return done
         self.dispatches += 1
-        t0 = time.perf_counter()
+        t0 = self.clock()
+        if ph is not None:
+            ph["dispatched"] = True
 
         # pages for the incoming tokens must exist before the dispatch writes
         # them; one batched alloc covers every slot at a page boundary
@@ -965,6 +1087,7 @@ class PagedServingEngine:
                 if not active.any() and self._pf is None:
                     return done
         if growing.size:
+            t_al = self.clock() if ph is not None else 0.0
             rem = np.array([self._predict_remaining(
                 int(self._out_n[j] + self.to_gen[j]), int(self._out_n[j]))
                 for j in growing])
@@ -977,9 +1100,20 @@ class PagedServingEngine:
             self._bt_dirty = True
             self._jrec({"t": "al", "r": self.rid[growing].tolist(),
                         "pg": pages.tolist()})
+            if ph is not None:
+                ph["alloc"] = self.clock() - t_al
 
         n = self._event_horizon(active)
-        self._sync_device()
+        if ph is None:
+            self._sync_device()
+        else:
+            t_up = self.clock()
+            if tr is not None:
+                tr.begin("upload", cat="engine")
+            self._sync_device()
+            if tr is not None:
+                tr.end("upload")
+            ph["upload"] = self.clock() - t_up
         pf = self._pf
         act = np.flatnonzero(active)
 
@@ -993,15 +1127,18 @@ class PagedServingEngine:
                 reads.append(first)
             return reads, first
 
-        reads, first = self._with_retries("dispatch", dispatch)
+        reads, first = self._timed_retries("dispatch", dispatch)
         # the one host sync: decode tokens and the chunk's first token
-        host = self._with_retries(
+        host = self._timed_retries(
             "host_sync",
             lambda: torch.cat(reads).cpu().numpy() if reads else None)
         if pf is not None:
             pf["pos"] += self.prefill_chunk
             self.lens[pf["slot"]] = min(pf["pos"], pf["plen"])
             self.prefill_chunks_dispatched += 1
+            if tr is not None:
+                tr.async_instant("req.prefill_chunk", int(self.rid[pf["slot"]]),
+                                 tid=1, cat="request", pos=int(pf["pos"]))
 
         # with stop tokens a slot may have stopped mid-dispatch: it emitted
         # tokens up to and including its first stop token
@@ -1046,7 +1183,7 @@ class PagedServingEngine:
                 done.append(fin)
         tot = int(emitted[act].sum())
         if tot > 0:   # decode-rate EWMA feeds the shed retry-after hint
-            dt = time.perf_counter() - t0
+            dt = self.clock() - t0
             self._tpot_ewma = 0.8 * self._tpot_ewma + 0.2 * (dt / tot)
         if (self.journal is not None and self.snapshot_every
                 and self.dispatches % self.snapshot_every == 0):
@@ -1063,6 +1200,23 @@ class PagedServingEngine:
         return self.finished
 
     # ----------------------------------------------------------- compaction
+    @contextlib.contextmanager
+    def _compaction_phase(self, moves: int):
+        """Attribute a compaction span to the current dispatch's phase split
+        (accumulated: several plans or pumps can fire per dispatch)."""
+        ph, tr = self._phase_acc, self.tracer
+        t_c = self.clock() if ph is not None else 0.0
+        if tr is not None:
+            tr.begin("compaction", cat="engine", moves=moves)
+        try:
+            yield
+        finally:
+            if tr is not None:
+                tr.end("compaction")
+            if ph is not None:
+                ph["compaction"] = (ph.get("compaction", 0.0)
+                                    + self.clock() - t_c)
+
     def _move_plan(self, plan, *, live: bool = False) -> None:
         """Compaction data path: pool[:, dst] = pool[:, src] for K and V.
 
@@ -1103,8 +1257,9 @@ class PagedServingEngine:
         the pool hands out any plan-freed page id."""
         if len(plan) == 0:
             return
-        self._move_plan(plan)
-        self._apply_remap(plan)
+        with self._compaction_phase(len(plan)):
+            self._move_plan(plan)
+            self._apply_remap(plan)
 
     # --- async pipeline: planned → in flight → committed -----------------
     def _main_wait(self, event) -> None:
@@ -1203,30 +1358,32 @@ class PagedServingEngine:
             self.inflight_boundaries += 1
         if not (self._inflight_plans or pool.pending_plans):
             return
-        self._commit_inflight()
-        if not pool.pending_plans:
-            return
-        # the deficit is judged on projected free slabs: reclamation in
-        # flight is demand already served
-        budget = clean_budget(
-            self.clean_budget, free_slabs=pool.projected_free_slabs(),
-            trigger=pool.compact_trigger, blocks_per_slab=pool.S,
-            queue_depth=len(self.queue) + len(self._resume))
-        hot = self._hot_pages()
-        moved = 0
-        while pool.pending_plans and moved < budget:
-            plan = pool.pending_plans.pop(0)
-            self._issue(plan)
-            moved += len(plan)
-            if len(plan) and np.isin(plan.src_pages, hot).any():
-                self.hazard_commits += 1
-                self._commit_inflight()
-                self._commit_plan(plan)
-                # the commits remapped the tables: a chained later sub-plan
-                # (its source an earlier one's destination) must see it
-                hot = self._hot_pages()
-            else:
-                self._inflight_plans.append(plan)
+        with self._compaction_phase(0):
+            self._commit_inflight()
+            if not pool.pending_plans:
+                return
+            # the deficit is judged on projected free slabs: reclamation in
+            # flight is demand already served
+            budget = clean_budget(
+                self.clean_budget, free_slabs=pool.projected_free_slabs(),
+                trigger=pool.compact_trigger, blocks_per_slab=pool.S,
+                queue_depth=len(self.queue) + len(self._resume))
+            hot = self._hot_pages()
+            moved = 0
+            while pool.pending_plans and moved < budget:
+                plan = pool.pending_plans.pop(0)
+                self._issue(plan)
+                moved += len(plan)
+                if len(plan) and np.isin(plan.src_pages, hot).any():
+                    self.hazard_commits += 1
+                    self._commit_inflight()
+                    self._commit_plan(plan)
+                    # the commits remapped the tables: a chained later
+                    # sub-plan (its source an earlier one's destination)
+                    # must see it
+                    hot = self._hot_pages()
+                else:
+                    self._inflight_plans.append(plan)
 
     def _drain_compaction(self) -> None:
         """The pool's ``on_drain``: commit the whole pipeline now, in order
@@ -1237,11 +1394,12 @@ class PagedServingEngine:
         if not (self._inflight_plans or self.pool.pending_plans):
             return
         self.drains += 1
-        self._commit_inflight()
-        while self.pool.pending_plans:
-            plan = self.pool.pending_plans.pop(0)
-            self._move_plan(plan, live=True)
-            self._commit_plan(plan)
+        with self._compaction_phase(0):
+            self._commit_inflight()
+            while self.pool.pending_plans:
+                plan = self.pool.pending_plans.pop(0)
+                self._move_plan(plan, live=True)
+                self._commit_plan(plan)
 
     def _on_dead_destination(self, pages: np.ndarray) -> None:
         """The pool's ``on_dead_destination``: a free killed the
@@ -1436,4 +1594,56 @@ class PagedServingEngine:
                 prefix_evictions=self.prefix_cache.evictions,
                 frames_shared=st.frames_shared,
             )
+        if self.calibration is not None:
+            m["misroute_rate"] = self.calibration.misroute_rate()
         return m
+
+    def _sample_metrics(self) -> None:
+        """One metrics-logger row: the cumulative :meth:`metrics` dict plus
+        point-in-time gauges (JSONL sink, ``metrics_every`` cadence)."""
+        m = self.metrics()
+        m.pop("recovery", None)   # nested dict, not a time series
+        m["u_now"] = float(self.pool.u_now)
+        m["queue_depth"] = len(self.queue) + len(self._resume)
+        m["active_slots"] = int((self.rid >= 0).sum())
+        self._metrics_logger.sample(m)
+
+    def phase_report(self) -> dict:
+        """Aggregate the per-dispatch phase splits (``phase_log=True`` or a
+        tracer attached): per-phase means, the dispatch wall's p50/p99, and
+        compaction's share of the p99 tail.
+
+        Phases can nest (a compaction fires inside the admit or alloc path
+        when allocation trips the pool's trigger), so per-phase tail shares
+        may overlap and sum past 1.0: each is the fraction of the tail's
+        wall during which that phase ran, not a partition."""
+        rows = list(self.dispatch_phases)
+        if not rows:
+            # zeroed but full-key: readers index these fields without checks
+            return {"dispatches": 0, "p50_ms": 0.0, "p99_ms": 0.0,
+                    "phase_mean_ms": {}, "phase_share_p99_tail": {},
+                    "compaction_share_p99": 0.0,
+                    "compaction_share_total": 0.0}
+        tot = np.array([r["total"] for r in rows])
+        p50, p99 = np.quantile(tot, [0.5, 0.99])
+        tail = [r for r in rows if r["total"] >= p99]
+        tail_tot = sum(r["total"] for r in tail)
+        keys = sorted({k for r in rows for k in r} - {"total"})
+        return {
+            "dispatches": len(rows),
+            "p50_ms": float(p50) * 1e3,
+            "p99_ms": float(p99) * 1e3,
+            "phase_mean_ms": {
+                k: float(np.mean([r.get(k, 0.0) for r in rows])) * 1e3
+                for k in keys},
+            "phase_share_p99_tail": {
+                k: (sum(r.get(k, 0.0) for r in tail) / tail_tot
+                    if tail_tot else 0.0)
+                for k in keys},
+            "compaction_share_p99": (
+                sum(r.get("compaction", 0.0) for r in tail) / tail_tot
+                if tail_tot else 0.0),
+            "compaction_share_total": float(
+                sum(r.get("compaction", 0.0) for r in rows) / tot.sum())
+            if tot.sum() else 0.0,
+        }

@@ -159,6 +159,18 @@ class LogStructuredKVPool:
     def u_now(self) -> float:
         return self.core.u_now
 
+    # -- observability (obs) -------------------------------------------------
+    def attach_tracer(self, tracer) -> None:
+        """Stream segment-lifecycle events (seg.open/seal/evacuate/clean)
+        to ``tracer`` from the shared core; None detaches."""
+        self.core.tracer = tracer
+
+    def enable_calibration(self, cal) -> None:
+        """Route block deaths to a :class:`~repro_torch.obs.DeathCalibration`:
+        each block's est-death (the absolute clock it was placed with) is
+        compared against ``u_now`` when it actually dies."""
+        self.core.enable_calibration(cal)
+
     # ------------------------------------------------------------ allocation
     def free_blocks(self) -> int:
         return self.core.free_frames()

@@ -240,7 +240,9 @@ def recover_engine(model, journal_dir, **engine_kw):
     the dead engine's configuration (it is the serving config, not state),
     ``device`` included (the card unless ``device="cpu"``);
     ``journal_dir`` is reopened for append, so the recovered session keeps
-    journaling, and can itself be killed and recovered again."""
+    journaling, and can itself be killed and recovered again.  The
+    observability arguments pass through as well: ``tracer=`` reaches the
+    rebuilt engine, its pool's core and its journal's core."""
     t0 = time.perf_counter()
     state, report = load_session(journal_dir,
                                  stop_token=engine_kw.get("stop_token"))

@@ -969,3 +969,98 @@ def _journal_records(d):
             out.append(json.loads(data[off + hdr.size:off + hdr.size + ln]))
             off += hdr.size + ln
     return out
+
+
+# ------------------------------------------------ observability on the card
+
+def _observed(eng_kw, tmp_path, name):
+    """The engine arguments of full observability: a tracer, the phase
+    split, death calibration and a metrics row every 2 dispatches."""
+    from repro_torch.obs import Tracer
+    tracer = Tracer(capacity=1 << 16)
+    return tracer, dict(eng_kw, tracer=tracer, phase_log=True, calibration=True,
+                        metrics_every=2, metrics_sink=tmp_path / f"{name}.jsonl")
+
+
+def test_observability_adds_no_host_sync(dev, tmp_path):
+    """A traced, phase-logged, calibrated engine sampling its metrics makes
+    exactly the synchronising calls of a plain one, step for step: the
+    tracer, the phase clock, the calibration and the metric rows read only
+    host values."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, dev)
+    kw = dict(ASYNC_KW, pool_dtype=torch.float32, device=dev)
+    _serve_all(PagedServingEngine(Model(cfg, params), **kw),
+               _async_requests(cfg.vocab_size))   # lazy initialisation
+    calls, tokens = {}, {}
+    for mode in ("plain", "observed"):
+        tracer, okw = (None, kw) if mode == "plain" else \
+            _observed(kw, tmp_path, mode)
+        eng = PagedServingEngine(Model(cfg, params), **okw)
+        steps = []
+        eng.step = _count_syncs(eng.step, steps)
+        tokens[mode] = _serve_all(eng, _async_requests(cfg.vocab_size))
+        calls[mode] = [s for s, _ in steps]
+        if tracer is not None:
+            assert eng.phase_report()["dispatches"] == eng.dispatches > 0
+            assert len(tracer) > 0 and eng.calibration.report()["deaths"] > 0
+    assert calls["observed"] == calls["plain"]
+    assert tokens["observed"] == tokens["plain"]
+
+
+def test_observed_engine_on_card_gives_the_plain_bf16_tokens(dev, tmp_path):
+    """bf16 weights and pool on the card, under compaction: observability
+    changes no token and no counter, and its trace has the engine's
+    lifecycle and segment events."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    model = Model(cfg, _cast(Model(cfg, device="cpu", seed=0).params, dev,
+                             torch.bfloat16))
+    kw = dict(ASYNC_KW, pool_dtype=torch.bfloat16, device=dev)
+    plain = _serve_all(PagedServingEngine(model, **kw),
+                       _async_requests(cfg.vocab_size))
+    tracer, okw = _observed(kw, tmp_path, "bf16")
+    eng = PagedServingEngine(model, **okw)
+    assert _serve_all(eng, _async_requests(cfg.vocab_size)) == plain
+    assert plain[1]["compactions"] >= 1
+    names = {e["name"] for e in tracer.export()["traceEvents"]}
+    assert {"step", "dispatch", "host_sync", "req", "req.admit", "seg.open",
+            "seg.seal", "seg.evacuate", "compaction"} <= names
+
+
+def test_recovered_engine_on_card_traces_its_journal_core(dev, tmp_path,
+                                                          monkeypatch):
+    """``recover_engine(..., tracer=)`` on the card: the rebuilt engine, its
+    pool's core and its journal's core report to the tracer; with small
+    journal segments the recovered session opens journal segments whose ids
+    lie past the pool's slabs, and their events reach the tracer."""
+    import functools
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import recover_engine
+    monkeypatch.setattr(engine_mod, "JournalLog",
+                        functools.partial(engine_mod.JournalLog, seg_bytes=256))
+    cfg = get_config("qwen3-1.7b").smoke()
+    model = Model(cfg, _f32(Model(cfg, device="cpu", seed=0).params, dev))
+    kw = dict(ASYNC_KW, pool_dtype=torch.float32, device=dev, snapshot_every=3)
+    want, _ = _serve_all(PagedServingEngine(model, **kw),
+                         _async_requests(cfg.vocab_size))
+    eng = PagedServingEngine(model, journal_dir=tmp_path / "j", **kw)
+    for p, n in _async_requests(cfg.vocab_size):
+        eng.submit(p, n)
+    for _ in range(4):      # the kill: sequences live
+        eng.step()
+    eng.journal.close()
+    first = eng.journal.core.next_sid
+    tracer = Tracer(capacity=1 << 16)
+    reng, rep = recover_engine(model, tmp_path / "j", tracer=tracer, **kw)
+    assert reng.tracer is tracer and reng.pool.core.tracer is tracer
+    assert reng.journal.core.tracer is tracer
+    reng.run_to_completion()
+    reng.audit()
+    assert rep["sequences_resumed"] > 0
+    assert [reng.finished[r] for r in range(len(want))] == want
+    opened = {e["args"]["seg"] for e in tracer.events()
+              if e["name"] == "seg.open"}
+    journal_sids = set(range(max(first, reng.pool.core.nseg),
+                             reng.journal.core.next_sid))
+    assert journal_sids and journal_sids <= opened

@@ -27,6 +27,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     ``import jax`` and ``import repro`` fail."""
     mods = _modules()
     assert len(mods) >= 20
+    assert {"repro_torch.obs.trace", "repro_torch.obs.metrics",
+            "repro_torch.obs.calibration",
+            "repro_torch.launch.serve"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
