@@ -12,8 +12,13 @@ Phases, in order; any failure raises and the process exits non-zero:
              the main path's full-width shapes (qwen3-1.7b: Kh=8, G=2,
              D=128, page_T=16; paged attention also at a long context of
              32 sequences of up to 4,096 tokens, bf16, with the share of
-             its bound it reaches), with the tolerances of the JAX package's
-             kernel tests (f32 2e-5, bf16 2e-2, exact for the copies);
+             its bound it reaches; at both shapes also with q's dtype apart
+             from the pools' (f32 q over bf16 pools, bf16 over f32), and the
+             same-dtype outputs bitwise the earlier kernel's, by sha256),
+             with the tolerances of the JAX package's
+             kernel tests (f32 2e-5, bf16 2e-2, exact for the copies) and,
+             for a mixed pair, a bar from where it rounds
+             (``_torch_checks.paged_bar``);
              kernel, plain and library times (median of CUDA-event timings,
              L2 flushed before each launch; a kernel and its yardstick timed
              in alternation) beside the least time the card could take.  Flash attention runs at the engine's prefill
@@ -146,7 +151,35 @@ Phases, in order; any failure raises and the process exits non-zero:
              CLI, ``launch.serve.main()``, at its default smoke width on the
              card with tracing, the phase log, metrics and calibration: both
              policies ran, every row has tokens, the trace files exist.
-             Each of the last six phases zeroes the launch counters before
+13. mixed  — the parameters' dtype apart from the pool's.  (a) Full width:
+             the seeded qwen3-1.7b weights at f32 over a bf16 pool and at
+             bf16 over an f32 pool (the JAX ``examples/serve_paged.py``
+             mix), 4 requests of 300-1,000 tokens each through the engine
+             phase's pool, held against the plain greedy decode on the card
+             (dense cache in the pool's dtype): tokens equal, or parting on
+             a near-tie (top-2 margin < 1e-3 for f32 logits, at most one
+             bf16 step for bf16 ones).  (b) Smoke width: f32 parameters
+             over the default bf16 pool through ``launch.serve.serve_run``
+             on the card and on the CPU (one weight draw): equal rows
+             (tokens digest, Wamp, compactions, dispatches, blocks); bf16
+             parameters over an f32 pool: every request's token count and
+             the CPU's counters, the tokens held to the plain decode as in
+             (a) and their share equal to the CPU's reported.
+14. sim    — the port's cleaning simulator at the paper's store
+             (``configs.paper_store.PAPER``: 51,200 segments of 512 pages,
+             26.2 M pages, F 0.8) under 80:20 hot/cold updates and MDC, one
+             store's worth of updates (the first half warm-up).  At every
+             cleaning cycle ``_torch_checks.DeviceVictimCheck`` uploads
+             the store's live counts, u_p2 means and eligibility, runs
+             ``mdc_priority`` on the card and picks 64 with
+             ``policies.torch_select_victims``; the host's f64 pick decides,
+             and every device pick outside it must be a near-tie (host key
+             within 1e-5 of the host's 64th).  Asserted: >= 1 launch per
+             cycle, the store's invariants at the end.  Reported: cycles,
+             launches, the kernel's median ms under this traffic, the share
+             of cycles with identical sets, host seconds, Wamp and mean E at
+             clean beside ``analysis.min_wamp_hotcold(0.8, 0.8, 0.2)``.
+             Each of the last eight phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
@@ -156,9 +189,11 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -171,13 +206,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))  # _torch_checks: checks shared with the tests
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import policies  # noqa: E402
+from repro_torch.configs.paper_store import PAPER  # noqa: E402
+from repro_torch.core import analysis, policies  # noqa: E402
+from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -187,6 +225,8 @@ from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serving import PagedServingEngine, recover_engine  # noqa: E402
 from repro_torch.serving import recovery  # noqa: E402
 from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
+from _torch_checks import (PAGED_SHA256, DeviceVictimCheck,  # noqa: E402
+                           check_paged_close, digest, paged_bar, paged_case)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # tensor-core rate, f32 rate outside the tensor cores
@@ -279,6 +319,16 @@ SERVE_EVENTS = {"step", "dispatch", "host_sync", "pool", "req", "req.admit",
 SERVE_CLI_ARGS = ["--requests", "8", "--policies", "mdc", "greedy",
                   "--arrival-rate", "4", "--phase-log", "--metrics-every", "2",
                   "--calibration"]
+# paged attention's q dtype apart from the pools': (q, pools)
+MIXED_PAIRS = ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
+# the mixed phase's full-width legs: (leg, parameters' dtype, pool dtype)
+MIXED_LEGS = (("f32_params_bf16_pool", torch.float32, torch.bfloat16),
+              ("bf16_params_f32_pool", torch.bfloat16, torch.float32))
+# the sim phase: the paper's store under 80:20 hot/cold updates, one
+# store's worth of them with the first half as warm-up
+SIM_WORKLOAD = dict(update_frac=0.8, data_frac=0.2)
+SIM_UPDATES = PAPER.nseg * PAPER.pages_per_seg
+SIM_WARMUP = 0.5
 
 
 def emit(obj) -> None:
@@ -381,37 +431,47 @@ def phase_build() -> None:
           "ptxas": {n: ptxas_report(i["log"]) for n, i in info.items()}})
 
 
-def check_paged_attention(dtype, timer, B=8, P=64) -> dict:
+def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None) -> dict:
     """Decode attention at qwen3-1.7b's heads (Kh 8, G 2, D 128, 16-token
     pages) over B sequences of up to P pages each; a full table and a
-    one-token sequence among them.  ``launches_per_call`` counts the
-    kernel's launches in one wrapper call (the design makes it 1)."""
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+    one-token sequence among them (``_torch_checks.paged_case``).
+    ``dtype`` is the pools', ``q_dtype`` (default the same) q's and the
+    output's; each pair is held to its own bar (``paged_bar``), and
+    ``bar_share`` is the largest share of it used.  ``launches_per_call``
+    counts the kernel's launches in one wrapper call (the design makes it
+    1).  A same-dtype output must be bitwise the one in ``PAGED_SHA256``."""
+    q_dtype = q_dtype or dtype
     Kh, G, D, T = 8, 2, 128, 16
     H = Kh * G
-    n_pages = B * P + 1
-    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
-    k_pool = torch.randn(n_pages, T, Kh, D, generator=g, device="cuda").to(dtype)
-    v_pool = torch.randn(n_pages, T, Kh, D, generator=g, device="cuda").to(dtype)
-    bt = torch.randperm(B * P, generator=g, device="cuda").view(B, P).to(torch.int32)
-    lens = torch.randint(1, P * T + 1, (B,), generator=g, device="cuda",
-                         dtype=torch.int32)
-    lens[0], lens[1] = P * T, 1  # a full table and a one-token sequence
+    q, k_pool, v_pool, bt, lens = paged_case(q_dtype, dtype, B, P, Kh, G, D, T,
+                                             seed=SEED)
     n0 = ops.launches["paged_attention"]
     got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
     per_call = ops.launches["paged_attention"] - n0
     if per_call != 1:
         raise AssertionError(f"paged_attention: {per_call} launches per call")
+    if got.dtype != q_dtype:
+        raise AssertionError(f"paged_attention: output {got.dtype}, q {q_dtype}")
     want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    share = check_paged_close(got, want, paged_bar(q, k_pool, v_pool, bt,
+                                                   lens, want))
+    sha = {}
+    if q_dtype == dtype:
+        sha = {"sha256": digest(got), "sha256_parent": PAGED_SHA256[
+            (B, P, Kh, G, D, T)][dtype == torch.float32]}
+        sha["bitwise_parent"] = sha["sha256"] == sha["sha256_parent"]
+        if not sha["bitwise_parent"]:
+            raise AssertionError(f"paged_attention {dtype} B={B}: output is "
+                                 f"not bitwise the earlier kernel's")
     n_tok = int(lens.sum())
     es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = (2 * n_tok * Kh * D * es + 2 * B * H * D * es
+    es_q = torch.tensor([], dtype=q_dtype).element_size()
+    n_bytes = (2 * n_tok * Kh * D * es + 2 * B * H * D * es_q
                + 4 * int(((lens + T - 1) // T).sum()) + 4 * B)
     b_ms, b_by = bound(n_bytes, 4.0 * n_tok * H * D, dtype)
     kernel_ms = timer(lambda: ops.paged_attention(q, k_pool, v_pool, bt, lens))
-    return {"max_abs_err": max_err(got, want), "launches_per_call": per_call,
+    return {"q_dtype": str(q_dtype), "max_abs_err": max_err(got, want),
+            "bar_share": share, "launches_per_call": per_call, **sha,
             "kernel_ms": kernel_ms,
             "plain_ms": timer(lambda: ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -592,6 +652,12 @@ def phase_kernels() -> dict:
     # where bytes and not launch latency set the time
     r = check_paged_attention(torch.bfloat16, timer, B=32, P=256)
     emit({"phase": "kernel", "name": "paged_attention", "dtype": "torch.bfloat16", **r})
+    # mixed: q (the parameters' dtype) apart from the pools', at both shapes
+    for q_dtype, dtype in MIXED_PAIRS:
+        for B, P in ((8, 64), (32, 256)):
+            r = check_paged_attention(dtype, timer, B=B, P=P, q_dtype=q_dtype)
+            emit({"phase": "kernel", "name": "paged_attention", "step": "mixed",
+                  "dtype": str(dtype), **r})
     torch.cuda.empty_cache()
     for dtype, S in [(torch.bfloat16, S) for S in FLASH_BUCKETS] + [(torch.float32, 1024)]:
         r = check_flash_attention(dtype, S, timer)
@@ -755,17 +821,21 @@ def phase_engine(cfg) -> dict:
     return run
 
 
-def oracle_margins(params, prompt, cfg, n_new):
+def oracle_margins(params, prompt, cfg, n_new, cache_dtype=torch.float32,
+                   tops=None):
     """The plain greedy decode again, recording each step's top-2 logit
-    margin (how close the argmax was to a tie)."""
+    margin (how close the argmax was to a tie), and each step's top logit
+    into ``tops`` where given."""
     dev = params["embed"].device
     toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
     logits, cache = tfm.prefill(params, toks, cfg, len(prompt) + n_new + 1,
-                                cache_dtype=torch.float32, kernel=False)
+                                cache_dtype=cache_dtype, kernel=False)
     out, margins = [], []
     while True:
         top = torch.topk(logits[0].float(), 2).values
         margins.append(float(top[0] - top[1]))
+        if tops is not None:
+            tops.append(float(top[0]))
         out.append(int(torch.argmax(logits[0])))
         if len(out) == n_new:
             return out, margins
@@ -990,19 +1060,41 @@ def phase_preemption(cfg) -> dict:
     return small["launches"]
 
 
-def first_mismatches(model, cfg, requests, runs) -> list:
-    """Each request whose tokens in ``runs`` part from the plain decode:
-    where, and the plain decode's top-2 margin there."""
+def near_tie_bar(dtype, top: float) -> float:
+    """The top-2 logit margin below which (or, in bf16, at which) the plain
+    decode's argmax is a near-tie, for logits of ``dtype``: 1e-3 in f32;
+    one bf16 step at the top logit in bf16 (2**(e - 7) for |top| in
+    [2**e, 2**(e+1))), the least margin two bf16 logits can have and not be
+    equal."""
+    if dtype == torch.float32:
+        return 1e-3
+    return 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+
+
+def first_mismatches(model, cfg, requests, runs,
+                     cache_dtype=torch.float32) -> list:
+    """Each request whose tokens in ``runs`` part from the plain decode (its
+    dense cache in ``cache_dtype``): where, the plain decode's top-2 margin
+    there, and whether that margin is a near-tie (``near_tie_bar`` of the
+    parameters' dtype, which the logits take)."""
     out = []
+    dtype = model.params["embed"].dtype
     for (prompt, n), got in zip(requests, runs):
         want = tfm.greedy_decode(model.params, prompt, cfg, n,
-                                 cache_dtype=torch.float32)
+                                 cache_dtype=cache_dtype)
         first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
                      None)
         if first is not None:
-            _, margins = oracle_margins(model.params, prompt, cfg, n)
+            tops = []
+            _, margins = oracle_margins(model.params, prompt, cfg, n,
+                                        cache_dtype, tops)
+            bar = near_tie_bar(dtype, tops[first])
             out.append({"first_mismatch": first,
-                        "margin_at_mismatch": margins[first]})
+                        "margin_at_mismatch": margins[first],
+                        "near_tie_bar": bar,
+                        "near_tie": (margins[first] < bar
+                                     if dtype == torch.float32
+                                     else margins[first] <= bar)})
     return out
 
 
@@ -1601,6 +1693,202 @@ def phase_serve(cfg, mono, smi) -> dict:
     return launches
 
 
+def smoke_requests(vocab: int, n: int = 12) -> list:
+    """The mixed phase's requests: prompts of 4-36 tokens, 4-20 new tokens
+    (seed 3), through serve_run's pool of 9 slabs of 4 pages of 8."""
+    rng = np.random.default_rng(SEED + 3)
+    return [(rng.integers(1, vocab, int(rng.integers(4, 37))),
+             int(rng.integers(4, 21))) for _ in range(n)]
+
+
+def run_engine(model, requests, device, **kw) -> dict:
+    """One smoke-width engine over ``requests`` on ``device``: its tokens,
+    counters and (on the card) the launches between its first submission
+    and its drain."""
+    eng = PagedServingEngine(model, n_slabs=9, blocks_per_slab=4, page_T=8,
+                             max_batch=4, max_seq=128, device=device, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        ops.reset_launches()
+    rids = [eng.submit(p, n) for p, n in requests]
+    eng.run_to_completion()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    eng.pool.check_invariants()
+    m = eng.metrics()
+    return {"tokens": [eng.finished[r] for r in rids],
+            "counters": {k: m[k] for k in ("dispatches", "blocks_written",
+                                           "blocks_moved", "compactions",
+                                           "wamp")},
+            "launches": dict(ops.launches) if device == "cuda" else None}
+
+
+def phase_mixed(cfg, smi) -> dict:
+    """The engine with the parameters' dtype apart from the pool's.
+
+    (a) Full width: qwen3-1.7b's seeded weights at f32 over a bf16 pool
+    and at bf16 over an f32 pool (the JAX ``examples/serve_paged.py``
+    mix), the f32 legs' 4 long requests through the engine phase's pool,
+    so the decode runs paged attention's mixed instances at G 2, D 128.
+    Each leg is held against the plain greedy decode on the card
+    (``kernel=False``, its dense cache in the pool's dtype): a request's
+    tokens equal it, or part from it on a near-tie (``near_tie_bar``).
+    (b) Smoke width, card against the CPU engine (one weight draw, made on
+    the CPU and copied): f32 parameters over the default bf16 pool through
+    ``launch.serve.serve_run`` (the mix ``tests/test_torch_serve.py`` holds
+    against the JAX package), whose rows must be equal (tokens digest,
+    counters); bf16 parameters over an f32 pool on 12 smoke requests,
+    with the CPU's counters (host-determined: no stop token) and its
+    tokens' share reported, and the card's tokens held against the plain
+    decode on the card as in (a).
+    Returns the launches of the card's runs."""
+    out, launches, failures = {"card": smi}, {k: 0 for k in KERNELS}, []
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    bf = Model(cfg, device="cuda", seed=SEED).params
+    small = long_requests(cfg.vocab_size)
+    for leg, p_dtype, pool_dtype in MIXED_LEGS:
+        model = Model(cfg, unflatten((p, t.to(p_dtype)) for p, t in flatten(bf)))
+        run = serve(model, small, pool_dtype=pool_dtype)
+        add(run["launches"])
+        mism = first_mismatches(model, cfg, small, run["tokens"], pool_dtype)
+        out[leg] = {"requests": len(small),
+                    "prompt_tokens": [len(p) for p, _ in small],
+                    "equal_to_plain": not mism, "mismatches": mism,
+                    "paged_attention_launches": run["launches"]["paged_attention"],
+                    "compactions": run["metrics"]["compactions"],
+                    "stream": stream_summary(run)}
+        if not all(x["near_tie"] for x in mism):
+            failures.append(f"{leg} at full width: tokens part from the "
+                            f"plain decode off a near-tie: {mism}")
+        if run["launches"]["paged_attention"] == 0:
+            failures.append(f"{leg} at full width: paged attention never "
+                            f"launched")
+        del model
+        torch.cuda.empty_cache()
+    del bf
+
+    smoke = cfg.smoke()
+    bf = Model(smoke, device="cpu", seed=SEED).params
+
+    def on(device, dtype):
+        return Model(smoke, unflatten((p, t.to(device, dtype))
+                                      for p, t in flatten(bf)))
+
+    def f32_row(device):
+        return serve_cli.serve_run(requests=10, policy="mdc",
+                                   model=on(device, torch.float32),
+                                   device=device, verbose=False)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rows = {"cuda": f32_row("cuda")}
+    torch.cuda.synchronize()
+    f32_launches = dict(ops.launches)
+    add(f32_launches)
+    rows["cpu"] = f32_row("cpu")
+    keys = ("tokens", "finished_digest", "wamp", "compactions", "dispatches",
+            "blocks_moved", "blocks_written")
+    equal = all(rows["cuda"][k] == rows["cpu"][k] for k in keys)
+    out["smoke_f32_params_bf16_pool"] = {
+        "row": {k: rows["cuda"][k] for k in keys}, "equal_to_cpu": equal,
+        "paged_attention_launches": f32_launches["paged_attention"]}
+    if not equal:
+        failures.append(f"f32 parameters over a bf16 pool at smoke width: the "
+                        f"card's row {out['smoke_f32_params_bf16_pool']['row']}"
+                        f" != the CPU's {({k: rows['cpu'][k] for k in keys})}")
+    if f32_launches["paged_attention"] == 0:
+        failures.append("f32 over bf16 at smoke width: paged attention never "
+                        "launched")
+
+    reqs = smoke_requests(smoke.vocab_size)
+    card_model = on("cuda", torch.bfloat16)
+    card, cpu = (run_engine(m, reqs, d, pool_dtype=torch.float32)
+                 for m, d in ((card_model, "cuda"),
+                              (on("cpu", torch.bfloat16), "cpu")))
+    add(card["launches"])
+    short = [i for i, (t, (_, n)) in enumerate(zip(card["tokens"], reqs))
+             if len(t) != n]
+    mism = first_mismatches(card_model, smoke, reqs, card["tokens"],
+                            torch.float32)
+    out["smoke_bf16_params_f32_pool"] = {
+        "counters": card["counters"], "cpu_counters": cpu["counters"],
+        "tokens_equal_share": sum(a == b for a, b in zip(
+            card["tokens"], cpu["tokens"])) / len(reqs),
+        "equal_to_plain": not mism, "mismatches": mism,
+        "paged_attention_launches": card["launches"]["paged_attention"]}
+    if short or card["counters"] != cpu["counters"]:
+        failures.append(f"bf16 over f32 at smoke width: requests {short} "
+                        f"short, or counters {card['counters']} against the "
+                        f"CPU's {cpu['counters']}")
+    if not all(x["near_tie"] for x in mism):
+        failures.append(f"bf16 over f32 at smoke width: tokens part from the "
+                        f"plain decode off a near-tie: {mism}")
+    if card["launches"]["paged_attention"] == 0:
+        failures.append("bf16 over f32 at smoke width: paged attention never "
+                        "launched")
+    emit({"phase": "mixed", "model": cfg.name, **out, "launches": launches,
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"mixed phase: {failures}")
+    return launches
+
+
+def phase_sim(smi) -> dict:
+    """The port's cleaning simulator at the paper's store (``PAPER``: 51,200
+    segments of 512 pages, F 0.8, trigger 32, batch 64, sort buffer 16)
+    under 80:20 hot/cold updates and the MDC policy, with every cleaning
+    cycle's victim state through ``mdc_priority`` on the card
+    (``DeviceVictimCheck``: the host's f64 pick decides; the device's f32
+    pick may differ from it only among near-ties).  Launch counters zeroed
+    just before ``run_measured`` and read just after; the store's
+    invariants checked at the end.  Reports Wamp and mean E at clean over
+    the measured window beside the analytic minimum of hot/cold separation
+    (``analysis.min_wamp_hotcold``)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(PAPER, seed=SEED)
+    sim = Simulator(cfg, workload_name="hot_cold", **SIM_WORKLOAD)
+    setup_s = time.perf_counter() - t0
+    check = DeviceVictimCheck("cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    with check.installed():
+        window = sim.run_measured(SIM_UPDATES, warmup_frac=SIM_WARMUP)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = dict(ops.launches)
+    t2 = time.perf_counter()
+    sim.store.check_invariants()
+    check_s = time.perf_counter() - t2
+    st = sim.store.stats
+    bound = analysis.min_wamp_hotcold(cfg.fill_factor, SIM_WORKLOAD["update_frac"],
+                                      SIM_WORKLOAD["data_frac"])
+    emit({"phase": "sim", "card": smi, "config": dataclasses.asdict(cfg),
+          "workload": {"name": "hot_cold", **SIM_WORKLOAD},
+          "pages": cfg.nseg * cfg.pages_per_seg, "updates": SIM_UPDATES,
+          "warmup_frac": SIM_WARMUP, "clean_trigger": sim.clean_trigger,
+          "clean_batch": sim.clean_batch, "cycles": st.cleanings,
+          "window_cycles": window.cleanings,
+          "mdc_priority_launches": launches["mdc_priority"],
+          **check.report(), "wamp": window.wamp(), "mean_E": window.mean_E(),
+          "min_wamp_hotcold": bound, "wamp_over_min": window.wamp() / bound,
+          "fill_factor": sim.store.fill_factor(), "setup_s": setup_s,
+          "host_s": run_s, "updates_per_s": SIM_UPDATES / run_s,
+          "invariants_s": check_s, "invariants": "ok"})
+    if not check.cycles or check.cycles != st.cleanings:
+        raise AssertionError(f"sim: {check.cycles} checked cycles of "
+                             f"{st.cleanings}")
+    if launches["mdc_priority"] < check.cycles:
+        raise AssertionError(f"sim: mdc_priority launched "
+                             f"{launches['mdc_priority']} times in "
+                             f"{check.cycles} cycles")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1619,9 +1907,11 @@ def main() -> None:
     paths["async"] = phase_async(cfg, mono, warm)
     paths["recovery"] = phase_recovery(cfg, mono)
     paths["serve"] = phase_serve(cfg, mono, smi)
+    paths["mixed"] = phase_mixed(cfg, smi)
+    paths["sim"] = phase_sim(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
-         "path": ("victims" if name == "mdc_priority" else "engine"
+         "path": ("victims, sim" if name == "mdc_priority" else "engine"
                   if name in ENGINE_KERNELS else "none"),
          "launches": launches[name],
          "path_launches": {p: n[name] for p, n in paths.items()},

@@ -12,6 +12,7 @@ block-move overhead they cost the decode path.  The twin of
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import serve_run
@@ -22,11 +23,11 @@ from repro_torch.serving import PagedServingEngine
 def prefix_cache_demo(model, device) -> None:
     """Two requests sharing a system prompt: the second splices the first's
     KV pages out of the prefix cache and prefills only its own tail.  The
-    pool keeps the parameters' dtype (bf16): on the card the attention
-    kernels take one dtype for the queries and the pages."""
+    pool is f32 under the bf16 parameters, as in examples/serve_paged.py."""
     eng = PagedServingEngine(model, n_slabs=12, blocks_per_slab=4, page_T=8,
                              max_batch=2, max_seq=128, policy="mdc",
-                             prefix_cache=True, device=device)
+                             prefix_cache=True, pool_dtype=torch.float32,
+                             device=device)
     rng = np.random.default_rng(0)
     system = rng.integers(1, model.cfg.vocab_size, size=32)  # 4 full pages
     ask_a = rng.integers(1, model.cfg.vocab_size, size=9)

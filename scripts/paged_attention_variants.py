@@ -35,7 +35,6 @@ from __future__ import annotations
 import ctypes
 import json
 import math
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,7 +72,8 @@ extern "C" int max_active_clusters(int grid) {
   cfg.blockDim = dim3(kThreads);
   int n = -1;
   const cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &n, (void*)paged_attention_kernel<__nv_bfloat16, 2, 128>, &cfg);
+      &n, (void*)paged_attention_kernel<__nv_bfloat16, __nv_bfloat16, 2, 128>,
+      &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 '''
@@ -105,17 +105,10 @@ def compile_all() -> dict[str, tuple[ctypes.CDLL, dict]]:
         stdout, stderr = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{stdout}{stderr}")
-        regs = {}
-        for chunk in (stdout + stderr).split("Compiling entry function '")[1:]:
-            fn = chunk.split("'", 1)[0]
-            for dt, tag in (("bf16", "I13__nv_bfloat16Li2ELi128E"),
-                            ("f32", "IfLi2ELi128E")):
-                if tag in fn:
-                    regs[dt] = {
-                        "registers": int(re.search(r"Used (\d+) registers",
-                                                   chunk).group(1)),
-                        "spill_store_bytes": int(re.search(
-                            r"(\d+) bytes spill stores", chunk).group(1))}
+        report = cs.ptxas_report(stdout + stderr)
+        regs = {dt: {k: report[f"paged_attention_kernel<{t}, {t}, 2, 128>"][k]
+                     for k in ("registers", "spill_store_bytes")}
+                for dt, t in (("bf16", "__nv_bfloat16"), ("f32", "float"))}
         lib = ctypes.CDLL(str(so))
         lib.paged_attention.argtypes = build.SIGNATURES["paged_attention"]
         lib.paged_attention.restype = ctypes.c_int
@@ -129,7 +122,8 @@ def caller(lib, q, k_pool, v_pool, bt, lens, out):
     num_pages, T, Kh, _ = k_pool.shape
     args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
             lens.data_ptr(), out.data_ptr(), B, Kh, H // Kh, D, T, bt.shape[1],
-            num_pages, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16))
+            num_pages, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            int(k_pool.dtype == torch.bfloat16))
 
     def call():
         rc = lib.paged_attention(*args, torch.cuda.current_stream().cuda_stream)

@@ -1,5 +1,5 @@
-"""The log-structure substrate behind the serving KV pool, the session
-journal and the snapshot store.
+"""The log-structure substrate behind the cleaning simulator, the serving
+KV pool, the session journal and the snapshot store.
 
 A copy of ``repro.core.logstructure``: segment lifecycle (FREE → OPEN →
 USED → FREE), per-segment {A, C, u_p2} accounting (§5.1.1), the §5.2.2
@@ -8,8 +8,11 @@ placement (SepBIT arXiv:2104.12425: ``k`` open segments, each append routed
 by running quantiles of its predicted death).  Two accounting modes cover
 the paper's two page models:
 
-  FrameLog  — fixed-size pages ("frames", the KV pool's pages): a segment is
-              ``S`` slots; A is derived as S - C free frames.
+  FrameLog  — fixed-size pages ("frames": the simulator's pages, the KV
+              pool's pages): a segment is ``S`` slots; A is derived as
+              S - C free frames.  With ``max_items`` it keeps item → (seg,
+              slot) back-pointers, for frontends whose pages have stable
+              logical ids (the simulator's ``SegmentStore``).
   ByteLog   — variable-size pages (§4.4): segments are byte extents that
               grow monotonically; A = written − live bytes.  Segment ids are
               never reused (they name files on disk).  :class:`JournalLog`
@@ -17,7 +20,9 @@ the paper's two page models:
               (``checkpoint.logstore``) are its frontends.
 
 Both share one :class:`StoreStats` that counts frames *and* bytes, so
-``wamp()`` means the same thing everywhere.
+``wamp()`` means the same thing everywhere.  The simulator's ``-opt``
+oracle policies read ``seg_prob``, each segment's sum of its live items'
+true update probabilities (:class:`Placement` ``probs``).
 
 Reference counts are kept per frame: a page shared by several sequences
 and the prefix cache lives until its last reference drops
@@ -34,9 +39,6 @@ segment lifecycle (``seg.open``, ``seg.seal``, ``seg.evacuate``,
 ``seg.clean``) on its store lane, and :meth:`FrameLog.enable_calibration`
 records each frame's routed death estimate so its death can be compared
 with it.  Both are ``None`` by default, and then cost one check.
-
-What no ported path runs is left out: the simulator's item back-pointers
-and the oracle update probabilities.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ OPEN = 1  # currently being filled (multi-log open segments)
 USED = 2  # sealed, eligible for cleaning
 FENCED = 3  # evacuated under an uncommitted (async) plan: not allocatable,
 #             not re-victimizable, until the owner commits the move
+
+IN_FLIGHT = -2  # item_seg marker: evacuated, not yet re-written
 
 # stream cuts before the log has 4 live death tags: everything in stream 0
 _STREAM_HORIZON = 1e9
@@ -132,6 +136,27 @@ class StoreStats:
             tgt.extend([0] * (stream + 1 - len(tgt)))
         tgt[stream] += n
 
+    def snapshot(self) -> "StoreStats":
+        s = dataclasses.replace(self)
+        s.stream_writes = list(self.stream_writes)
+        s.stream_moves = list(self.stream_moves)
+        return s
+
+    def since(self, other: "StoreStats") -> "StoreStats":
+        """The counters accrued after ``other`` (a :meth:`snapshot`): the
+        simulator's measurement window."""
+        out = {}
+        for f in dataclasses.fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if isinstance(a, list):
+                m = max(len(a), len(b))
+                out[f.name] = [
+                    (a[i] if i < len(a) else 0) - (b[i] if i < len(b) else 0)
+                    for i in range(m)]
+            else:
+                out[f.name] = a - b
+        return StoreStats(**out)
+
     # -- serving-pool vocabulary ---------------------------------------------
     @property
     def blocks_written(self) -> int:
@@ -154,10 +179,12 @@ class StoreStats:
 class EvacResult:
     """Live content of an evacuated victim batch, in victim order.
 
-    ``up2_slot`` is the per-frame value the item was appended with (the KV
-    pool's per-block death estimate)."""
+    ``up2_inherit`` is the §5.2.2 GC-write rule (each item takes its
+    containing segment's u_p2 mean); ``up2_slot`` is the per-frame value the
+    item was appended with (the KV pool's per-block death estimate)."""
 
-    items: np.ndarray        # slot payloads (block owners) of live slots
+    items: np.ndarray        # slot payloads (page ids / block owners)
+    up2_inherit: np.ndarray  # containing-segment u_p2 per item
     up2_slot: np.ndarray     # per-slot appended u_p2 per item
     segs: np.ndarray         # source segment per item
     slots: np.ndarray        # source slot per item
@@ -188,6 +215,8 @@ class Placement:
     refs      : per-item reference counts carried through relocation.
     up2       : the §5.2.2 per-item tag; defaults to ``est_death`` (the KV
                 pool tags slots with death estimates), else 0.
+    probs     : the true update probability per item (the simulator's
+                ``-opt`` oracles), summed into ``seg_prob``.
     """
 
     est_death: "np.ndarray | float | None" = None
@@ -195,6 +224,7 @@ class Placement:
     kind: str | None = "user"
     refs: np.ndarray | None = None
     up2: "np.ndarray | float | None" = None
+    probs: np.ndarray | None = None
 
     def up2_values(self, n: int) -> np.ndarray:
         src = self.up2 if self.up2 is not None else self.est_death
@@ -249,6 +279,7 @@ class LogStructureBase:
         self.seg_up2 = np.zeros(nseg, dtype=np.float64)      # sealed u_p2 mean
         self.seg_up2sum = np.zeros(nseg, dtype=np.float64)   # Σ u_p2, live items
         self.seg_seal_time = np.zeros(nseg, dtype=np.float64)
+        self.seg_prob = np.zeros(nseg, dtype=np.float64)     # oracle Σ p(item)
         # which stream wrote each segment (-1: unknown); read back by
         # cleaning to demote survivors one stream colder
         self.seg_stream = np.full(nseg, -1, dtype=np.int16)
@@ -314,6 +345,7 @@ class LogStructureBase:
         self.seg_state[victims] = FREE
         self.seg_live[victims] = 0
         self.seg_up2sum[victims] = 0.0
+        self.seg_prob[victims] = 0.0
         self.seg_stream[victims] = -1
         if self._use_free_list:
             self.free_list.extend(int(s) for s in victims)
@@ -327,6 +359,7 @@ class LogStructureBase:
         self.seg_state[victims] = FENCED
         self.seg_live[victims] = 0
         self.seg_up2sum[victims] = 0.0
+        self.seg_prob[victims] = 0.0
         self.seg_stream[victims] = -1
 
     def commit_fenced(self, victims: np.ndarray) -> None:
@@ -424,20 +457,34 @@ class FrameLog(LogStructureBase):
     Slot occupancy (``slot_item``: payload id or -1), the per-slot u_p2
     (``slot_up2``) and the per-slot reference count live here, so
     evacuation, death accounting and seal means are computed in one place.
-    Items are opaque payloads (the KV pool stores sequence owners).  A
-    sealed segment whose last item dies is released at once (reclaimed for
-    free, E = 1)."""
+    With ``max_items`` set, item → (seg, slot) back-pointers are kept too
+    (the simulator's logical pages); without it, items are opaque payloads
+    (the KV pool stores sequence owners).  With ``auto_release_empty`` (the
+    KV pool) a sealed segment whose last item dies is released at once
+    (reclaimed for free, E = 1).  ``stream_sample="live"`` (the KV pool)
+    takes the death-quantile cuts from the live slots' tags, which are death
+    estimates there; the default samples the recent appends."""
 
     _noroom_msg = "no open segment with room (all segments sealed+full)"
 
-    def __init__(self, nseg: int, frames_per_seg: int, *, n_streams: int = 1):
+    def __init__(self, nseg: int, frames_per_seg: int, *,
+                 max_items: int | None = None,
+                 auto_release_empty: bool = False, n_streams: int = 1,
+                 stream_sample: str = "recent"):
         super().__init__(nseg, n_streams=n_streams)
         self.S = int(frames_per_seg)
+        self.auto_release_empty = auto_release_empty
+        self._stream_sample = stream_sample  # "recent" (ring) | "live" (slots)
         self.seg_fill = np.zeros(nseg, dtype=np.int64)  # next free slot
         self.slot_item = np.full((nseg, self.S), -1, dtype=np.int64)
         self.slot_up2 = np.zeros((nseg, self.S), dtype=np.float64)
         # reference count per slot: 0 = dead/empty, >= 1 live
         self.slot_ref = np.zeros((nseg, self.S), dtype=np.int64)
+        self.max_items = max_items
+        if max_items is not None:
+            self.item_seg = np.full(max_items, -1, dtype=np.int64)
+            self.item_slot = np.full(max_items, -1, dtype=np.int64)
+            self.item_up2 = np.zeros(max_items, dtype=np.float64)
         # death-calibration side arrays (allocated by enable_calibration)
         self.slot_est = None    # death estimate each slot was routed with
         self.slot_wtime = None  # clock at placement
@@ -452,11 +499,17 @@ class FrameLog(LogStructureBase):
             self.slot_wtime = np.zeros((self.nseg, self.S))
 
     def _stream_death_sample(self) -> np.ndarray:
-        """Quantile cuts over the live slots' death tags (the KV pool's
-        slot_up2 *is* a death estimate)."""
-        return self.slot_up2[self.slot_item >= 0]
+        if self._stream_sample == "live":
+            return self.slot_up2[self.slot_item >= 0]
+        return super()._stream_death_sample()
 
     # -- capacity -------------------------------------------------------------
+    def live_items(self) -> int:
+        return int(self.seg_live.sum())
+
+    def fill_factor(self) -> float:
+        return self.live_items() / (self.nseg * self.S)
+
     def free_frames(self) -> int:
         """Slots still appendable: whole free segments + open-segment room."""
         open_room = int((self.S - self.seg_fill[self.seg_state == OPEN]).sum())
@@ -472,7 +525,7 @@ class FrameLog(LogStructureBase):
         return s
 
     def append(self, s: int, items: np.ndarray, up2: np.ndarray,
-               kind: str | None = None,
+               probs: np.ndarray | None = None, kind: str | None = None,
                refs: np.ndarray | None = None) -> np.ndarray:
         """Append items to an explicit OPEN segment; returns slot indices.
 
@@ -489,7 +542,13 @@ class FrameLog(LogStructureBase):
         self.seg_fill[s] = start + n
         self.seg_live[s] += n
         self.seg_up2sum[s] += float(np.sum(up2))
-        # a frame counts one byte unit, as the JAX pool's (frame_bytes 1)
+        if probs is not None:
+            self.seg_prob[s] += float(np.sum(probs))
+        if self.max_items is not None:
+            self.item_seg[items] = s
+            self.item_slot[items] = np.arange(start, start + n)
+            self.item_up2[items] = up2
+        # a frame counts one byte unit (the JAX package's frame_bytes 1)
         self._count_write(kind, n, n)
         return np.arange(start, start + n)
 
@@ -536,7 +595,9 @@ class FrameLog(LogStructureBase):
                 take = min(self.room(s), len(idx) - pos)
                 sel = idx[pos:pos + take]
                 slots = self.append(
-                    s, items[sel], up2[sel], kind=p.kind,
+                    s, items[sel], up2[sel],
+                    probs=None if p.probs is None else p.probs[sel],
+                    kind=p.kind,
                     refs=None if p.refs is None else p.refs[sel])
                 out[sel] = s * self.S + slots
                 self.stats.note_stream(int(b), int(take), p.kind)
@@ -589,6 +650,7 @@ class FrameLog(LogStructureBase):
 
     # -- deaths ---------------------------------------------------------------
     def kill_slots(self, segs: np.ndarray, slots: np.ndarray,
+                   probs: np.ndarray | None = None,
                    tick: bool = False) -> np.ndarray:
         """Drop one reference per frame; frames whose count hits zero die.
 
@@ -596,8 +658,9 @@ class FrameLog(LogStructureBase):
         — C decrement, u_p2 sums, the paper's per-death clock tick — happens
         only for frames that actually die.
 
-        Returns the segments released (sealed segments that became fully
-        empty)."""
+        ``probs`` (the dying items' true update probabilities) leave
+        ``seg_prob``.  Returns the segments released (sealed segments that
+        became fully empty), when ``auto_release_empty`` is on."""
         if len(segs) == 0:
             return np.empty(0, dtype=np.int64)
         flat = np.asarray(segs, dtype=np.int64) * self.S + slots
@@ -610,6 +673,8 @@ class FrameLog(LogStructureBase):
         if survive.any():
             self.stats.ref_drops += int(survive.sum())
             segs, slots = segs[~survive], slots[~survive]
+            if probs is not None:
+                probs = probs[~survive]
             if len(segs) == 0:
                 return np.empty(0, dtype=np.int64)
         if self.calibration is not None and self.slot_est is not None:
@@ -621,9 +686,13 @@ class FrameLog(LogStructureBase):
         self.slot_item[segs, slots] = -1
         np.add.at(self.seg_live, segs, -1)
         np.subtract.at(self.seg_up2sum, segs, up2v)
+        if probs is not None:
+            np.subtract.at(self.seg_prob, segs, probs)
         self.stats.deaths += len(segs)
         if tick:
             self.tick(len(segs))
+        if not self.auto_release_empty:
+            return np.empty(0, dtype=np.int64)
         cand = np.unique(segs)
         dead = cand[self.seg_live[cand] == 0]
         rel = dead[self.seg_state[dead] == USED]
@@ -640,6 +709,17 @@ class FrameLog(LogStructureBase):
                 self.slot_est[rewind] = np.nan
         return rel
 
+    def kill_items(self, items: np.ndarray,
+                   probs: np.ndarray | None = None,
+                   tick: bool = False) -> np.ndarray:
+        """Kill by logical item id (requires back-pointers).  Only call for
+        items whose current version is on disk (item_seg >= 0)."""
+        if len(items) == 0:
+            return np.empty(0, dtype=np.int64)
+        segs = self.item_seg[items]
+        assert (segs >= 0).all(), "kill_items on items not on disk"
+        return self.kill_slots(segs, self.item_slot[items], probs, tick)
+
     # -- cleaning -------------------------------------------------------------
     def select_victims(self, policy: str, k: int,
                        eligible: np.ndarray | None = None) -> np.ndarray:
@@ -648,14 +728,15 @@ class FrameLog(LogStructureBase):
         return P.select_victims(
             policy, k, live=self.seg_live, S=self.S, up2=self.seg_up2,
             seal_time=self.seg_seal_time, u_now=self.u_now,
-            eligible=eligible)
+            seg_prob=self.seg_prob, eligible=eligible)
 
     def evacuate(self, victims: np.ndarray, *,
                  fence: bool = False) -> EvacResult:
         """Gather victims' live frames, free the victims, account the cycle.
 
         GC moves are counted here (once); re-appending the survivors should
-        use ``kind="gc"`` (uncounted).  ``fence=True`` (async cleaning): the
+        use ``kind="gc"`` (uncounted).  With back-pointers, survivors are
+        marked IN_FLIGHT until re-written.  ``fence=True`` (async cleaning): the
         victims go to FENCED instead of FREE — their accounting is cleared,
         but the frames stay un-allocatable until :meth:`commit_fenced`,
         because the deferred device move still reads them and stale external
@@ -669,6 +750,7 @@ class FrameLog(LogStructureBase):
         items = rows[r, c]
         res = EvacResult(
             items=items,
+            up2_inherit=self.seg_up2[segs],
             up2_slot=self.slot_up2[victims][r, c],
             segs=segs,
             slots=c.astype(np.int64),
@@ -695,6 +777,9 @@ class FrameLog(LogStructureBase):
             self.fence(victims)
         else:
             self.release(victims)
+        if self.max_items is not None:
+            self.item_seg[items] = IN_FLIGHT
+            self.item_slot[items] = -1
         return res
 
     def release(self, victims: np.ndarray) -> None:
@@ -748,6 +833,13 @@ class FrameLog(LogStructureBase):
         # nothing live past the fill pointer
         past_fill = np.arange(self.S)[None, :] >= self.seg_fill[:, None]
         assert not (live_mask & past_fill).any(), "live frame past fill"
+        if self.max_items is None:
+            return
+        rows, cols = np.nonzero(live_mask)
+        items = self.slot_item[rows, cols]
+        assert len(np.unique(items)) == len(items), "item live in two frames"
+        assert (self.item_seg[items] == rows).all(), "item_seg back-pointer broken"
+        assert (self.item_slot[items] == cols).all(), "item_slot back-pointer broken"
 
 
 class ByteLog(LogStructureBase):
@@ -778,6 +870,7 @@ class ByteLog(LogStructureBase):
         self.seg_up2 = pad(self.seg_up2)
         self.seg_up2sum = pad(self.seg_up2sum)
         self.seg_seal_time = pad(self.seg_seal_time)
+        self.seg_prob = pad(self.seg_prob)
         self.seg_stream = pad(self.seg_stream, -1)
         self.seg_written = pad(self.seg_written)
         self.seg_live_bytes = pad(self.seg_live_bytes)

@@ -1,5 +1,5 @@
-"""Cleaning priorities: the NumPy keys the KV pool's victim selection uses
-(f64, on the host), their byte-accounted twins (the journal's and the
+"""Cleaning priorities: the NumPy keys the simulator's and the KV pool's
+victim selection use (f64, on the host), their byte-accounted twins (the journal's and the
 snapshot store's segments), and their device twins on tensors (f32; the MDC
 key through the ``mdc_priority`` kernel on the card).
 
@@ -13,6 +13,8 @@ greedy        clean emptiest first                               (§4.5)
 cost_benefit  LFS [23] benefit/cost = E*age/(2-E), largest first (§6.1.3)
 mdc           smallest declining-cost rate first (§4, §5.1.3):
                   -dCost/du ∝ ((B-A)/A)^2 * 1/(C * (u_now - u_p2))
+mdc_opt       same, with the exact per-segment live update probability
+              replacing the (u_now - u_p2) estimate                (§6.1.3)
 
 For fixed-size pages, with E = empty fraction = (S-C)/S:
   (B-A)/A == (1-E)/E == C/(S-C).
@@ -27,6 +29,8 @@ from ..kernels import ops
 
 _INF = np.float64(np.inf)
 _EPS = 1e-12
+
+POLICIES = ("age", "greedy", "cost_benefit", "mdc", "mdc_opt")
 
 
 def key_age(seal_time: np.ndarray, **_) -> np.ndarray:
@@ -73,11 +77,28 @@ def key_mdc_bytes(live_bytes: np.ndarray, free_bytes: np.ndarray,
     return np.where(BA == 0, -1.0, decline)
 
 
+def key_mdc_opt(live: np.ndarray, S: int, seg_prob: np.ndarray, **_) -> np.ndarray:
+    """MDC with the oracle update rate: dE/du ∝ Σ_live p(page) (paper §6.1.3).
+
+    decline ∝ (1-E)/E^2 * U_seg * Δ_E  with  U_seg = Σ_live prob,
+    and (1-E) * Δ_E constant factors folded in:  key = U_seg / E^2 weighted by
+    the same ((B-A)/A)^2 / C shape as `key_mdc` (the two differ only in the
+    update-rate estimator).
+    """
+    C = live.astype(np.float64)
+    A = (S - C)
+    rate = np.maximum(seg_prob, 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        decline = np.where(A > 0, (C / np.maximum(A, _EPS)) ** 2 * rate / np.maximum(C, 1.0), _INF)
+    return np.where(C == 0, -1.0, decline)
+
+
 _KEYS = {
     "age": key_age,
     "greedy": key_greedy,
     "cost_benefit": key_cost_benefit,
     "mdc": key_mdc,
+    "mdc_opt": key_mdc_opt,
 }
 
 
@@ -93,10 +114,13 @@ def _take_smallest(key: np.ndarray, k: int) -> np.ndarray:
 
 def select_victims(policy: str, k: int, *, live: np.ndarray, S: int,
                    up2: np.ndarray, seal_time: np.ndarray, u_now: float,
-                   eligible: np.ndarray) -> np.ndarray:
-    """Return up to ``k`` eligible segment ids with the smallest policy key."""
+                   eligible: np.ndarray,
+                   seg_prob: np.ndarray | None = None) -> np.ndarray:
+    """Return up to ``k`` eligible segment ids with the smallest policy key.
+    ``seg_prob`` (the oracle's live update probability per segment) is read
+    by ``mdc_opt`` only."""
     key = _KEYS[policy](live=live, S=S, up2=up2, seal_time=seal_time,
-                        u_now=u_now)
+                        u_now=u_now, seg_prob=seg_prob)
     key = np.where(eligible, key, _INF)
     # Never pick segments with zero reclaimable space (E == 0): cleaning them
     # frees nothing (and MDC's decline is infinite there anyway).

@@ -43,6 +43,17 @@
 // Table entries are clamped to [0, num_pages) here, as
 // repro.kernels.ops.paged_attention clips them before its kernel.
 //
+// Types.  q and out share one element type (Tq), the two pools another
+// (Tkv), each f32 or bf16: the four pairs are instantiated.  The arithmetic
+// is the reference's (src/repro/kernels/ref.py: paged_attention_ref): q and
+// K widened to f32 as they are loaded (exact for bf16), Q.K^T, the softmax
+// and the P.V sum in f32, the result stored in q's type.  Where q is wider
+// than the pools, P is rounded to the pools' type before P.V, as the
+// reference casts p to v's dtype.  At equal types P stays in f32, as this
+// kernel always kept it: those instances are bitwise the kernel before it
+// took two types.  bf16 q over f32 pools is thus "widen q, run f32, round
+// the output to bf16", in the same single launch.
+//
 // C interface (ctypes): returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape the kernel was not instantiated for.
 
@@ -83,6 +94,44 @@ __device__ __forceinline__ void widen(const uint4& u, float (&o)[8]) {
   }
 }
 
+// one lane's VEC elements of q, widened to f32 (exact for both types): one
+// 16-byte load where q's type matches the pools', else the same values
+// from two 16-byte loads (f32 q, VEC 8) or one 8-byte load (bf16 q, VEC 4)
+template <int VEC>
+__device__ __forceinline__ void load_q(const float* p, float (&o)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC / 4; ++i) {
+    float t[4];
+    widen(ld16(p + 4 * i), t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * i + e] = t[e];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* p, float (&o)[VEC]) {
+  if constexpr (VEC == 8) {
+    widen(ld16(p), o);
+  } else {
+    static_assert(VEC == 4, "bf16 q: VEC 8 or 4");
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    o[0] = __uint_as_float(u.x << 16);
+    o[1] = __uint_as_float(u.x & 0xffff0000u);
+    o[2] = __uint_as_float(u.y << 16);
+    o[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+// P as the P.V product takes it: rounded to the pools' type where q is
+// wider (the reference's p.astype(v.dtype)), else kept in f32
+template <typename Tq, typename Tkv>
+__device__ __forceinline__ float p_for_v(float p) {
+  if constexpr (sizeof(Tq) > sizeof(Tkv))
+    return __bfloat162float(__float2bfloat16_rn(p));
+  else
+    return p;
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -94,7 +143,7 @@ __device__ __forceinline__ float rescale(float m, float M) {
 }
 
 template <typename T, int G, int D>
-struct Tile {
+struct Tile {  // T: the pools' type, which sets the lanes' layout
   static constexpr int VEC = VecT<T>::N;
   static constexpr int LPT = D / VEC;   // lanes per token (divides 32)
   static constexpr int TPW = 32 / LPT;  // tokens per round of a warp's loads
@@ -105,14 +154,14 @@ struct Tile {
   static_assert(D % VEC == 0 && LPT <= 32 && 32 % LPT == 0, "bad D");
 };
 
-template <typename T, int G, int D>
+template <typename Tq, typename Tkv, int G, int D>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+paged_attention_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k_pool,
+                       const Tkv* __restrict__ v_pool,
                        const int* __restrict__ block_tables,
-                       const int* __restrict__ seq_lens, T* __restrict__ out,
+                       const int* __restrict__ seq_lens, Tq* __restrict__ out,
                        int Kh, int page_T, int P, int num_pages, float scale) {
-  using Tl = Tile<T, G, D>;
+  using Tl = Tile<Tkv, G, D>;
   constexpr int VEC = Tl::VEC, LPT = Tl::LPT, TPW = Tl::TPW, R = Tl::R;
 
   __shared__ float w_m[kWarps][G], w_l[kWarps][G];
@@ -139,7 +188,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float qv[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    widen(ld16(q + ((size_t)bk * G + g) * D + li * VEC), qv[g]);
+    load_q(q + ((size_t)bk * G + g) * D + li * VEC, qv[g]);
 
   float m[G], l[G], acc[G][VEC];
 #pragma unroll
@@ -227,9 +276,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         float vv[VEC];
         widen(vr[r], vv);
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+        for (int g = 0; g < G; ++g) {
+          const float p = p_for_v<Tq, Tkv>(s[r][g]);
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(s[r][g], vv[e], acc[g][e]);
+          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
+        }
       }
     }
   }
@@ -297,63 +348,78 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   cluster.sync();  // no CTA leaves while another may read its partial
 }
 
-template <typename T, int G, int D>
+template <typename Tq, typename Tkv, int G, int D>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* bt, const void* lens, void* out, int B, int Kh,
                    int page_T, int P, int num_pages, float scale,
                    cudaStream_t stream) {
-  paged_attention_kernel<T, G, D><<<B * Kh * kSplit, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(bt),
-      static_cast<const int*>(lens), static_cast<T*>(out), Kh, page_T, P,
+  paged_attention_kernel<Tq, Tkv, G, D><<<B * Kh * kSplit, kThreads, 0, stream>>>(
+      static_cast<const Tq*>(q), static_cast<const Tkv*>(k_pool),
+      static_cast<const Tkv*>(v_pool), static_cast<const int*>(bt),
+      static_cast<const int*>(lens), static_cast<Tq*>(out), Kh, page_T, P,
       num_pages, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int G>
+template <typename Tq, typename Tkv, int G>
 cudaError_t by_d(int D, const void* q, const void* k, const void* v,
                  const void* bt, const void* lens, void* out, int B, int Kh,
                  int page_T, int P, int np, float scale, cudaStream_t st) {
   switch (D) {
-    case 32: return launch<T, G, 32>(q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
-    case 64: return launch<T, G, 64>(q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
-    case 128: return launch<T, G, 128>(q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 32: return launch<Tq, Tkv, G, 32>(q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 64: return launch<Tq, Tkv, G, 64>(q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 128: return launch<Tq, Tkv, G, 128>(q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename Tq, typename Tkv>
 cudaError_t by_g(int G, int D, const void* q, const void* k, const void* v,
                  const void* bt, const void* lens, void* out, int B, int Kh,
                  int page_T, int P, int np, float scale, cudaStream_t st) {
   switch (G) {
-    case 1: return by_d<T, 1>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
-    case 2: return by_d<T, 2>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
-    case 4: return by_d<T, 4>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
-    case 8: return by_d<T, 8>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 1: return by_d<Tq, Tkv, 1>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 2: return by_d<Tq, Tkv, 2>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 4: return by_d<Tq, Tkv, 4>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 8: return by_d<Tq, Tkv, 8>(D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Tq>
+cudaError_t by_kv(int kv_dtype, int G, int D, const void* q, const void* k,
+                  const void* v, const void* bt, const void* lens, void* out,
+                  int B, int Kh, int page_T, int P, int np, float scale,
+                  cudaStream_t st) {
+  switch (kv_dtype) {
+    case 0: return by_g<Tq, float>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 1: return by_g<Tq, __nv_bfloat16>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q/out (B, Kh, G, D); pools
-// (num_pages, page_T, Kh, D); block_tables (B, P) int32, clamped here to
-// [0, num_pages); seq_lens (B,) int32.  All contiguous and 16-byte aligned.
+// dtype codes: 0 = float32, 1 = bfloat16; q_dtype is q's and out's,
+// kv_dtype both pools'.  q/out (B, Kh, G, D); pools (num_pages, page_T, Kh,
+// D); block_tables (B, P) int32, clamped here to [0, num_pages); seq_lens
+// (B,) int32.  All contiguous and 16-byte aligned.
 extern "C" int paged_attention(const void* q, const void* k_pool,
                                const void* v_pool, const void* block_tables,
                                const void* seq_lens, void* out, int B, int Kh,
                                int G, int D, int page_T, int P, int num_pages,
-                               float scale, int dtype, void* stream) {
+                               float scale, int q_dtype, int kv_dtype,
+                               void* stream) {
   if (B == 0) return 0;
   if (num_pages < 1 || page_T < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)by_g<float>(G, D, q, k_pool, v_pool, block_tables, seq_lens,
-                            out, B, Kh, page_T, P, num_pages, scale, st);
-  if (dtype == 1)
-    return (int)by_g<__nv_bfloat16>(G, D, q, k_pool, v_pool, block_tables,
-                                    seq_lens, out, B, Kh, page_T, P, num_pages,
-                                    scale, st);
+  if (q_dtype == 0)
+    return (int)by_kv<float>(kv_dtype, G, D, q, k_pool, v_pool, block_tables,
+                             seq_lens, out, B, Kh, page_T, P, num_pages, scale,
+                             st);
+  if (q_dtype == 1)
+    return (int)by_kv<__nv_bfloat16>(kv_dtype, G, D, q, k_pool, v_pool,
+                                     block_tables, seq_lens, out, B, Kh,
+                                     page_T, P, num_pages, scale, st);
   return (int)cudaErrorInvalidValue;
 }

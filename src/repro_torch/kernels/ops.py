@@ -194,11 +194,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens):
     """q: (B, H, D); pools: (num_pages, T, Kh, D); block_tables: (B, P);
-    seq_lens: (B,) → (B, H, D).  Table entries are clamped to
-    ``[0, num_pages)``: by the kernel itself on the card, before the plain
-    version on the CPU.  On the card a call with int32 tables and lengths is
-    one launch whose grid depends only on B and Kh (no host sync, nothing
-    sized by the data), so it can be captured in a CUDA graph."""
+    seq_lens: (B,) → (B, H, D) in q's dtype.  q and the pools may differ in
+    dtype (each float32 or bfloat16; the two pools share one): the
+    arithmetic is the plain version's promotion, in the same one launch.
+    Table entries are clamped to ``[0, num_pages)``: by the kernel itself on
+    the card, before the plain version on the CPU.  On the card a call with
+    int32 tables and lengths is one launch whose grid depends only on B and
+    Kh (no host sync, nothing sized by the data), so it can be captured in a
+    CUDA graph."""
     B, H, D = q.shape
     num_pages, T, Kh, _ = k_pool.shape
     if _on_cpu("paged_attention", q, k_pool, v_pool, block_tables, seq_lens):
@@ -215,14 +218,16 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens):
     if D not in (32, 64, 128) or G not in (1, 2, 4, 8):
         raise ValueError(f"paged_attention: head dim {D} / group {G} not "
                          f"instantiated (D in 32, 64, 128; G in 1, 2, 4, 8)")
-    code = _dtype_code("paged_attention", q, k_pool, v_pool)
+    q_code = _dtype_code("paged_attention", q)
+    kv_code = _dtype_code("paged_attention", k_pool, v_pool)
     bt = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     _check_kernel_inputs("paged_attention", q, k_pool, v_pool, bt, lens, out)
     _launch("paged_attention", q.device, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, Kh, G, D, T, bt.shape[1], num_pages, 1.0 / math.sqrt(D), code)
+            B, Kh, G, D, T, bt.shape[1], num_pages, 1.0 / math.sqrt(D), q_code,
+            kv_code)
     return out
 
 

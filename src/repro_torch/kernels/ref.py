@@ -80,7 +80,9 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     kernel's guards: a split with no live token (m = -inf) adds nothing and
     l is floored at 1e-30, so a zero-length sequence gives zeros (where the
     dense softmax of :func:`paged_attention_ref` gives the mean of V).
-    Softmax math in f32, p kept in f32 as in the kernel.
+    Softmax math in f32, p kept in f32 as in the kernel; where q is wider
+    than the pools, each split's p goes to the pools' dtype before P·V
+    while l sums it unrounded, as the kernel rounds it.
     """
     B, H, D = q.shape
     _, T, Kh, _ = k_pool.shape
@@ -91,6 +93,7 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
     lens = seq_lens.to(q.device).long()
     valid = (torch.arange(P * T, device=q.device).view(P, T)[None]
              < lens[:, None, None])                               # (B, P, T)
+    narrow = q.element_size() > v_pool.element_size()
     parts = []
     for r in range(min(n_split, P)):
         pages = torch.arange(r, P, n_split, device=q.device)
@@ -101,7 +104,8 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, seq_lens, *,
         m = s.amax(-1)
         p = torch.where(m[..., None] == -math.inf, 0.0,
                         torch.exp(s - m[..., None]))
-        parts.append((m, p.sum(-1), torch.einsum("bkgt,btkd->bkgd", p, v)))
+        pv = p.to(v_pool.dtype).float() if narrow else p
+        parts.append((m, p.sum(-1), torch.einsum("bkgt,btkd->bkgd", pv, v)))
     M = torch.stack([m for m, _, _ in parts]).amax(0)
     l = torch.zeros_like(M)
     acc = torch.zeros(B, Kh, G, D, device=q.device)

@@ -112,7 +112,10 @@ class LogStructuredKVPool:
         self.compact_trigger = compact_trigger
         self.compact_batch = compact_batch
 
-        self.core = FrameLog(n_slabs, blocks_per_slab, n_streams=self.n_open)
+        # stream_sample="live": the death-quantile cuts come from the live
+        # blocks' death estimates (the pool can enumerate them)
+        self.core = FrameLog(n_slabs, blocks_per_slab, auto_release_empty=True,
+                             n_streams=self.n_open, stream_sample="live")
         self.core._oom_msg = "KV pool out of slabs (compaction failed)"
         self.core._noroom_msg = "KV pool: no open slab (all slabs sealed+full)"
         # flat per-page views of the core's slot arrays (page = slab*S + slot):

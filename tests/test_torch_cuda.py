@@ -18,6 +18,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.models import Model
 from repro_torch.serving import PagedServingEngine
+from _torch_checks import (PAGED_SHA256, check_paged_close, digest, paged_bar,
+                           paged_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -1064,3 +1066,184 @@ def test_recovered_engine_on_card_traces_its_journal_core(dev, tmp_path,
     journal_sids = set(range(max(first, reng.pool.core.nseg),
                              reng.journal.core.next_sid))
     assert journal_sids and journal_sids <= opened
+
+
+# ------------------------ paged attention with q's dtype apart from the pools'
+
+DTYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+def _pair_id(pair):
+    return "q{}-kv{}".format(*(str(d).removeprefix("torch.") for d in pair))
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids=_pair_id)
+@pytest.mark.parametrize("B,H,Kh,D,T,P,lens", [
+    (6, 16, 8, 128, 16, 20, [0, 1, 128, 257, 320, 7]),
+    (3, 4, 4, 128, 16, 1, [0, 16, 9]),
+    (3, 16, 2, 128, 16, 12, [1, 100, 192]),
+    (3, 8, 1, 32, 8, 9, [0, 72, 65]),
+    (4, 8, 2, 64, 8, 30, [240, 1, 33, 0]),
+    (2, 4, 2, 64, 2, 1100, [2197, 2200]),
+])
+def test_paged_attention_kernel_dtype_pairs(dev, B, H, Kh, D, T, P, lens,
+                                            pair):
+    """Every q / pool dtype pair in one launch, at the split edges, against
+    the plain version (its promotion: f32 softmax, P in the pools' dtype)
+    within the pair's own bar (``_torch_checks.paged_bar``); the output
+    takes q's dtype, and a zero-length row is zeros."""
+    q_dtype, kv_dtype = pair
+    rng = np.random.default_rng(3)
+    _, k_pool, v_pool, bt = _paged_inputs(rng, dev, kv_dtype, B, H, Kh, D, T, P)
+    q = _randn(rng, (B, H, D), q_dtype, dev)
+    lens = torch.tensor(np.asarray(lens, np.int32), device=dev)
+    n0 = ops.launches["paged_attention"]
+    got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_attention"] == n0 + 1
+    assert got.dtype == q_dtype
+    live = lens > 0
+    want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+    bar = paged_bar(q, k_pool, v_pool, bt, lens, want)
+    check_paged_close(got[live], want[live], bar[live])
+    assert not got[~live].float().any()
+
+
+def test_paged_attention_refuses_pools_of_two_dtypes(dev):
+    q = torch.zeros(1, 2, 64, device=dev)
+    k = torch.zeros(2, 8, 2, 64, device=dev)
+    bt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.paged_attention(q, k, k.to(torch.bfloat16), bt, lens)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.paged_attention(q.half(), k, k, bt, lens)
+
+
+@pytest.mark.parametrize("case", list(PAGED_SHA256),
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_same_dtype_is_the_kernel_before_it(dev, case, dtype):
+    out = ops.paged_attention(*paged_case(dtype, dtype, *case))
+    assert digest(out) == PAGED_SHA256[case][dtype == torch.float32]
+
+
+def test_paged_attention_mixed_pair_replays_in_a_cuda_graph(dev):
+    """f32 q over bf16 pools, captured once and replayed after the table
+    and lengths were rewritten in place: one launch, no cast kernel, each
+    replay the plain version's."""
+    rng = np.random.default_rng(7)
+    B, H, Kh, D, T, P = 8, 16, 8, 128, 16, 32
+    n_pages = 2 * B * P
+    _, k_pool, v_pool, bt = _paged_inputs(rng, dev, torch.bfloat16, B, H, Kh,
+                                          D, T, P, n_pages)
+    q = _randn(rng, (B, H, D), torch.float32, dev)
+    lens = torch.from_numpy(rng.integers(1, P * T + 1, B).astype(np.int32)).to(dev)
+    ops.paged_attention(q, k_pool, v_pool, bt, lens)  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = ops.launches["paged_attention"]
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    assert ops.launches["paged_attention"] == n0 + 1
+    for _ in range(3):
+        bt.copy_(torch.from_numpy(rng.permutation(n_pages)[:B * P]
+                                  .reshape(B, P).astype(np.int32)))
+        lens.copy_(torch.from_numpy(rng.integers(0, P * T + 1, B)
+                                    .astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        live = lens > 0
+        want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+        assert out.dtype == torch.float32
+        bar = paged_bar(q, k_pool, v_pool, bt, lens, want)
+        check_paged_close(out[live], want[live], bar[live])
+        assert not out[~live].float().any()
+
+
+def test_f32_params_over_bf16_pool_on_card_match_cpu(dev):
+    """``serve_run``'s stream with f32 parameters over its default bf16
+    pool (the mix ``tests/test_torch_serve.py`` holds against the JAX
+    package on the CPU): the card's row equals the CPU's."""
+    from repro_torch.launch.serve import serve_run
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    rows = []
+    for device in ("cpu", dev):
+        ops.reset_launches()
+        rows.append(serve_run(requests=10, policy="mdc",
+                              model=Model(cfg, _f32(params, device)),
+                              device=device, verbose=False))
+    assert ops.launches["paged_attention"] > 0
+    keys = ("tokens", "finished_digest", "wamp", "compactions", "dispatches",
+            "blocks_moved", "blocks_written")
+    assert {k: rows[1][k] for k in keys} == {k: rows[0][k] for k in keys}
+    assert rows[0]["compactions"] >= 1
+
+
+def test_bf16_params_over_f32_pool_on_card_match_cpu(dev):
+    """bf16 parameters over an f32 pool (the JAX examples/serve_paged.py
+    prefix demo's mix), with the prefix cache on and a shared system
+    prompt: every request finishes on the card with the CPU engine's
+    counters and tokens."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    bf = Model(cfg, device="cpu", seed=0).params
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, cfg.vocab_size, size=32)
+    reqs = [(np.concatenate([system, rng.integers(1, cfg.vocab_size,
+                                                  size=int(n))]), int(m))
+            for n, m in zip(rng.integers(3, 20, 6), rng.integers(4, 16, 6))]
+    out = []
+    for device in ("cpu", dev):
+        model = Model(cfg, _cast(bf, device, torch.bfloat16))
+        eng = PagedServingEngine(model, n_slabs=12, blocks_per_slab=4,
+                                 page_T=8, max_batch=2, max_seq=128,
+                                 prefix_cache=True, pool_dtype=torch.float32,
+                                 device=device)
+        ops.reset_launches()
+        rids = [eng.submit(p, n) for p, n in reqs]
+        eng.run_to_completion()
+        eng.pool.check_invariants()
+        m = eng.metrics()
+        out.append(([eng.finished[r] for r in rids],
+                     {k: m[k] for k in ("dispatches", "blocks_written",
+                                        "prefill_tokens_saved")}))
+    assert ops.launches["paged_attention"] > 0
+    assert out[1][1]["prefill_tokens_saved"] > 0
+    assert out[1] == out[0]
+
+
+# ------------------------ the simulator's victims through mdc_priority
+
+def test_simulator_victims_through_mdc_priority_on_card(dev):
+    """A small store (512 segments of 64 pages, 80:20 hot/cold) through
+    ``DeviceVictimCheck`` on the card, as chip_smoke.py's sim phase runs the
+    paper's store: one launch per cleaning cycle at least, device picks
+    equal to the host's up to near-ties, and the run's counters and arrays
+    those of an unchecked run."""
+    import dataclasses
+    from _torch_checks import DeviceVictimCheck
+    from repro_torch.core.simulator import SimConfig, Simulator
+    cfg = SimConfig(nseg=512, pages_per_seg=64, fill_factor=0.8, policy="mdc",
+                    clean_trigger=8, clean_batch=16, buf_segs=8, seed=0)
+    sims = [Simulator(cfg, workload_name="hot_cold", update_frac=0.8,
+                      data_frac=0.2) for _ in range(2)]
+    n = 2 * 512 * 64
+    sims[0].run(n)
+    check = DeviceVictimCheck(dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with check.installed():
+        sims[1].run(n)
+    torch.cuda.synchronize()
+    rep = check.report()
+    assert rep["cycles"] == sims[1].store.stats.cleanings > 0
+    assert ops.launches["mdc_priority"] >= rep["cycles"]
+    assert rep["kernel_ms_median"] > 0
+    assert dataclasses.asdict(sims[1].store.stats) == \
+        dataclasses.asdict(sims[0].store.stats)
+    for name in ("seg_live", "seg_up2", "seg_state", "page_seg"):
+        assert np.array_equal(getattr(sims[1].store, name),
+                              getattr(sims[0].store, name))
+    sims[1].store.check_invariants()

@@ -23,6 +23,7 @@ from repro.kernels import ref as jref
 from repro.serving.engine import _move_pages_fn
 from repro_torch.core import policies
 from repro_torch.kernels import ops, ref
+from _torch_checks import check_paged_close, paged_bar
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -263,6 +264,38 @@ def test_paged_attention_split_model_matches_pallas_and_ref(H, Kh, D, T, P,
                                f32(jref.paged_attention_ref(*args))[live],
                                **TOL[dtype])
     assert not f32(got)[~live].any()
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "bfloat16"),
+                                              ("bfloat16", "float32")])
+@pytest.mark.parametrize("H,Kh,D,T,P,lens", [
+    (4, 2, 32, 8, 20, [1, 64, 129, 160, 7]),
+    (4, 2, 128, 16, 9, [1, 129, 144]),       # full-width head: D=128, G=2
+])
+def test_paged_bar_covers_the_kernels_rounding(H, Kh, D, T, P, lens, q_dtype,
+                                               kv_dtype):
+    """``_torch_checks.paged_bar``, the card's bar for a q dtype apart from
+    the pools', holds on the CPU for the plain model of the kernel's
+    schedule and rounding (``ref.paged_attention_split_ref``) against the
+    port's plain version, and for the port's plain version against the JAX
+    reference's promotion."""
+    rng = np.random.default_rng(13)
+    B = len(lens)
+    n_pages = B * P + 3
+    jq, q = both(rng.standard_normal((B, H, D), np.float32), q_dtype)
+    jkp, kp = both(rng.standard_normal((n_pages, T, Kh, D), np.float32), kv_dtype)
+    jvp, vp = both(rng.standard_normal((n_pages, T, Kh, D), np.float32), kv_dtype)
+    bt_np = rng.permutation(n_pages)[:B * P].reshape(B, P).astype(np.int32)
+    bt, lens_t = torch.from_numpy(bt_np), torch.tensor(lens, dtype=torch.int32)
+    want = ref.paged_attention_ref(q, kp, vp, bt, lens_t)
+    assert want.dtype == q.dtype
+    bar = paged_bar(q, kp, vp, bt, lens_t, want)
+    model = ref.paged_attention_split_ref(q, kp, vp, bt, lens_t)
+    assert model.dtype == q.dtype
+    check_paged_close(model, want, bar)
+    jwant = jref.paged_attention_ref(jq, jkp, jvp, jnp.asarray(bt_np),
+                                     jnp.asarray(np.asarray(lens, np.int32)))
+    check_paged_close(torch.tensor(f32(jwant)), want, bar)
 
 
 # ----------------------------------------------------------- segment compact
