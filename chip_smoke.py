@@ -179,7 +179,34 @@ Phases, in order; any failure raises and the process exits non-zero:
              launches, the kernel's median ms under this traffic, the share
              of cycles with identical sets, host seconds, Wamp and mean E at
              clean beside ``analysis.min_wamp_hotcold(0.8, 0.8, 0.2)``.
-             Each of the last eight phases zeroes the launch counters before
+15. tp     — tensor-parallel serving on ``torch.distributed``, two ranks
+             of ``gloo`` sharing the one card (one process each, spawned by
+             ``launch.mesh.spawn_ranks``).  (a) At qwen3-1.7b's heads, each
+             rank on 4 of the 8 kv heads: ``paged_attention_sharded`` at
+             the kernels phase's shape (B 8, P 64, bf16) and
+             ``flash_attention_sharded`` at S 1,024 and at the prefix-hit
+             shape (512 rows at offset 512), each bit for bit the
+             unsharded kernel's slice of the same heads, its
+             ``gather_heads`` the whole unsharded output, and within the
+             kernels phase's bars of the plain version on the local heads;
+             timed on rank 0 while rank 1 waits, beside the bound and (flash)
+             ``scaled_dot_product_attention`` on the local heads.  (b) The
+             engine phase's first ``TP_REQUESTS`` requests through a pool of
+             ``TP_SLABS`` slabs (it compacts: ``scripts/rehearse_schedule.py
+             tp``) at full width, bf16, each rank's model cut to its heads
+             (``shard_model``), with ``audit()`` (and the ranks' agreement
+             check) every ``TP_AUDIT_EVERY`` dispatches, beside the unsharded
+             engine on the same stream with the same audits: the ranks'
+             tokens equal, every request finished, the host counters the
+             unsharded run's, the tokens equal to it or parting on a
+             near-tie of the plain decode (``first_mismatches``), pools
+             sharded to 4 kv heads; reported: wall, each rank's launches of
+             the two wrappers, and what each process holds on the card once
+             its engine is built (``memory_allocated``, weight and pool
+             bytes).
+             (c) One ``nccl`` rank in this process (world size 1): tokens
+             and counters bitwise the unsharded run's.
+             Each of the last nine phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
@@ -191,6 +218,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib
 import io
 import json
 import math
@@ -218,15 +246,18 @@ from repro_torch.core import analysis, policies  # noqa: E402
 from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serving import PagedServingEngine, recover_engine  # noqa: E402
 from repro_torch.serving import recovery  # noqa: E402
+from repro_torch.serving.engine import shard_model  # noqa: E402
 from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
 from _torch_checks import (PAGED_SHA256, DeviceVictimCheck,  # noqa: E402
                            check_paged_close, digest, paged_bar, paged_case)
+from _torch_tp import local_heads  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # tensor-core rate, f32 rate outside the tensor cores
@@ -253,7 +284,16 @@ KERNELS = {
     "segment_move": {
         "source": "src/repro_torch/kernels/csrc/segment_move.cu",
         "replaces": "src/repro/kernels/segment_compact.py:33"},
+    # the shard_map wrappers: each rank launches the kernel above on its own
+    # kv heads (src/repro_torch/kernels/ops.py)
+    "paged_attention_sharded": {
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:112"},
+    "flash_attention_sharded": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:144"},
 }
+TP_KERNELS = ("paged_attention_sharded", "flash_attention_sharded")
 # the engine's kernels: each must launch in the engine phase.  segment_compact
 # is off the engine's path since the move is one fused kernel (its launches
 # there are 0); mdc_priority's path is the victims phase.
@@ -329,6 +369,16 @@ MIXED_LEGS = (("f32_params_bf16_pool", torch.float32, torch.bfloat16),
 SIM_WORKLOAD = dict(update_frac=0.8, data_frac=0.2)
 SIM_UPDATES = PAPER.nseg * PAPER.pages_per_seg
 SIM_WARMUP = 0.5
+# the tp phase: two gloo ranks on the one card, the engine phase's first 8
+# requests through a pool of 12 slabs (``scripts/rehearse_schedule.py tp
+# 12``: 4 compactions, 114 moves, 34 dispatches), audit() every 8
+TP_RANKS = 2
+TP_REQUESTS = 8
+TP_SLABS = 12
+TP_AUDIT_EVERY = 8
+TP_TIMEOUT_S = 300   # the ranks took ~45 s: a hung collective fails the run
+COUNTERS = ("dispatches", "blocks_written", "blocks_moved", "compactions",
+            "wamp")
 
 
 def emit(obj) -> None:
@@ -892,6 +942,12 @@ def serve(model, requests, setup=None, **kw) -> dict:
     is the longest any decoding slot waited for its next tokens.
     ``setup(engine)`` runs before the first submission."""
     eng = PagedServingEngine(model, **{**POOL, **kw}, device="cuda")
+    # what this process holds on the card once the engine is built: its
+    # weights and pools, and anything else still alive in it
+    memory = {"memory_allocated": torch.cuda.memory_allocated(),
+              "param_bytes": sum(t.numel() * t.element_size()
+                                 for _, t in flatten(eng.params)),
+              "pool_bytes": 2 * eng.k_pools.numel() * eng.k_pools.element_size()}
     if setup is not None:
         setup(eng)
     events, steps = [], []
@@ -923,6 +979,7 @@ def serve(model, requests, setup=None, **kw) -> dict:
         if len(t) != n:
             raise AssertionError(f"a request emitted {len(t)} tokens, want {n}")
     return {"tokens": tokens, "metrics": eng.metrics(), "wall_s": wall,
+            "memory": memory,
             "prefill_stream_ms": sum(a.elapsed_time(b) for a, b in events),
             "prefills": len(events),
             "dispatch_ms": [a.elapsed_time(b) for (a, b), d in zip(steps, dispatched)
@@ -1889,6 +1946,253 @@ def phase_sim(smi) -> dict:
     return launches
 
 
+def tp_paged(rank, mesh) -> tuple:
+    """(a) ``paged_attention_sharded`` on this rank's kv heads at the
+    kernels phase's shape (B 8, P 64, Kh 8, G 2, D 128, 16-token pages,
+    bf16): bit for bit the unsharded kernel's slice of the same heads, its
+    gather the whole unsharded output, within ``paged_bar`` of the plain
+    version on the local heads.  Returns (result, kernel, plain, library)."""
+    n = mesh.size()
+    Kh, G, D, T, B, P = 8, 2, 128, 16, 8, 64
+    q, k_pool, v_pool, bt, lens = paged_case(torch.bfloat16, torch.bfloat16,
+                                             B, P, Kh, G, D, T, seed=SEED)
+    ql = local_heads(q, 1, rank, n)
+    kl, vl = (local_heads(t, 2, rank, n) for t in (k_pool, v_pool))
+    n0 = ops.launches["paged_attention_sharded"]
+    got = ops.paged_attention_sharded(ql, kl, vl, bt, lens, mesh=mesh)
+    per_call = ops.launches["paged_attention_sharded"] - n0
+    whole = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    bitwise = torch.equal(got, local_heads(whole, 1, rank, n))
+    gathered = torch.equal(ops.gather_heads(got, mesh), whole)
+    if per_call != 1 or not (bitwise and gathered):
+        raise AssertionError(f"paged_attention_sharded rank {rank}: "
+                             f"{per_call} launches, bitwise {bitwise}, "
+                             f"gathered {gathered}")
+    want = ref.paged_attention_ref(ql, kl, vl, bt, lens)
+    share = check_paged_close(got, want, paged_bar(ql, kl, vl, bt, lens, want))
+    n_tok, Hl, Khl = int(lens.sum()), Kh * G // n, Kh // n
+    n_bytes = (2 * n_tok * Khl * D * 2 + 2 * B * Hl * D * 2
+               + 4 * int(((lens + T - 1) // T).sum()) + 4 * B)
+    b_ms, b_by = bound(n_bytes, 4.0 * n_tok * Hl * D, torch.bfloat16)
+    result = {"rank": rank, "max_abs_err": max_err(got, want),
+              "bar_share": share, "bitwise_unsharded_slice": bitwise,
+              "gathered_equal_unsharded": gathered,
+              "launches_per_call": per_call, "bound_ms": b_ms,
+              "bound_by": b_by,
+              "shape": {"B": B, "Kh_local": Khl, "G": G, "D": D,
+                        "page_T": T, "P": P, "tokens": n_tok}}
+    return (result,
+            lambda: ops.paged_attention_sharded(ql, kl, vl, bt, lens,
+                                                mesh=mesh),
+            lambda: ref.paged_attention_ref(ql, kl, vl, bt, lens), None)
+
+
+def tp_flash(rank, mesh, Sq: int, Skv: int = 1024) -> tuple:
+    """(a) ``flash_attention_sharded`` on this rank's heads (H 16 / Kh 8
+    whole, D 128, bf16, the tensor-core route): ``Sq`` query rows at offset
+    ``Skv - Sq`` over ``Skv`` keys, causal.  Bit for bit the unsharded
+    kernel's slice of the same heads, its gather the whole unsharded
+    output, within 2e-2 of the plain version.  Returns (result, kernel,
+    plain, library): the library is ``scaled_dot_product_attention`` on the
+    local heads (kv heads expanded, lower-right causal mask)."""
+    from torch.nn.attention.bias import causal_lower_right
+    n = mesh.size()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, Kh, D, off = 1, 16, 8, 128, Skv - Sq
+    q_all = torch.randn(B, Skv, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, Skv, Kh, D, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, Skv, Kh, D, generator=g, device="cuda").to(torch.bfloat16)
+    q = q_all[:, off:]
+    ql, kl, vl = (local_heads(t, 2, rank, n) for t in (q, k, v))
+    r0 = ops.flash_routes["wgmma"]
+    got = ops.flash_attention_sharded(ql, kl, vl, mesh=mesh, causal=True,
+                                      q_offset=off)
+    whole = ops.flash_attention(q, k, v, causal=True, q_offset=off)
+    bitwise = torch.equal(got, local_heads(whole, 2, rank, n))
+    gathered = torch.equal(ops.gather_heads(got, mesh), whole)
+    if ops.flash_routes["wgmma"] != r0 + 2 or not (bitwise and gathered):
+        raise AssertionError(f"flash_attention_sharded rank {rank} Sq {Sq}: "
+                             f"bitwise {bitwise}, gathered {gathered}, or "
+                             f"not on the tensor-core route")
+    want = ref.flash_attention_ref(ql, kl, vl, causal=True, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+    Hl, Khl = H // n, Kh // n
+    qh = ql.transpose(1, 2).contiguous()
+    k_h, v_h = (t.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
+                for t in (kl, vl))
+    mask = causal_lower_right(Sq, Skv)
+    n_bytes = (2 * B * Hl * Sq * D + 2 * B * Khl * Skv * D) * 2
+    flops = 4.0 * B * Hl * D * (Sq * off + Sq * (Sq + 1) / 2)
+    b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
+    result = {"rank": rank, "max_abs_err": max_err(got, want),
+              "bitwise_unsharded_slice": bitwise,
+              "gathered_equal_unsharded": gathered, "flash_route": "wgmma",
+              "q_offset": off, "bound_ms": b_ms, "bound_by": b_by,
+              "shape": {"B": B, "H_local": Hl, "Kh_local": Khl, "Sq": Sq,
+                        "Skv": Skv, "D": D, "causal": True}}
+    return (result,
+            lambda: ops.flash_attention_sharded(ql, kl, vl, mesh=mesh,
+                                                causal=True, q_offset=off),
+            lambda: ref.flash_attention_ref(ql, kl, vl, causal=True,
+                                            q_offset=off),
+            lambda: F.scaled_dot_product_attention(qh, k_h, v_h,
+                                                   attn_mask=mask))
+
+
+def tp_rank(rank, device, cfg, requests) -> dict:
+    """One rank of the tp phase (spawned: ``spawn_ranks`` imports it from
+    this module by name).  (a) the wrappers' checks on this rank's heads,
+    timed on rank 0 alone while the other rank waits at a barrier; (b)
+    the sharded engine over ``requests`` at full width, bf16, launch
+    counters zeroed just before it and read just after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(TP_RANKS)
+    checks = {"paged": tp_paged(rank, mesh),
+              "flash": tp_flash(rank, mesh, 1024),
+              "flash_hit": tp_flash(rank, mesh, 512)}
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    if rank == 0:
+        timer = Timer()
+        for result, kernel, plain, library in checks.values():
+            if library is None:
+                result["kernel_ms"], result["library_ms"] = timer(kernel), None
+            else:
+                result["kernel_ms"], result["library_ms"] = timer(kernel,
+                                                                  library)
+            result["plain_ms"] = timer(plain)
+        del timer
+    torch.distributed.barrier()
+    kernels = {k: c[0] for k, c in checks.items()}
+    del checks
+    torch.cuda.empty_cache()
+    # the rank's model holds only its heads of wq / wk / wv
+    model = shard_model(Model(cfg, device=device, seed=SEED), mesh)
+    held = []
+    run = serve(model, requests, setup=held.append, mesh=mesh,
+                n_slabs=TP_SLABS, audit_every=TP_AUDIT_EVERY)
+    eng = held.pop()
+    held_summary = {"pool_sharded": eng._pool_sharded,
+                    "pool_shape": list(eng.k_pools.shape), **run["memory"]}
+    del eng, model
+    return {"kernels": kernels,
+            "engine": {"tokens": run["tokens"], "metrics": run["metrics"],
+                       "launches": run["launches"],
+                       "flash_routes": run["flash_routes"],
+                       "stream": stream_summary(run), **held_summary}}
+
+
+def tp_nccl_one(model, requests) -> dict:
+    """(c) The engine over a one-rank ``nccl`` mesh in this process."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    store = torch.distributed.FileStore(os.path.join(root, "store"), 1)
+    torch.distributed.init_process_group("nccl", store=store, rank=0,
+                                         world_size=1)
+    try:
+        mesh = make_serving_mesh(1)
+        return serve(model, requests, mesh=mesh, n_slabs=TP_SLABS,
+                     audit_every=TP_AUDIT_EVERY)
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tp(cfg, smi) -> tuple[dict, dict]:
+    """Tensor-parallel serving (docstring, phase 15): the unsharded engine
+    and the one-rank ``nccl`` engine in this process, then two ``gloo``
+    ranks on the card (this process's weights freed first).  Returns the
+    rank-0 launches of the sharded run and the wrappers' kernel lines."""
+    prompts, news = engine_requests(cfg.vocab_size)
+    requests = [(p, int(n)) for p, n in zip(prompts[:TP_REQUESTS],
+                                             news[:TP_REQUESTS])]
+    model = Model(cfg, device="cuda", seed=SEED)
+    base = serve(model, requests, n_slabs=TP_SLABS,
+                 audit_every=TP_AUDIT_EVERY)
+    nccl = tp_nccl_one(model, requests)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = []
+    counters = {k: base["metrics"][k] for k in COUNTERS}
+    if base["metrics"]["compactions"] < 1:
+        failures.append("the unsharded run never compacted")
+    nccl_counters = {k: nccl["metrics"][k] for k in COUNTERS}
+    nccl_equal = nccl["tokens"] == base["tokens"] and nccl_counters == counters
+    if not nccl_equal:
+        failures.append(f"nccl world size 1: tokens or counters "
+                        f"{nccl_counters} differ from the unsharded "
+                        f"{counters}")
+    if min(nccl["launches"][k] for k in TP_KERNELS) == 0:
+        failures.append(f"nccl world size 1 never launched a sharded "
+                        f"wrapper: {nccl['launches']}")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(importlib.import_module("chip_smoke").tp_rank,
+                        TP_RANKS, cfg, requests, backend="gloo",
+                        device="cuda", timeout_s=TP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    engines = [r["engine"] for r in ranks]
+    tokens = engines[0]["tokens"]
+    if any(e["tokens"] != tokens for e in engines[1:]):
+        failures.append("the ranks' tokens differ")
+    for rank, e in enumerate(engines):
+        got = {k: e["metrics"][k] for k in COUNTERS}
+        if got != counters:
+            failures.append(f"rank {rank}: counters {got} != unsharded "
+                            f"{counters}")
+        if not e["pool_sharded"] or e["pool_shape"][3] != cfg.n_kv_heads // TP_RANKS:
+            failures.append(f"rank {rank}: pools {e['pool_shape']} not "
+                            f"sharded to {cfg.n_kv_heads // TP_RANKS} kv heads")
+        if min(e["launches"][k] for k in TP_KERNELS) == 0:
+            failures.append(f"rank {rank} never launched a sharded wrapper: "
+                            f"{e['launches']}")
+    differ = [i for i, (a, b) in enumerate(zip(tokens, base["tokens"]))
+              if a != b]
+    mism = []
+    if differ:
+        model = Model(cfg, device="cuda", seed=SEED)
+        mism = first_mismatches(model, cfg, [requests[i] for i in differ],
+                                [tokens[i] for i in differ], torch.bfloat16)
+        del model
+        torch.cuda.empty_cache()
+        if not all(x["near_tie"] for x in mism):
+            failures.append(f"sharded tokens part from the plain decode off "
+                            f"a near-tie: {mism}")
+    out = {"phase": "tp", "card": smi, "model": cfg.name, "dtype": "bfloat16",
+           "ranks": TP_RANKS, "backend": "gloo", "requests": len(requests),
+           "n_slabs": TP_SLABS, "kernels": [r["kernels"] for r in ranks],
+           "unsharded": {"counters": counters, **stream_summary(base),
+                         "memory": base["memory"]},
+           "sharded": {
+               "tokens_equal_unsharded": not differ,
+               "requests_differing": differ, "mismatches": mism,
+               "counters": {k: engines[0]["metrics"][k] for k in COUNTERS},
+               "pool_shape": engines[0]["pool_shape"],
+               "memory_per_rank": [
+                   {k: e[k] for k in ("memory_allocated", "param_bytes",
+                                      "pool_bytes")} for e in engines],
+               "wrapper_launches_per_rank": [
+                   {k: e["launches"][k] for k in TP_KERNELS}
+                   for e in engines],
+               "streams": [e["stream"] for e in engines],
+               "spawn_s": spawn_s},
+           "nccl_world_1": {"bitwise_equal": nccl_equal,
+                            "counters": nccl_counters,
+                            "wrapper_launches": {k: nccl["launches"][k]
+                                                 for k in TP_KERNELS},
+                            **stream_summary(nccl)},
+           "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"tp phase: {failures}")
+    lead = ranks[0]["kernels"]
+    return engines[0]["launches"], {
+        "paged_attention_sharded": lead["paged"],
+        "flash_attention_sharded": lead["flash"]}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1909,10 +2213,16 @@ def main() -> None:
     paths["serve"] = phase_serve(cfg, mono, smi)
     paths["mixed"] = phase_mixed(cfg, smi)
     paths["sim"] = phase_sim(smi)
+    torch.cuda.empty_cache()
+    paths["tp"], tp_results = phase_tp(cfg, smi)
+    results.update(tp_results)
+    for name in TP_KERNELS:
+        launches[name] = paths["tp"][name]
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims, sim" if name == "mdc_priority" else "engine"
-                  if name in ENGINE_KERNELS else "none"),
+                  if name in ENGINE_KERNELS else "tp" if name in TP_KERNELS
+                  else "none"),
          "launches": launches[name],
          "path_launches": {p: n[name] for p, n in paths.items()},
          "ms": results[name]["kernel_ms"],

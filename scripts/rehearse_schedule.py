@@ -9,6 +9,7 @@ the CPU, to size a pool before a run on the card.
     PYTHONPATH=src python3 scripts/rehearse_schedule.py async 30
     PYTHONPATH=src python3 scripts/rehearse_schedule.py async-f32 8
     PYTHONPATH=src python3 scripts/rehearse_schedule.py recovery 30
+    PYTHONPATH=src python3 scripts/rehearse_schedule.py tp 12
 
 Without a stop token the pool's decisions (admission, placement, cleaning,
 preemption, prefix hits) depend on the prompts' lengths and shared pages,
@@ -32,7 +33,9 @@ snapshots and the seqs of the three cuts ``chip_smoke.recovery_cuts``
 picks), a recovery from each cut (records replayed, sequences resumed,
 requests requeued, tokens replayed), the kill inside the async window (its
 dispatch) and the f32 leg's middle cut: the ``RECOVERY_REHEARSED`` that
-``chip_smoke.py`` asserts.
+``chip_smoke.py`` asserts.  ``tp`` is the tp phase's stream, the engine
+phase's first ``chip_smoke.TP_REQUESTS`` requests (its pool compacts at
+``chip_smoke.TP_SLABS``; the sharded engine plans as the unsharded one).
 """
 
 from __future__ import annotations
@@ -143,6 +146,11 @@ def main() -> None:
         reqs = chip_smoke.long_requests(full.vocab_size,
                                         chip_smoke.ASYNC_F32_NEW)
         kw = dict(async_compaction=True)
+    elif stream == "tp":
+        prompts, news = chip_smoke.engine_requests(full.vocab_size)
+        n = chip_smoke.TP_REQUESTS
+        reqs = [(p, int(m)) for p, m in zip(prompts[:n], news[:n])]
+        kw = {}
     elif stream in ("chunked", "engine", "async"):
         prompts, news = chip_smoke.engine_requests(full.vocab_size)
         reqs = [(p, int(n)) for p, n in zip(prompts, news)]
@@ -150,7 +158,8 @@ def main() -> None:
               "engine": {}, "async": dict(async_compaction=True)}[stream]
     else:
         raise SystemExit(f"unknown stream {stream!r}: preemption, prefix, "
-                         f"chunked, engine, async, async-f32 or recovery")
+                         f"chunked, engine, async, async-f32, recovery or "
+                         f"tp")
     for n_slabs in slabs:
         eng = PagedServingEngine(model, **{**chip_smoke.POOL, **kw,
                                            "n_slabs": n_slabs},

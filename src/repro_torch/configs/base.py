@@ -92,3 +92,10 @@ class ModelConfig:
         if self.n_enc_layers:
             kw.update(n_enc_layers=2)
         return self.with_(**kw)
+
+    def tp_smoke(self) -> "ModelConfig":
+        """Smoke config with tensor-parallel-friendly head counts (16 q /
+        8 kv): enough kv heads for an 8-way "model" mesh to really shard the
+        serving K/V pools (the plain smoke()'s 2 kv heads would fall back to
+        replication)."""
+        return self.smoke().with_(n_heads=16, n_kv_heads=8)

@@ -43,6 +43,7 @@ with it.  Both are ``None`` by default, and then cost one check.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -1021,6 +1022,8 @@ class JournalLog:
     def __init__(self, root: str | os.PathLike, *,
                  seg_bytes: int = 256 * 1024, fsync: bool = False):
         self.root = Path(root)
+        # writes its segment files (false only for a :meth:`mirror`)
+        self.persist = True
         self.root.mkdir(parents=True, exist_ok=True)
         self.seg_bytes = int(seg_bytes)
         self.fsync = bool(fsync)
@@ -1077,24 +1080,27 @@ class JournalLog:
             self._fh = open(self._seg_path(last), "ab")
 
     def _rotate(self) -> None:
-        if self._fh is not None:
-            self._fh.close()
+        if self._cur_sid is not None:
+            if self._fh is not None:
+                self._fh.close()
             self.core.seal(self._cur_sid)
         self._cur_sid = self.core.alloc()
-        self._fh = open(self._seg_path(self._cur_sid), "ab")
+        if self.persist:
+            self._fh = open(self._seg_path(self._cur_sid), "ab")
 
     def append(self, payload: bytes) -> int:
         """Durably append one record; returns its seq."""
-        if self._fh is None or \
+        if self._cur_sid is None or \
                 int(self.core.seg_written[self._cur_sid]) >= self.seg_bytes:
             self._rotate()
         seq = self.next_seq
         frame = self._HDR.pack(len(payload), zlib.crc32(payload), seq) + payload
         off = int(self.core.seg_written[self._cur_sid])
-        self._fh.write(frame)
-        self._fh.flush()
-        if self.fsync:
-            os.fsync(self._fh.fileno())
+        if self.persist:
+            self._fh.write(frame)
+            self._fh.flush()
+            if self.fsync:
+                os.fsync(self._fh.fileno())
         self.core.append_bytes(self._cur_sid, len(frame), 0.0, kind="user")
         self._index[seq] = (self._cur_sid, off, len(frame))
         self.next_seq = seq + 1
@@ -1107,6 +1113,9 @@ class JournalLog:
 
     def records(self, start_seq: int = 0):
         """(seq, payload bytes) of the live records, in seq order."""
+        if not self.persist:
+            raise RuntimeError("a journal mirror holds no records: read the "
+                               "writer's journal")
         by_sid: dict[int, list[tuple[int, int, int]]] = {}
         for seq, (sid, off, size) in self._index.items():
             if seq >= start_seq:
@@ -1138,13 +1147,17 @@ class JournalLog:
         victims = np.nonzero(empty)[0]
         if len(victims):
             self.core.evacuate_accounting(victims)   # E = 1, zero moves
-            for sid in victims:
-                self._seg_path(int(sid)).unlink(missing_ok=True)
+            if self.persist:
+                for sid in victims:
+                    self._seg_path(int(sid)).unlink(missing_ok=True)
         return len(victims)
 
     def check_tail(self) -> None:
         """Audit hook: the open segment re-parses cleanly end to end and the
-        last durable record's seq matches the in-memory cursor."""
+        last durable record's seq matches the in-memory cursor (a mirror
+        has no file to check)."""
+        if not self.persist:
+            return
         if self._cur_sid is None:
             assert not self._index, "live records with no segment open"
             return
@@ -1163,3 +1176,16 @@ class JournalLog:
                 os.fsync(self._fh.fileno())
             self._fh.close()
             self._fh = None
+
+    def mirror(self) -> "JournalLog":
+        """A copy of this journal's accounting that writes and reads no file
+        (``persist`` false): what a tensor-parallel serving rank other than
+        the writer keeps.  It appends and compacts the same records as the
+        writer, so its sequence numbers, byte counts and Wamp (and its
+        engine's ``metrics()``) are the writer's; it is picklable, for the
+        broadcast from the writer."""
+        m = copy.copy(self)
+        m.persist, m.fsync, m._fh = False, False, None
+        m.core = copy.deepcopy(self.core)
+        m._index = dict(self._index)
+        return m

@@ -13,6 +13,16 @@ whole prompt) or later (a continuation after a cached prefix), and
 directly and staged, and ``stream_launches`` splits each kernel's launches
 by the CUDA stream they went to (keyed by the stream's handle, as
 ``torch.cuda.Stream.cuda_stream`` gives it).
+
+Tensor-parallel serving (``mesh=``, a ``"model"`` ``DeviceMesh`` of one
+process per rank): :func:`paged_attention_sharded` and
+:func:`flash_attention_sharded` are the counterparts of the JAX package's
+``shard_map`` wrappers.  Each rank passes its own kv heads' slice and
+launches the same kernel on it; heads are independent, so a rank's output
+is its heads' slice of the unsharded call.  :func:`gather_heads`
+all-gathers the per-head context in rank order, so the cross-head output
+projection runs in full on every rank.  The two wrappers count their
+launches under their own names as well as under the kernel's.
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ import torch
 from . import build, ref
 
 launches = {"paged_attention": 0, "segment_compact": 0, "flash_attention": 0,
-            "mdc_priority": 0, "segment_move": 0}
+            "mdc_priority": 0, "segment_move": 0,
+            "paged_attention_sharded": 0, "flash_attention_sharded": 0}
 # flash_attention launches by route: tensor cores (bf16, D in 64 / 128) or
 # CUDA cores (f32, other head dims)
 flash_routes = {"wgmma": 0, "simt": 0}
@@ -172,14 +183,19 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    mesh=None):
     """q: (B, Sq, H, D); k/v: (B, Skv, Kh, D) → (B, Sq, H, D): the model's
     head-interleaved layout, read in place (no transposes).  Query row i
     sits at absolute position ``q_offset + i`` (causal: it attends keys
     ``0 .. q_offset + i``), as after a cached prefix of ``q_offset``
     tokens.  On the card a row's result depends only on its absolute
     position, so ``flash_attention(q[:, P:], k, v, q_offset=P)`` is bit for
-    bit the rows ``P:`` of ``flash_attention(q, k, v)``."""
+    bit the rows ``P:`` of ``flash_attention(q, k, v)``.  With ``mesh``,
+    q / k / v are this rank's heads: :func:`flash_attention_sharded`."""
+    if mesh is not None:
+        return flash_attention_sharded(q, k, v, mesh=mesh, causal=causal,
+                                       q_offset=q_offset)
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
@@ -192,7 +208,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     return out
 
 
-def paged_attention(q, k_pool, v_pool, block_tables, seq_lens):
+def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
+                    mesh=None):
     """q: (B, H, D); pools: (num_pages, T, Kh, D); block_tables: (B, P);
     seq_lens: (B,) → (B, H, D) in q's dtype.  q and the pools may differ in
     dtype (each float32 or bfloat16; the two pools share one): the
@@ -201,7 +218,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens):
     the card, before the plain version on the CPU.  On the card a call with
     int32 tables and lengths is one launch whose grid depends only on B and
     Kh (no host sync, nothing sized by the data), so it can be captured in a
-    CUDA graph."""
+    CUDA graph.  With ``mesh``, q and the pools are this rank's heads:
+    :func:`paged_attention_sharded`."""
+    if mesh is not None:
+        return paged_attention_sharded(q, k_pool, v_pool, block_tables,
+                                       seq_lens, mesh=mesh)
     B, H, D = q.shape
     num_pages, T, Kh, _ = k_pool.shape
     if _on_cpu("paged_attention", q, k_pool, v_pool, block_tables, seq_lens):
@@ -229,6 +250,62 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens):
             B, Kh, G, D, T, bt.shape[1], num_pages, 1.0 / math.sqrt(D), q_code,
             kv_code)
     return out
+
+
+def _count_sharded(name: str, *tensors) -> None:
+    """A sharded wrapper's own launch count: one where its kernel launched
+    (a tensor on the card), none for the plain version on the CPU."""
+    if tensors[0].device.type == "cuda":
+        launches[name] += 1
+
+
+def paged_attention_sharded(q, k_pool, v_pool, block_tables, seq_lens, *,
+                            mesh):
+    """Tensor-parallel paged attention, one rank of ``mesh``: q (B, H/n, D)
+    and the pools (num_pages, T, Kh/n, D) are this rank's kv heads (and
+    their query groups), the block tables and lengths are every rank's
+    (one host plan, global page ids).  Launches the paged kernel on the
+    local heads (grid (B, Kh/n), one launch) and returns them, (B, H/n, D):
+    each head's softmax runs whole on its rank, so the result is those
+    heads' slice of the unsharded call, and no rank talks to another.
+    :func:`gather_heads` joins the ranks' heads."""
+    _check_mesh("paged_attention_sharded", mesh)
+    out = paged_attention(q, k_pool, v_pool, block_tables, seq_lens)
+    _count_sharded("paged_attention_sharded", q)
+    return out
+
+
+def flash_attention_sharded(q, k, v, *, mesh, causal: bool = True,
+                            q_offset: int = 0):
+    """Tensor-parallel flash attention, one rank of ``mesh``: q
+    (B, Sq, H/n, D) and k / v (B, Skv, Kh/n, D) are this rank's heads, with
+    the group size of the unsharded call.  Launches the flash kernel on
+    them and returns (B, Sq, H/n, D), those heads' slice of the unsharded
+    call; :func:`gather_heads` joins the ranks' heads."""
+    _check_mesh("flash_attention_sharded", mesh)
+    out = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    _count_sharded("flash_attention_sharded", q)
+    return out
+
+
+def _check_mesh(name: str, mesh) -> None:
+    if tuple(mesh.mesh_dim_names or ()) != ("model",):
+        raise ValueError(f"{name}: wants a 1-D mesh named 'model', got "
+                         f"{mesh.mesh_dim_names}")
+
+
+def gather_heads(o_local, mesh):
+    """All-gather the ranks' heads of ``o_local`` (..., H/n, D) along its
+    head axis in rank order → (..., H, D) on every rank: the counterpart of
+    the JAX engine's replicated-sharding constraint before the output
+    projection.  The ranks exchange the tensors where they lie (on the
+    card, also through ``gloo``, which stages them through the host)."""
+    _check_mesh("gather_heads", mesh)
+    group = mesh.get_group("model")
+    o_local = o_local.contiguous()
+    parts = [torch.empty_like(o_local) for _ in range(mesh.size())]
+    torch.distributed.all_gather(parts, o_local, group=group)
+    return torch.cat(parts, dim=-2)
 
 
 def segment_compact(pool, src_idx):

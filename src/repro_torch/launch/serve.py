@@ -9,6 +9,15 @@ the same rows and digest, the same observability outputs, on ``--device``
 (the CUDA card by default; ``--device cpu`` runs every kernel's plain
 version).  On the card the kernels are built before the timed loop, so no
 compile time lands in tokens/s.
+
+``--mesh N`` serves tensor-parallel over N ranks, one process each
+(``launch.mesh.spawn_ranks``; rank r on card ``r % device_count``) in a
+process group of ``--dist-backend``: ``nccl`` (the default) wants a card
+per rank, ``gloo`` also runs several ranks on one card or on the CPU.
+Every rank serves the same requests; rank 0 prints the rows and carries
+the trace, the phase log, the metrics series and the calibration.  The
+open loop (``--arrival-rate``) is not served under a mesh: its arrivals
+follow each rank's own clock, so the ranks would part.
 """
 
 from __future__ import annotations
@@ -23,7 +32,9 @@ from ..configs import ARCHS, get_config
 from ..device import resolve_device
 from ..distributed.fault import FailureInjector
 from ..models import Model
+from .mesh import make_serving_mesh, spawn_ranks
 from ..serving import AdmissionShed, PagedServingEngine
+from ..serving.engine import shard_model
 
 
 def _open_loop(eng, reqs, rate: float, rng) -> tuple[int, dict]:
@@ -111,7 +122,7 @@ def serve_run(*, arch: str = "qwen3-1.7b", requests: int = 14,
               metrics_file: str | None = None, calibration: bool = False,
               phase_log: bool = False,
               async_compaction: bool = False, clean_budget: int = 0,
-              device=None, verbose: bool = True) -> dict:
+              device=None, mesh=None, verbose: bool = True) -> dict:
     """One engine run over a request stream; returns metrics.
 
     ``prefix_cache`` turns on shared-prefix KV reuse; ``shared_prefix_len``
@@ -140,7 +151,19 @@ def serve_run(*, arch: str = "qwen3-1.7b", requests: int = 14,
     blocks moved per dispatch (0 = the scheduler default).
 
     ``device``: the CUDA card unless the caller asks for the CPU; a
-    ``model`` given must live there."""
+    ``model`` given must live there.
+
+    ``mesh`` (tensor-parallel, one call per rank with the same arguments):
+    each rank serves the same requests on its kv heads; rank 0 alone traces,
+    logs phases, samples metrics, calibrates and prints.  The open loop is
+    refused under a mesh (its arrivals follow each rank's clock)."""
+    if mesh is not None:
+        if arrival_rate > 0:
+            raise ValueError("the open loop is not served under a mesh: its "
+                             "arrivals follow each rank's own clock")
+        if mesh.get_local_rank("model") != 0:
+            trace, metrics_every, calibration = None, 0, False
+            phase_log = verbose = False
     if n_open is not None:
         warnings.warn("n_open= is deprecated; use streams=",
                       DeprecationWarning, stacklevel=2)
@@ -149,6 +172,8 @@ def serve_run(*, arch: str = "qwen3-1.7b", requests: int = 14,
     dev = resolve_device(device)
     if model is None:
         model = Model(get_config(arch).smoke(), device=dev, seed=0)
+        if mesh is not None:     # the rank keeps only its heads
+            model = shard_model(model, mesh)
     rng = np.random.default_rng(seed)
     tracer = None
     if trace:
@@ -177,7 +202,7 @@ def serve_run(*, arch: str = "qwen3-1.7b", requests: int = 14,
                              metrics_sink=metrics_file,
                              phase_log=phase_log,
                              async_compaction=async_compaction,
-                             clean_budget=clean_budget, device=dev)
+                             clean_budget=clean_budget, device=dev, mesh=mesh)
     if dev.type == "cuda":
         # build the kernels outside the timed loop (nvcc, or a load of the
         # cached libraries)
@@ -376,9 +401,49 @@ def main() -> list[dict]:
                     help="async compaction: max blocks moved per dispatch "
                          "at steady state (0 = scheduler default; the "
                          "budget self-raises with the free-slab deficit)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="tensor-parallel serving over N ranks, one process "
+                         "each, the kv heads split among them (0 = one "
+                         "process, no mesh)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default="nccl",
+                    help="process-group backend under --mesh: nccl (one "
+                         "card per rank) or gloo (ranks may share a card, "
+                         "or run on the CPU)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if args.mesh and args.arrival_rate:
+        ap.error("--arrival-rate is not served under --mesh")
 
+    if args.mesh:
+        if resolve_device(args.device).type == "cuda":
+            from ..kernels import build
+            build.build()   # once, before the ranks load the libraries
+        results = spawn_ranks(_serve_rank, args.mesh, args,
+                              backend=args.dist_backend,
+                              device=args.device)[0]
+    else:
+        model = Model(get_config(args.arch).smoke(), device=args.device,
+                      seed=0)
+        results = _serve_policies(args, model, args.device)
+    best = min(results, key=lambda r: r["wamp"])
+    print(f"[serve] lowest block-move overhead: {best['policy']} "
+          f"(Wamp {best['wamp']:.3f})")
+    return results
+
+
+def _serve_rank(rank, device, args) -> list[dict]:
+    """One rank of ``--mesh``: the smoke model drawn from the same seed on
+    every rank and cut to the rank's heads, every policy through
+    ``serve_run`` on the mesh."""
+    mesh = make_serving_mesh(args.mesh, device.type)
+    model = shard_model(Model(get_config(args.arch).smoke(), device=device,
+                              seed=0), mesh)
+    return _serve_policies(args, model, device, mesh)
+
+
+def _serve_policies(args, model, device, mesh=None) -> list[dict]:
+    """One ``serve_run`` row per policy of the parsed command line."""
     injector = None
     if args.inject_fault:
         probs = {}
@@ -386,41 +451,35 @@ def main() -> list[dict]:
             op, _, p = spec.partition(":")
             probs[op] = float(p or 0.05)
         injector = FailureInjector(transient_prob=probs, seed=args.seed)
-
-    model = Model(get_config(args.arch).smoke(), device=args.device, seed=0)
-    results = [serve_run(arch=args.arch, requests=args.requests, policy=p,
-                         seed=args.seed, n_open=args.n_open,
-                         streams=args.streams,
-                         demote_survivors=args.demote, model=model,
-                         max_decode_chunk=args.chunk,
-                         prefix_cache=args.prefix_cache,
-                         prefix_cache_pages=args.prefix_cache_pages,
-                         shared_prefix_len=args.shared_prefix_len,
-                         stop_token=args.stop_token,
-                         preemption=args.preemption,
-                         arrival_rate=args.arrival_rate,
-                         prefill_chunk=args.prefill_chunk,
-                         admit_every_dispatch=args.admit_every_dispatch,
-                         journal_dir=(f"{args.journal}/{p}"
-                                      if args.journal else None),
-                         snapshot_every=args.snapshot_every,
-                         audit_every=args.audit, injector=injector,
-                         shed_queue_depth=args.shed_queue_depth,
-                         trace=(args.trace if len(args.policies) == 1
-                                else f"{args.trace}.{p}") if args.trace
-                               else None,
-                         metrics_every=args.metrics_every,
-                         metrics_file=args.metrics_file,
-                         calibration=args.calibration,
-                         phase_log=args.phase_log,
-                         async_compaction=args.async_compaction,
-                         clean_budget=args.clean_budget,
-                         device=args.device)
-               for p in args.policies]
-    best = min(results, key=lambda r: r["wamp"])
-    print(f"[serve] lowest block-move overhead: {best['policy']} "
-          f"(Wamp {best['wamp']:.3f})")
-    return results
+    return [serve_run(arch=args.arch, requests=args.requests, policy=p,
+                      seed=args.seed, n_open=args.n_open,
+                      streams=args.streams,
+                      demote_survivors=args.demote, model=model,
+                      max_decode_chunk=args.chunk,
+                      prefix_cache=args.prefix_cache,
+                      prefix_cache_pages=args.prefix_cache_pages,
+                      shared_prefix_len=args.shared_prefix_len,
+                      stop_token=args.stop_token,
+                      preemption=args.preemption,
+                      arrival_rate=args.arrival_rate,
+                      prefill_chunk=args.prefill_chunk,
+                      admit_every_dispatch=args.admit_every_dispatch,
+                      journal_dir=(f"{args.journal}/{p}"
+                                   if args.journal else None),
+                      snapshot_every=args.snapshot_every,
+                      audit_every=args.audit, injector=injector,
+                      shed_queue_depth=args.shed_queue_depth,
+                      trace=(args.trace if len(args.policies) == 1
+                             else f"{args.trace}.{p}") if args.trace
+                            else None,
+                      metrics_every=args.metrics_every,
+                      metrics_file=args.metrics_file,
+                      calibration=args.calibration,
+                      phase_log=args.phase_log,
+                      async_compaction=args.async_compaction,
+                      clean_budget=args.clean_budget,
+                      device=device, mesh=mesh)
+            for p in args.policies]
 
 
 if __name__ == "__main__":

@@ -7,6 +7,13 @@ through the hand-written flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`); ``chunked_attention`` is
 the plain online-softmax function the JAX package lowers through XLA, kept
 here for the token oracle (``transformer.greedy_decode``).
+
+Tensor-parallel serving passes ``mesh`` (a ``"model"`` ``DeviceMesh``) with
+parameters whose ``wq`` / ``wk`` / ``wv`` hold this rank's heads: the
+projections give the local heads, the flash kernel attends them
+(``ops.flash_attention_sharded``), and ``ops.gather_heads`` joins every
+rank's heads before the replicated ``wo``, the JAX package's
+``gather_heads=True``.  The K/V returned are the local heads.
 """
 
 from __future__ import annotations
@@ -129,24 +136,34 @@ def _project_qkv(x, p, cfg, positions):
     return q, k, v
 
 
-def gqa_prefill(x, p, cfg, *, kernel: bool = True):
+def _attend(q, k, v, cfg, *, kernel: bool, mesh, q_offset: int = 0):
+    """Causal attention of a prefill's rows (row i at ``q_offset + i``),
+    through the flash kernel or the plain chunked attention; under a
+    ``mesh`` over the local heads, then gathered across the ranks."""
+    if kernel:
+        out = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                                  mesh=mesh)
+    else:
+        out = chunked_attention(q, k, v, causal=True, q_offset=q_offset,
+                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+    return out if mesh is None else ops.gather_heads(out, mesh)
+
+
+def gqa_prefill(x, p, cfg, *, kernel: bool = True, mesh=None):
     """Causal self-attention over a whole prompt; also returns the K/V to
     serve from.  ``kernel=True`` attends through ``ops.flash_attention``
     (the CUDA kernel on the card); ``kernel=False`` through the plain
-    ``chunked_attention`` (the token oracle's path)."""
+    ``chunked_attention`` (the token oracle's path).  ``mesh``: this rank's
+    heads, gathered before ``wo`` (module docstring)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(x, p, cfg, positions)
-    if kernel:
-        out = ops.flash_attention(q, k, v, causal=True)
-    else:
-        out = chunked_attention(q, k, v, causal=True, q_block=cfg.q_block,
-                                kv_block=cfg.kv_block)
+    out = _attend(q, k, v, cfg, kernel=kernel, mesh=mesh)
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 
 
 def gqa_prefill_cont(x, p, cfg, k_pre, v_pre, *, kv_len: int | None = None,
-                     kernel: bool = True):
+                     kernel: bool = True, mesh=None):
     """Prefill *continuation*: ``x`` holds positions ``[P, P+S)`` of a
     sequence whose first ``P`` positions already have cached K/V
     (``k_pre``/``v_pre``: (B, P, Kh, hd), e.g. gathered from the serving
@@ -159,7 +176,7 @@ def gqa_prefill_cont(x, p, cfg, k_pre, v_pre, *, kv_len: int | None = None,
     whole prefill it must be the *full prompt's padded bucket*, the extent
     the whole prefill attends over; the tail K/V is zero-padded (or its pad
     rows cut) to ``kv_len - P``, and every such row is causally masked for
-    the real rows.  ``kernel`` as in :func:`gqa_prefill`.
+    the real rows.  ``kernel`` and ``mesh`` as in :func:`gqa_prefill`.
 
     Returns (attn out, (k_tail, v_tail))."""
     B, S, _ = x.shape
@@ -178,16 +195,12 @@ def gqa_prefill_cont(x, p, cfg, k_pre, v_pre, *, kv_len: int | None = None,
             kt, vt = kt[:, :ext], vt[:, :ext]
     k_cat = torch.cat([k_pre.to(k.dtype), kt], dim=1)
     v_cat = torch.cat([v_pre.to(v.dtype), vt], dim=1)
-    if kernel:
-        out = ops.flash_attention(q, k_cat, v_cat, causal=True, q_offset=P)
-    else:
-        out = chunked_attention(q, k_cat, v_cat, causal=True, q_offset=P,
-                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+    out = _attend(q, k_cat, v_cat, cfg, kernel=kernel, mesh=mesh, q_offset=P)
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 
 
 def gqa_prefill_chunk(x, p, cfg, k_ext, v_ext, pos0: int, *,
-                      kernel: bool = True):
+                      kernel: bool = True, mesh=None):
     """Prefill continuation at any chunk boundary ``pos0`` (chunked
     prefill).  ``x`` holds positions ``[pos0, pos0 + S)`` of a prompt whose
     earlier chunks' K/V sit in the serving pool; ``k_ext``/``v_ext``
@@ -202,7 +215,7 @@ def gqa_prefill_chunk(x, p, cfg, k_ext, v_ext, pos0: int, *,
     another dtype is cast to a copy first.  With ``kv_len`` the full
     prompt's padded bucket, each row attends the key extent a whole prefill
     of the prompt attends, so its result is that prefill's row.  ``kernel``
-    as in :func:`gqa_prefill`.
+    and ``mesh`` as in :func:`gqa_prefill`.
 
     Returns (attn out, (k_chunk, v_chunk))."""
     B, S, _ = x.shape
@@ -216,11 +229,8 @@ def gqa_prefill_chunk(x, p, cfg, k_ext, v_ext, pos0: int, *,
     n = min(S, kv_len - pos0)
     k_ext[:, pos0:pos0 + n] = k[:, :n]
     v_ext[:, pos0:pos0 + n] = v[:, :n]
-    if kernel:
-        out = ops.flash_attention(q, k_ext, v_ext, causal=True, q_offset=pos0)
-    else:
-        out = chunked_attention(q, k_ext, v_ext, causal=True, q_offset=pos0,
-                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+    out = _attend(q, k_ext, v_ext, cfg, kernel=kernel, mesh=mesh,
+                  q_offset=pos0)
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 
 

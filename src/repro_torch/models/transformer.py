@@ -65,21 +65,23 @@ def _unembed(params, x, cfg):
 
 
 def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
-            true_len=None, kernel: bool = True):
+            true_len=None, kernel: bool = True, mesh=None):
     """Run the whole prompt; return (last-position logits, K/V cache).
 
     ``tokens`` (B, S) may be right-padded to a bucket: causal masking makes
     the pad invisible to positions < ``true_len``, and the logits are read
     at ``true_len - 1``.  The cache holds K and V (L, B, max_len, Kh, hd)
     in ``cache_dtype`` and ``cur_len`` (B,).  ``kernel`` selects the flash
-    kernel (the engine) or the plain chunked attention (the oracle)."""
+    kernel (the engine) or the plain chunked attention (the oracle).
+    ``mesh``: tensor-parallel serving, the attention parameters and the
+    returned K/V being this rank's heads (``attention`` module)."""
     B, S = tokens.shape
     x = _embed(params, tokens)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer(params["blocks"], i)
         a, (k, v) = att.gqa_prefill(rmsnorm(x, lp["ln1"]), lp["attn"], cfg,
-                                    kernel=kernel)
+                                    kernel=kernel, mesh=mesh)
         x = x + a
         x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
         ks.append(F.pad(k, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
@@ -94,7 +96,8 @@ def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
 
 def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
                         true_len=None, kv_len=None,
-                        cache_dtype=torch.bfloat16, kernel: bool = True):
+                        cache_dtype=torch.bfloat16, kernel: bool = True,
+                        mesh=None):
     """Tail-only prefill over cached prefix K/V (the prefix-cache hit path).
 
     ``tokens`` (B, S) is the *uncached tail* of the prompt (right-padded to
@@ -107,7 +110,7 @@ def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
 
     Returns (last-tail-position logits, K tail cache (L, B, max_len, Kh,
     hd), V tail cache) — only the tail's K/V, for the engine to scatter
-    into its own pages."""
+    into its own pages.  ``mesh`` as in :func:`prefill`."""
     B, S = tokens.shape
     x = _embed(params, tokens)
     ks, vs = [], []
@@ -115,7 +118,8 @@ def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
         lp = layer(params["blocks"], i)
         a, (k, v) = att.gqa_prefill_cont(rmsnorm(x, lp["ln1"]), lp["attn"],
                                          cfg, prefix_k[i], prefix_v[i],
-                                         kv_len=kv_len, kernel=kernel)
+                                         kv_len=kv_len, kernel=kernel,
+                                         mesh=mesh)
         x = x + a
         x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
         ks.append(F.pad(k, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
@@ -126,7 +130,7 @@ def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
 
 
 def prefill_chunk(params, tokens, cfg, ext_k, ext_v, pos0: int,
-                  last_idx: int | None, *, kernel: bool = True):
+                  last_idx: int | None, *, kernel: bool = True, mesh=None):
     """One fixed-size chunk of a prompt prefill (chunked prefill):
     :func:`prefill_with_prefix` generalized from a continuation at a cached
     prefix boundary to one at any chunk boundary.
@@ -144,7 +148,7 @@ def prefill_chunk(params, tokens, cfg, ext_k, ext_v, pos0: int,
     Returns (the logits of row ``last_idx`` — the prompt's last token, on
     the final chunk; None when ``last_idx`` is None —, k_chunk (L, B, S,
     Kh, hd), v_chunk): only this chunk's K/V, for the engine to scatter
-    into the chunk's pages."""
+    into the chunk's pages.  ``mesh`` as in :func:`prefill`."""
     x = _embed(params, tokens)
     if ext_k.dtype != x.dtype:
         ext_k, ext_v = ext_k.to(x.dtype), ext_v.to(x.dtype)
@@ -153,7 +157,7 @@ def prefill_chunk(params, tokens, cfg, ext_k, ext_v, pos0: int,
         lp = layer(params["blocks"], i)
         a, (k, v) = att.gqa_prefill_chunk(rmsnorm(x, lp["ln1"]), lp["attn"],
                                           cfg, ext_k[i], ext_v[i], pos0,
-                                          kernel=kernel)
+                                          kernel=kernel, mesh=mesh)
         x = x + a
         x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
         ks.append(k)

@@ -122,6 +122,28 @@ Batch slots are fixed (``max_batch``); inactive slots point at a reserved
 trash page and are masked out.  Per-slot bookkeeping is numpy arrays
 (``rid``, ``lens``, ``to_gen``, ``npages``, ``tokens``, ``_prefilling``)
 plus the ``bt`` block-table matrix.  Supported family: dense (GQA attention).
+
+Tensor-parallel serving (``mesh=``, a ``"model"`` ``DeviceMesh`` from
+``launch.mesh.make_serving_mesh``) runs one engine per rank, one process
+each, on the same requests.  The host planner is the same on every rank and
+runs the same, so every rank holds the same block tables over global page
+ids; each rank keeps its own slice of the kv heads: pools
+``(L, pages + 1, T, Kh/n, hd)`` and ``wq`` / ``wk`` / ``wv`` cut on their
+head axis (:func:`shard_serving_params`), every other parameter whole.  A
+rank given a whole model slices it and the caller's model keeps the whole
+projections (a rank that builds several engines from one model); a rank
+given :func:`shard_model`'s result holds only its own heads.
+Attention runs on the local heads (``ops.paged_attention_sharded``,
+``ops.flash_attention_sharded``) and ``ops.gather_heads`` joins the ranks'
+heads before the replicated ``wo``, so every later contraction runs in full
+and in the same order on every rank: the tokens are those of the one-device
+engine, and every rank reads the same ones.  Compaction moves each rank's
+own pools by the common plan.  When the mesh does not divide the kv heads,
+the pools and parameters replicate (``_pool_sharded`` false) and each rank
+runs the unsharded path.  Only rank 0 writes the journal and snapshots; the
+other ranks keep its accounting (``JournalLog.mirror``), so ``metrics()`` is
+the same on every rank.  ``audit()`` also all-gathers a hash of each rank's
+block tables, lengths and tokens and fails unless they agree.
 """
 
 from __future__ import annotations
@@ -129,18 +151,23 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.logstructure import FENCED, JournalLog, Placement
 from ..device import resolve_device
 from ..distributed.fault import TransientFault, backoff_delay
+from ..distributed.sharding import (HEAD_SHARDED_PARAMS, KV_POOL_AXES,
+                                    resolve_spec, shard, spec_shards)
 from ..kernels import ops
 from ..models import attention as att
 from ..models import transformer as tfm
 from ..models.layers import rmsnorm
+from ..models.model import Model
 from ..obs import DeathCalibration, MetricsLogger
 from .kvcache import LogStructuredKVPool
 from .prefix_cache import PrefixCache
@@ -165,6 +192,47 @@ class Request:
 def _pow2(n: int) -> int:
     """Smallest power of two ≥ n (≥ 1)."""
     return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def shard_serving_params(params: dict, mesh, coords=None) -> dict:
+    """Tensor-parallel placement of the serving parameters (the JAX
+    engine's ``_serving_param_shardings``): where the mesh divides the kv
+    heads, ``wq`` / ``wk`` / ``wv`` keep this rank's slice of their head
+    axis, as ``SERVING_RULES`` resolve it on ``mesh``; everything else,
+    ``wo`` included, stays whole (and where the kv heads do not divide,
+    everything does, as the pools replicate).  A replicated ``wo`` after
+    the all-gather of the per-head context keeps every cross-head
+    contraction whole on every rank, in the one-device engine's order.
+    ``coords`` default to this process's place on the mesh."""
+    wk = params["blocks"]["attn"]["wk"]
+    if not resolve_spec(tuple(wk.shape), HEAD_SHARDED_PARAMS["wk"], mesh):
+        return params
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else shard(v, HEAD_SHARDED_PARAMS[k], mesh, coords)
+                if k in HEAD_SHARDED_PARAMS else v
+                for k, v in tree.items()}
+    return walk(params)
+
+
+def shard_model(model: Model, mesh) -> Model:
+    """This rank's model on ``mesh``: ``model``'s parameters through
+    :func:`shard_serving_params`, the unsliced ones shared with ``model``.
+    Once the caller drops ``model``, the rank holds only its own heads of
+    ``wq`` / ``wk`` / ``wv``; an engine on ``mesh`` takes the result as
+    the rank's own (a whole model it slices itself, and the whole
+    projections stay with the caller's model)."""
+    return Model(model.cfg, shard_serving_params(model.params, mesh))
+
+
+def _from_lead(obj, mesh):
+    """``obj`` as rank 0 of ``mesh`` holds it, on every rank."""
+    group = mesh.get_group("model")
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
 
 
 class PagedServingEngine:
@@ -192,7 +260,7 @@ class PagedServingEngine:
                  journal_fsync: bool = False, clock=None, tracer=None,
                  metrics_every: int = 0, metrics_sink=None,
                  calibration: bool = False, phase_log: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         cfg = model.cfg
         if cfg.family != "dense":
             raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
@@ -261,6 +329,29 @@ class PagedServingEngine:
 
         L, Kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
         shape = (L, n_pages + 1, page_T, Kh, hd)
+        # tensor parallelism: the pools shard their kv heads where the mesh
+        # divides them, else every rank holds them whole
+        self.mesh = mesh
+        self.rank = 0
+        if mesh is not None:
+            if tuple(mesh.mesh_dim_names or ()) != ("model",):
+                raise ValueError("serving mesh needs one axis named 'model'; "
+                                 "use launch.mesh.make_serving_mesh")
+            self.rank = mesh.get_local_rank("model")
+            spec = resolve_spec(shape, KV_POOL_AXES, mesh)
+        self._pool_sharded = mesh is not None and any(
+            p is not None for p in spec)
+        # the mesh the model and kernels see: None where nothing shards
+        self._tp = mesh if self._pool_sharded else None
+        if self._pool_sharded:
+            local = Kh // spec_shards(spec, mesh)
+            held = self.params["blocks"]["attn"]["wk"].shape[2]
+            if held == Kh:          # whole heads: keep this rank's slice
+                self.params = shard_serving_params(self.params, mesh)
+            elif held != local:     # else they are this rank's (shard_model)
+                raise ValueError(f"wk holds {held} kv heads: want all {Kh} "
+                                 f"or this rank's {local}")
+            shape = (L, n_pages + 1, page_T, local, hd)
         self.k_pools = torch.zeros(shape, dtype=pool_dtype, device=self.device)
         self.v_pools = torch.zeros(shape, dtype=pool_dtype, device=self.device)
 
@@ -317,9 +408,18 @@ class PagedServingEngine:
         self._tpot_ewma = 0.05        # s/token (host clock), seeds the hint
         self.dispatches = 0
         self._next_rid = 0
-        # --- crash safety: the session journal, snapshots, fault injection
-        self.journal = (JournalLog(journal_dir, fsync=journal_fsync)
-                        if journal_dir else None)
+        # --- crash safety: the session journal, snapshots, fault injection.
+        # Under a mesh rank 0 writes the journal and the other ranks keep a
+        # copy of its accounting that writes nothing
+        self.journal = None
+        if journal_dir:
+            if self.rank == 0:
+                self.journal = JournalLog(journal_dir, fsync=journal_fsync)
+            if mesh is not None:
+                mirror = _from_lead(self.journal.mirror() if self.rank == 0
+                                    else None, mesh)
+                if self.rank:
+                    self.journal = mirror
         self.snapshot_every = snapshot_every
         self.injector = injector
         self.fault_retries = fault_retries
@@ -719,7 +819,7 @@ class PagedServingEngine:
             logits, cache = tfm.prefill(self.params, self._put(toks)[None],
                                         self.cfg, max_len,
                                         cache_dtype=self.pool_dtype,
-                                        true_len=plen)
+                                        true_len=plen, mesh=self._tp)
             ks, vs = cache["k"], cache["v"]
         first_tok = int(torch.argmax(logits[0]))
         L, _, _, Kh, hd = ks.shape
@@ -803,7 +903,7 @@ class PagedServingEngine:
         logits, ks, vs = tfm.prefill_with_prefix(
             self.params, self._put(toks)[None], self.cfg, k_pre, v_pre,
             max_len, true_len=tlen, kv_len=kv_len,
-            cache_dtype=self.pool_dtype)
+            cache_dtype=self.pool_dtype, mesh=self._tp)
         return logits, ks, vs, max_len
 
     def _start_chunked(self, i: int, req: Request, n_pages: int,
@@ -865,7 +965,8 @@ class PagedServingEngine:
         is_last = pos + C >= plen
         logits, ks, vs = tfm.prefill_chunk(
             self.params, tok_dev[None], self.cfg, ext_k[:, :, :kv_len],
-            ext_v[:, :, :kv_len], pos, plen - 1 - pos if is_last else None)
+            ext_v[:, :, :kv_len], pos, plen - 1 - pos if is_last else None,
+            mesh=self._tp)
         rows = n_own * T
         self.k_pools[:, own_dev] = ks[:, 0, :rows].reshape(
             L, n_own, T, Kh, hd).to(self.pool_dtype)
@@ -991,7 +1092,10 @@ class PagedServingEngine:
                                        pos)
             kp[page, off] = k[:, 0].to(kp.dtype)
             vp[page, off] = v[:, 0].to(vp.dtype)
-            o = ops.paged_attention(q[:, 0], kp, vp, self._bt_dev, attend)
+            o = ops.paged_attention(q[:, 0], kp, vp, self._bt_dev, attend,
+                                    mesh=self._tp)
+            if self._tp is not None:   # every rank's heads before wo
+                o = ops.gather_heads(o, self._tp)
             x = x + torch.einsum("bhe,hed->bd", o.to(x.dtype),
                                  lp["attn"]["wo"])[:, None]
             x = x + tfm._block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
@@ -1451,6 +1555,27 @@ class PagedServingEngine:
                     f"slot {i}: to_gen ledger broken"
         if self.journal is not None:
             self.journal.check_tail()
+        if self.mesh is not None:
+            self._check_agreement()
+
+    def _check_agreement(self) -> None:
+        """Every rank of the mesh holds the same block tables, lengths,
+        slots and tokens: an all-gathered hash of them, equal or raise."""
+        h = hashlib.blake2b(digest_size=8)
+        for a in (self.bt, self.lens, self.tokens, self.rid, self.npages,
+                  self._out_n, self._prefilling):
+            h.update(np.ascontiguousarray(a).tobytes())
+        for out, n in zip(self._out, self._out_n):
+            if out is not None:
+                h.update(out[:n].tobytes())
+        mine = torch.tensor([int.from_bytes(h.digest(), "little",
+                                            signed=True)],
+                            dtype=torch.int64, device=self.device)
+        parts = [torch.empty_like(mine) for _ in range(self.mesh.size())]
+        dist.all_gather(parts, mine, group=self.mesh.get_group("model"))
+        got = [int(p) for p in parts]
+        assert len(set(got)) == 1, \
+            f"ranks disagree on block tables or tokens: hashes {got}"
 
     def _audit_fenced(self) -> None:
         """A FENCED slab is a victim whose moves are planned or in flight:

@@ -22,6 +22,10 @@ persist.  Recovery therefore:
    kernel) and decode re-derives the already-emitted span: every op
    repeats the original arithmetic.
 
+Under tensor parallelism (``mesh=``) rank 0 alone writes the journal and
+the snapshots; on recovery rank 0 loads the session and hands it to every
+rank, and every rank replays it through its own engine's resume path.
+
 Replay is a pure function of snapshot + records and survives repeated
 crashes: emits are keyed by rid and append in seq order, and a resumed
 sequence's re-decoded span is never re-journaled (the engine's ``_jskip``
@@ -67,21 +71,24 @@ def snapshot(engine) -> int:
     completes (durably, synchronously) *before* the ``snap`` marker is
     journaled, so a journaled marker always references a restorable
     snapshot; only then are the superseded records compacted away (E = 1
-    reclamation — journal truncation moves nothing)."""
-    state = engine.session_state()
-    blob = np.frombuffer(json.dumps(state).encode("utf-8"), np.uint8)
+    reclamation — journal truncation moves nothing).  A serving rank whose
+    journal is a mirror (not rank 0) saves nothing and keeps the same
+    accounting."""
     sid = engine._snap_id + 1
-    if engine._snap_store is None:
-        engine._snap_store = _snap_store(engine.journal.root)
-    # the session blob is the recovery input; the raw slot/refcount views
-    # ride along for offline forensics (they are rebuilt, not restored)
-    engine._snap_store.save(sid, {
-        "meta": blob,
-        "bt": engine.bt.copy(),
-        "rid": engine.rid.copy(),
-        "npages": engine.npages.copy(),
-        "block_ref": np.asarray(engine.pool.block_ref).copy(),
-    }, keep_last=2)
+    if engine.journal.persist:
+        state = engine.session_state()
+        blob = np.frombuffer(json.dumps(state).encode("utf-8"), np.uint8)
+        if engine._snap_store is None:
+            engine._snap_store = _snap_store(engine.journal.root)
+        # the session blob is the recovery input; the raw slot/refcount
+        # views ride along for offline forensics (rebuilt, not restored)
+        engine._snap_store.save(sid, {
+            "meta": blob,
+            "bt": engine.bt.copy(),
+            "rid": engine.rid.copy(),
+            "npages": engine.npages.copy(),
+            "block_ref": np.asarray(engine.pool.block_ref).copy(),
+        }, keep_last=2)
     engine._snap_id = sid
     seq = engine._jrec({"t": "snap", "id": sid})
     if seq is not None:
@@ -234,7 +241,7 @@ def _apply_session(eng, state: dict) -> dict:
             "tokens_replayed": tokens_replayed}
 
 
-def recover_engine(model, journal_dir, **engine_kw):
+def recover_engine(model, journal_dir, *, mesh=None, **engine_kw):
     """Warm-restart a killed serving session: rebuild the port's engine from
     the journal and return ``(engine, report)``.  ``engine_kw`` must match
     the dead engine's configuration (it is the serving config, not state),
@@ -242,14 +249,23 @@ def recover_engine(model, journal_dir, **engine_kw):
     ``journal_dir`` is reopened for append, so the recovered session keeps
     journaling, and can itself be killed and recovered again.  The
     observability arguments pass through as well: ``tracer=`` reaches the
-    rebuilt engine, its pool's core and its journal's core."""
+    rebuilt engine, its pool's core and its journal's core.
+
+    With ``mesh`` every rank calls this: rank 0 loads the session from the
+    journal (the other ranks read no file) and every rank gets it, replays
+    it into its own engine and returns rank 0's report."""
+    from .engine import PagedServingEngine, _from_lead
     t0 = time.perf_counter()
-    state, report = load_session(journal_dir,
-                                 stop_token=engine_kw.get("stop_token"))
-    from .engine import PagedServingEngine
-    eng = PagedServingEngine(model, journal_dir=journal_dir, **engine_kw)
+    lead = mesh is None or mesh.get_local_rank("model") == 0
+    loaded = (load_session(journal_dir, stop_token=engine_kw.get("stop_token"))
+              if lead else None)
+    state, report = loaded if mesh is None else _from_lead(loaded, mesh)
+    eng = PagedServingEngine(model, journal_dir=journal_dir, mesh=mesh,
+                             **engine_kw)
     report.update(_apply_session(eng, state))
     report["recovery_wall_s"] = time.perf_counter() - t0
+    if mesh is not None:
+        report = _from_lead(report, mesh)
     eng.recovery = report
     eng._jrec({"t": "rec", "resumed": report["sequences_resumed"],
                "requeued": report["requests_requeued"]})

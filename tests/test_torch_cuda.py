@@ -1247,3 +1247,91 @@ def test_simulator_victims_through_mdc_priority_on_card(dev):
         assert np.array_equal(getattr(sims[1].store, name),
                               getattr(sims[0].store, name))
     sims[1].store.check_invariants()
+
+
+# ------------------------------------------- tensor-parallel serving (mesh)
+
+def _tp_stream():
+    """tp_smoke at f32 (16 q / 8 kv heads, one weight draw on the CPU) and
+    test_sharded_serving.py's _serve stream, whose pool compacts."""
+    cfg = get_config("qwen3-1.7b").tp_smoke()
+    params = _cast(Model(cfg, device="cpu", seed=0).params, "cpu",
+                   torch.float32)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, cfg.vocab_size, size=p), n) for p, n in
+            zip([5, 17, 9, 24, 3, 12], [6, 10, 4, 8, 12, 5])]
+    kw = dict(n_slabs=7, blocks_per_slab=2, page_T=8, max_batch=3,
+              max_seq=96, policy="mdc", streams=1, compact_trigger=2,
+              compact_batch=3, max_decode_chunk=8, pool_dtype=torch.float32)
+    return cfg, params, reqs, kw
+
+
+def test_sharded_wrappers_on_card_are_the_unsharded_slices(dev):
+    """Two gloo ranks sharing the card, each on 4 of 8 kv heads (f32, D 32,
+    G 2): every rank's paged / flash output (and a q_offset 8 flash) is bit
+    for bit the unsharded kernel's slice of its heads, and its gather the
+    whole unsharded output."""
+    import _torch_tp as tp
+    from repro_torch.launch.mesh import spawn_ranks
+    case = tp.wrapper_case(seed=0)
+    ranks = spawn_ranks(tp.run_cases, 2, {"w": dict(kind="wrappers",
+                                                     inputs=case,
+                                                     q_offset=8)},
+                        backend="gloo", device="cuda")
+    t = {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
+    whole = {"paged": ops.paged_attention(t["q"], t["kp"], t["vp"], t["bt"],
+                                          t["lens"]),
+             "flash": ops.flash_attention(t["qf"], t["kf"], t["vf"]),
+             "flash_offset": ops.flash_attention(t["qf"][:, 8:], t["kf"],
+                                                 t["vf"], q_offset=8)}
+    for rank, r in enumerate(ranks):
+        for k, w in whole.items():
+            w = w.cpu()
+            axis = 1 if k == "paged" else 2
+            assert np.array_equal(r["w"][k],
+                                  tp.local_heads(w, axis, rank, 2).numpy()), k
+            assert np.array_equal(r["w"][f"{k}_gathered"], w.numpy()), k
+
+
+def test_sharded_engine_on_card_matches_cpu_unsharded(dev):
+    """The 2-rank gloo engine on the card (tp_smoke, f32) serves the CPU
+    one-device engine's tokens and metrics, its pools sharded to 4 kv
+    heads."""
+    import _torch_tp as tp
+    from repro_torch.launch.mesh import spawn_ranks
+    cfg, params, reqs, kw = _tp_stream()
+    base = tp.serve_stream(Model(cfg, params), reqs, "cpu", **kw)
+    ranks = spawn_ranks(tp.run_cases, 2, {"s": dict(
+        cfg=cfg, params=params, requests=reqs,
+        engine_kw=dict(kw, audit_every=2))}, backend="gloo", device="cuda")
+    assert base["metrics"]["compactions"] >= 1
+    for r in ranks:
+        assert r["s"]["pool_sharded"] and r["s"]["pool_shape"][3] == 4
+        assert r["s"]["tokens"] == base["tokens"]
+        assert r["s"]["metrics"] == base["metrics"]
+
+
+def test_nccl_world_size_one_is_the_unsharded_engine(dev, tmp_path):
+    """One nccl rank in this process: the mesh path (sharded wrappers,
+    gather_heads through NCCL, the agreement check) is bit for bit the
+    unsharded engine on the card."""
+    import torch.distributed as dist
+    import _torch_tp as tp
+    from repro_torch.launch.mesh import make_serving_mesh
+    cfg, params, reqs, kw = _tp_stream()
+    model = Model(cfg, _cast(params, dev, torch.float32))
+    base = tp.serve_stream(model, reqs, dev, **kw)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        ops.reset_launches()
+        got = tp.serve_stream(model, reqs, dev, make_serving_mesh(1),
+                              audit=True, **kw)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert ops.launches["paged_attention_sharded"] > 0
+    assert ops.launches["flash_attention_sharded"] > 0
+    assert got["pool_sharded"]
+    assert got["tokens"] == base["tokens"]
+    assert got["metrics"] == base["metrics"]
