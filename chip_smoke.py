@@ -33,7 +33,9 @@ Phases, in order; any failure raises and the process exits non-zero:
              its plain version, and bit for bit the same rows of the
              ``q_offset = 0`` call over all 1,024 rows, beside
              ``scaled_dot_product_attention`` with the same (lower-right
-             causal) mask.
+             causal) mask.  Paged attention and flash also run at the
+             moe phase's heads (Qwen3-30B-A3B: G 8 over Kh 4; H 32 / Kh 4
+             at S 1,024).
 4. engine  — the paged serving engine on the full-width qwen3-1.7b (28
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
@@ -167,8 +169,9 @@ Phases, in order; any failure raises and the process exits non-zero:
              (a) and their share equal to the CPU's reported.
 14. sim    — the port's cleaning simulator at the paper's store
              (``configs.paper_store.PAPER``: 51,200 segments of 512 pages,
-             26.2 M pages, F 0.8) under 80:20 hot/cold updates and MDC, one
-             store's worth of updates (the first half warm-up).  At every
+             26.2 M pages, F 0.8) under 80:20 hot/cold updates and MDC,
+             half a store's worth of updates (the first half warm-up; the
+             length is the cut, not the store).  At every
              cleaning cycle ``_torch_checks.DeviceVictimCheck`` uploads
              the store's live counts, u_p2 means and eligibility, runs
              ``mdc_priority`` on the card and picks 64 with
@@ -206,7 +209,30 @@ Phases, in order; any failure raises and the process exits non-zero:
              bytes).
              (c) One ``nccl`` rank in this process (world size 1): tokens
              and counters bitwise the unsharded run's.
-             Each of the last nine phases zeroes the launch counters before
+16. moe    — the MoE family at full width: Qwen3-30B-A3B (48 layers, d
+             2,048, 32 q over 4 kv heads, 128 experts of d_ff 768, top-8,
+             capacity factor 1.25), random bf16 weights (the router f32)
+             drawn on the card from the seed, in a process of its own
+             (spawned like the tp ranks; it first asserts that the card has
+             room for the weights, the pool and ``MOE_HEADROOM``).  The tp
+             phase's 8 requests and 12-slab pool through the engine: the
+             host counters of ``scripts/rehearse_schedule.py moe 12`` (4
+             compactions), all three engine kernels launched (paged
+             attention at G 8, flash at H 32 / Kh 4 on the ``wgmma``
+             route).  Each request through the plain path on the card at
+             the engine's prompt bucket (so the MoE groups and drops as the
+             engine's does): its tokens equal the engine's, or the first
+             mismatch sits on a logit near-tie (``near_tie_bar``) or a
+             router near-tie at that step (a routed token whose k-th and
+             (k+1)-th probabilities are within ``MOE_ROUTER_TIE`` of each
+             other, relative).  Layer 0 of a 1,024-token bucket through
+             the port's moe functions: the capacity-dropped picks, and
+             ``moe_ffn`` at the prefill and decode shapes called twice,
+             bitwise equal.  Reported: the parameter counts, wall and
+             dispatch times, peak memory, and the device split of a decode
+             step at 8 slots under ``torch.profiler`` (expert products,
+             router, dispatch, combine, paged attention, the rest).
+             Each of the last ten phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
 The line before the last is the card's name and power limit; the last line
@@ -247,8 +273,9 @@ from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
-from repro_torch.models.layers import flatten, unflatten  # noqa: E402
+from repro_torch.models import Model, moe  # noqa: E402
+from repro_torch.models import attention as att  # noqa: E402
+from repro_torch.models.layers import flatten, rmsnorm, unflatten  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serving import PagedServingEngine, recover_engine  # noqa: E402
@@ -364,10 +391,10 @@ MIXED_PAIRS = ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
 # the mixed phase's full-width legs: (leg, parameters' dtype, pool dtype)
 MIXED_LEGS = (("f32_params_bf16_pool", torch.float32, torch.bfloat16),
               ("bf16_params_f32_pool", torch.bfloat16, torch.float32))
-# the sim phase: the paper's store under 80:20 hot/cold updates, one
-# store's worth of them with the first half as warm-up
+# the sim phase: the paper's store under 80:20 hot/cold updates, half a
+# store's worth of them (~45 s of host) with the first half as warm-up
 SIM_WORKLOAD = dict(update_frac=0.8, data_frac=0.2)
-SIM_UPDATES = PAPER.nseg * PAPER.pages_per_seg
+SIM_UPDATES = PAPER.nseg * PAPER.pages_per_seg // 2
 SIM_WARMUP = 0.5
 # the tp phase: two gloo ranks on the one card, the engine phase's first 8
 # requests through a pool of 12 slabs (``scripts/rehearse_schedule.py tp
@@ -379,6 +406,23 @@ TP_AUDIT_EVERY = 8
 TP_TIMEOUT_S = 300   # the ranks took ~45 s: a hung collective fails the run
 COUNTERS = ("dispatches", "blocks_written", "blocks_moved", "compactions",
             "wamp")
+# the moe phase: Qwen3-30B-A3B at full width in a process of its own (its
+# 61.1 GB of weights and an earlier phase's tensors do not fit on one card
+# together), on the tp phase's stream and pool.  The host plan depends only
+# on the prompts' lengths: ``scripts/rehearse_schedule.py moe 12`` prints
+# these counters
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_REHEARSED = dict(dispatches=34, blocks_written=295, blocks_moved=114,
+                     compactions=4, wamp=114 / 295)
+MOE_HEADROOM = 8e9   # bytes free beyond the weights and the pool
+# a token's k-th and (k+1)-th router probabilities within this share of the
+# k-th: a bf16 rounding apart before the router can swap the two experts
+# (one bf16 step in each of half the 2,048 inputs moves a router logit by
+# ~5e-3 at this model's init scales), so the top-k is a near-tie
+MOE_ROUTER_TIE = 1e-2
+MOE_PROFILE_NEW = 64   # new tokens per request in the profiled decode
+MOE_PROFILE_CHUNK = 4  # token steps in the profiled dispatch
+MOE_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -481,17 +525,20 @@ def phase_build() -> None:
           "ptxas": {n: ptxas_report(i["log"]) for n, i in info.items()}})
 
 
-def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None) -> dict:
+def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None, Kh=8,
+                          G=2) -> dict:
     """Decode attention at qwen3-1.7b's heads (Kh 8, G 2, D 128, 16-token
-    pages) over B sequences of up to P pages each; a full table and a
-    one-token sequence among them (``_torch_checks.paged_case``).
+    pages; Qwen3-30B-A3B's are Kh 4, G 8) over B sequences of up to P pages
+    each; a full table and a one-token sequence among them
+    (``_torch_checks.paged_case``).
     ``dtype`` is the pools', ``q_dtype`` (default the same) q's and the
     output's; each pair is held to its own bar (``paged_bar``), and
     ``bar_share`` is the largest share of it used.  ``launches_per_call``
     counts the kernel's launches in one wrapper call (the design makes it
-    1).  A same-dtype output must be bitwise the one in ``PAGED_SHA256``."""
+    1).  A same-dtype output at a shape ``PAGED_SHA256`` holds must be
+    bitwise the one it holds."""
     q_dtype = q_dtype or dtype
-    Kh, G, D, T = 8, 2, 128, 16
+    D, T = 128, 16
     H = Kh * G
     q, k_pool, v_pool, bt, lens = paged_case(q_dtype, dtype, B, P, Kh, G, D, T,
                                              seed=SEED)
@@ -506,7 +553,7 @@ def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None) -> dict:
     share = check_paged_close(got, want, paged_bar(q, k_pool, v_pool, bt,
                                                    lens, want))
     sha = {}
-    if q_dtype == dtype:
+    if q_dtype == dtype and (B, P, Kh, G, D, T) in PAGED_SHA256:
         sha = {"sha256": digest(got), "sha256_parent": PAGED_SHA256[
             (B, P, Kh, G, D, T)][dtype == torch.float32]}
         sha["bitwise_parent"] = sha["sha256"] == sha["sha256_parent"]
@@ -530,12 +577,13 @@ def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None) -> dict:
                       "tokens": n_tok}}
 
 
-def check_flash_attention(dtype, S, timer) -> dict:
-    """Causal prefill attention at qwen3-1.7b's heads over S tokens, in the
-    model's (B, S, H, D) layout; the launch must take the route that
-    ``ops.flash_route`` names for (dtype, D)."""
+def check_flash_attention(dtype, S, timer, H=16, Kh=8) -> dict:
+    """Causal prefill attention at qwen3-1.7b's heads (H 16, Kh 8; Qwen3-
+    30B-A3B's are H 32, Kh 4) over S tokens, in the model's (B, S, H, D)
+    layout; the launch must take the route that ``ops.flash_route`` names
+    for (dtype, D)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    B, H, Kh, D = 1, 16, 8, 128
+    B, D = 1, 128
     q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
     v = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
@@ -720,6 +768,20 @@ def phase_kernels() -> dict:
     # a chunked prefill's last chunk of a 1,024-token prompt
     r = check_flash_offset(torch.bfloat16, timer, Sq=PREFILL_CHUNK)
     emit({"phase": "kernel", "name": "flash_attention", "dtype": "torch.bfloat16", **r})
+    # the moe phase's heads (Qwen3-30B-A3B: 32 q over 4 kv heads): paged
+    # attention at G 8 and flash at H 32 / Kh 4, each beside its plain
+    # version and bound, flash also beside the library
+    moe = get_config(MOE_ARCH)
+    Kh, G = moe.n_kv_heads, moe.n_heads // moe.n_kv_heads
+    r = check_paged_attention(torch.bfloat16, timer, Kh=Kh, G=G)
+    emit({"phase": "kernel", "name": "paged_attention", "model": MOE_ARCH,
+          "dtype": "torch.bfloat16", **r})
+    main["paged_attention_moe"] = r
+    r = check_flash_attention(torch.bfloat16, max(FLASH_BUCKETS), timer,
+                              H=moe.n_heads, Kh=Kh)
+    emit({"phase": "kernel", "name": "flash_attention", "model": MOE_ARCH,
+          "dtype": "torch.bfloat16", **r})
+    main["flash_attention_moe"] = r
     for dtype, E in ((torch.bfloat16, 16384), (torch.int32, 16383)):
         r = check_segment_compact(dtype, E, timer)
         emit({"phase": "kernel", "name": "segment_compact", "dtype": str(dtype), **r})
@@ -2193,6 +2255,316 @@ def phase_tp(cfg, smi) -> tuple[dict, dict]:
         "flash_attention_sharded": lead["flash"]}
 
 
+# ------------------------------------------------------------ moe phase
+
+def pow2_bucket(plen: int, page_T: int = 16) -> int:
+    """The engine's prompt bucket (``PagedServingEngine._prefill_bucket``)."""
+    return max(1 << (plen - 1).bit_length(), 1 << (page_T - 1).bit_length())
+
+
+@contextlib.contextmanager
+def router_gaps(gaps: list, limit: list):
+    """While active, every ``moe._route`` call appends to ``gaps`` the least
+    relative gap, over the first ``limit[0]`` tokens of the call, between a
+    token's k-th and (k+1)-th router probabilities, (p_k - p_k+1) / p_k
+    (a device scalar)."""
+    route = moe._route
+
+    def recording(x, router, cfg, *args):
+        out = route(x, router, cfg, *args)
+        probs = out[1].reshape(-1, cfg.n_experts)[:limit[0]]
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        gaps.append(((top[:, -2] - top[:, -1]) / top[:, -2]).min())
+        return out
+
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def moe_plain(params, cfg, prompt, n_new, expect) -> dict:
+    """The plain path on the card for one request: ``tfm.prefill`` of the
+    prompt right-padded to the engine's bucket (``kernel=False``: chunked
+    attention; a dense bf16 cache), so its MoE groups its tokens as the
+    engine does, then ``tfm.decode_step`` one token at a time, up to the
+    first token that differs from ``expect`` (the engine's).  Per emitted
+    token: the top-2 logit margin, the top logit, and the least relative
+    router gap of that step's routings (the prefill's over the real tokens
+    only: the pad never takes a real token's expert slot)."""
+    dev = params["embed"].device
+    plen = len(prompt)
+    bucket = pow2_bucket(plen)
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    toks[0, :plen] = torch.as_tensor(prompt, device=dev)
+    gaps, limit = [], [plen]
+    out, margins, tops, step_gaps = [], [], [], []
+    with router_gaps(gaps, limit):
+        logits, cache = tfm.prefill(params, toks, cfg,
+                                    max(bucket, plen + n_new + 1),
+                                    cache_dtype=torch.bfloat16, true_len=plen,
+                                    kernel=False)
+        limit[0] = 1
+        while True:
+            top2 = torch.topk(logits[0].float(), 2).values
+            a, b, gap = torch.stack([top2[0], top2[1],
+                                     torch.stack(gaps).min()]).tolist()
+            gaps.clear()
+            margins.append(a - b)
+            tops.append(a)
+            step_gaps.append(gap)
+            out.append(int(torch.argmax(logits[0])))
+            if len(out) == n_new or out[-1] != expect[len(out) - 1]:
+                break
+            logits, cache = tfm.decode_step(
+                params, cache, torch.tensor([out[-1]], device=dev), cfg)
+    return {"tokens": out, "margins": margins, "tops": tops,
+            "router_gaps": step_gaps}
+
+
+def moe_layer0(model, prompt) -> dict:
+    """Layer 0 of one prompt's bucket through the port's moe functions:
+    the capacity-dropped picks, and ``moe_ffn`` called twice at the
+    prefill shape and at the decode shape (8 tokens), bitwise."""
+    cfg, params = model.cfg, model.params
+    dev = params["embed"].device
+    plen = len(prompt)
+    bucket = pow2_bucket(plen)
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    toks[0, :plen] = torch.as_tensor(prompt, device=dev)
+    lp = tfm.layer(params["blocks"], 0)
+    x = tfm._embed(params, toks)
+    a, _ = att.gqa_prefill(rmsnorm(x, lp["ln1"]), lp["attn"], cfg)
+    h = rmsnorm(x + a, lp["ln2"])
+    xg, _, top_p, top_e, cap = moe._route(h, lp["mlp"]["router"], cfg,
+                                          cfg.capacity_factor, cfg.moe_groups)
+    st_tok, _, _, keep = moe._dispatch_group(xg, top_e, top_p, cfg.n_experts,
+                                             cfg.top_k, cap)[1]
+    G, Tg = xg.shape[:2]
+    real = (torch.arange(G, device=dev)[:, None] * Tg + st_tok) < plen
+    repeat = {}
+    for name, xs in (("prefill", h), ("decode", h[0, :8, None])):
+        y1 = moe.moe_ffn(xs, lp["mlp"], cfg, cfg.capacity_factor,
+                         cfg.moe_groups)
+        y2 = moe.moe_ffn(xs, lp["mlp"], cfg, cfg.capacity_factor,
+                         cfg.moe_groups)
+        repeat[name] = bool(torch.equal(y1, y2)
+                            and torch.isfinite(y1).all())
+    return {"prompt_len": plen, "bucket": bucket, "groups": G,
+            "tokens_per_group": Tg, "capacity": cap,
+            "picks": int(keep.numel()),
+            "dropped_picks": int((~keep).sum()),
+            "dropped_real_picks": int((~keep & real).sum()),
+            "moe_ffn_bitwise_repeat": repeat}
+
+
+def moe_profile(model, requests) -> dict:
+    """The device split of the engine's decode at 8 slots: the requests'
+    first 256 prompt tokens and ``MOE_PROFILE_NEW`` new tokens each through
+    the engine phase's pool; once every slot decodes, one dispatch of
+    ``MOE_PROFILE_CHUNK`` token steps under ``torch.profiler``, the MoE
+    FFN, its router, dispatch and combine labelled by ``record_function``.
+    A label's device time is that of the kernels launched inside it (its
+    host op's ``device_time_total``); the expert products are the FFN's
+    less its three labelled parts; paged attention is its kernel's time.  Busy is the
+    window's kernel time; its wall (host clock, profiler on) gives the
+    idle share."""
+    eng = PagedServingEngine(model, **{**POOL,
+                                       "max_decode_chunk": MOE_PROFILE_CHUNK},
+                             device=model.params["embed"].device)
+    for p, _ in requests:
+        eng.submit(p[:256], MOE_PROFILE_NEW)
+    for _ in range(len(requests)):
+        if eng._decoding().sum() == len(requests):
+            break
+        eng.step()
+    else:
+        raise AssertionError("moe profile: not every slot decodes")
+    labels = {"moe_ffn": (moe, "moe_ffn"), "moe.route": (moe, "_route"),
+              "moe.dispatch": (moe, "_dispatch_group"),
+              "moe.combine": (moe, "_combine_group")}
+    saved = {k: getattr(m, f) for k, (m, f) in labels.items()}
+
+    def labelled(name, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for k, (m, f) in labels.items():
+        setattr(m, f, labelled(k, saved[k]))
+    steps = []
+    one_token = eng._one_token
+
+    def counted(*args):
+        steps.append(1)
+        return one_token(*args)
+
+    eng._one_token = counted
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k, (m, f) in labels.items():
+            setattr(m, f, saved[k])
+    token_steps = len(steps)
+    events = prof.events()
+    # kernels only: a record_function label also shows on the device's
+    # timeline, as a span from its first kernel to its last
+    kernels: dict[str, float] = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in labels):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(kernels.values())
+    # the port's kernels go out through ctypes, which the profiler does not
+    # tie to the host op around the call: count them by their names
+    paged = sum(t for n, t in kernels.items() if "paged_attention_kernel" in n)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    by_label = {"paged_attention": paged}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in labels:
+            by_label[e.name] = (by_label.get(e.name, 0.0)
+                                + e.device_time_total / 1e3)
+    experts = (by_label.get("moe_ffn", 0.0) - by_label.get("moe.route", 0.0)
+               - by_label.get("moe.dispatch", 0.0)
+               - by_label.get("moe.combine", 0.0))
+    per = {"experts_and_silu": experts, **by_label}
+    return {"token_steps": token_steps, "slots": len(requests),
+            "wall_ms_per_token_step_profiled": wall / token_steps,
+            "device_busy_ms_per_token_step": busy / token_steps,
+            "device_idle_share_profiled": 1.0 - busy / wall,
+            "ms_per_token_step": {k: v / token_steps for k, v in per.items()},
+            "share_of_busy": {k: v / busy for k, v in per.items()},
+            "top_kernels_ms_per_token_step": {n[:80]: t / token_steps
+                                              for n, t in top},
+            "other_share": 1.0 - (by_label.get("moe_ffn", 0.0)
+                                  + by_label.get("paged_attention", 0.0))
+            / busy}
+
+
+def moe_rank(rank, device) -> dict:
+    """The moe phase's process (spawned by ``phase_moe``): Qwen3-30B-A3B at
+    full width, its weights drawn on the card from the seed, through the
+    engine on the tp phase's stream and pool, beside the plain path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    prompts, news = engine_requests(cfg.vocab_size)
+    requests = [(p, int(n)) for p, n in zip(prompts[:TP_REQUESTS],
+                                             news[:TP_REQUESTS])]
+    specs = dict(flatten(tfm.model_specs(cfg)))
+    weight_bytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                       for s in specs.values())
+    pages = TP_SLABS * POOL["blocks_per_slab"] + 1
+    pool_bytes = (2 * cfg.n_layers * pages * POOL["page_T"] * cfg.n_kv_heads
+                  * cfg.hd * 2)
+    free, total = torch.cuda.mem_get_info()
+    if free < weight_bytes + pool_bytes + MOE_HEADROOM:
+        raise MemoryError(f"moe: {free / 1e9:.2f} GB free of {total / 1e9:.2f}"
+                          f", the weights need {weight_bytes / 1e9:.2f} GB, "
+                          f"the pool {pool_bytes / 1e9:.3f} GB, headroom "
+                          f"{MOE_HEADROOM / 1e9:.0f} GB")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    out = {"free_gb_before_draw": free / 1e9, "weight_gb": weight_bytes / 1e9,
+           "pool_gb": pool_bytes / 1e9, "draw_s": draw_s,
+           "n_params": model.n_params(),
+           "n_active_params": model.n_active_params(),
+           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    long = next(p for p, _ in requests if len(p) > 512)
+    out["layer0"] = moe_layer0(model, long)
+    run = serve(model, requests, n_slabs=TP_SLABS)
+    out["engine"] = {"tokens": run["tokens"],
+                     "counters": {k: run["metrics"][k] for k in COUNTERS},
+                     "launches": run["launches"],
+                     "flash_routes": run["flash_routes"],
+                     "move_plans": run["move_plans"],
+                     "stream": stream_summary(run), "memory": run["memory"]}
+    t1 = time.perf_counter()
+    out["plain"] = [moe_plain(model.params, cfg, p, n, want) for (p, n), want
+                    in zip(requests, run["tokens"])]
+    out["plain_s"] = time.perf_counter() - t1
+    out["profile"] = moe_profile(model, requests)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_moe(smi) -> dict:
+    """The MoE family at full width (docstring, phase 16), in a process of
+    its own.  Returns the launches of its engine run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    r, = spawn_ranks(importlib.import_module("chip_smoke").moe_rank, 1,
+                     backend="gloo", device="cuda", timeout_s=MOE_TIMEOUT_S)
+    failures = []
+    eng, plain = r["engine"], r["plain"]
+    if eng["counters"] != MOE_REHEARSED:
+        failures.append(f"counters {eng['counters']} != the rehearsal's "
+                        f"{MOE_REHEARSED}")
+    for k in ENGINE_KERNELS:
+        if eng["launches"][k] == 0:
+            failures.append(f"the engine never launched {k}")
+    if eng["flash_routes"]["wgmma"] == 0:
+        failures.append("the prefill's flash never took the wgmma route")
+    if not all(r["layer0"]["moe_ffn_bitwise_repeat"].values()):
+        failures.append(f"moe_ffn does not repeat bitwise: "
+                        f"{r['layer0']['moe_ffn_bitwise_repeat']}")
+    parts, steps, router_ties = [], 0, 0
+    for i, (got, want) in enumerate(zip(eng["tokens"], plain)):
+        steps += len(want["tokens"])
+        router_ties += sum(g < MOE_ROUTER_TIE for g in want["router_gaps"])
+        first = next((j for j, (a, b) in enumerate(zip(got, want["tokens"]))
+                      if a != b), None)
+        if first is None:
+            continue
+        bar = near_tie_bar(torch.bfloat16, want["tops"][first])
+        logit_tie = want["margins"][first] <= bar
+        router_tie = want["router_gaps"][first] < MOE_ROUTER_TIE
+        parts.append({"request": i, "first_mismatch": first,
+                      "margin_at_mismatch": want["margins"][first],
+                      "near_tie_bar": bar,
+                      "router_gap_at_mismatch": want["router_gaps"][first],
+                      "rule": ("logit" if logit_tie else "router"
+                               if router_tie else None)})
+    bad = [p for p in parts if p["rule"] is None]
+    if bad:
+        failures.append(f"tokens part from the plain path off a near-tie: "
+                        f"{bad}")
+    out = {"phase": "moe", "card": smi, "model": MOE_ARCH, "dtype": "bfloat16",
+           "requests": len(plain), "n_slabs": TP_SLABS,
+           "parent_memory_allocated_gb": parent_gb,
+           **{k: r[k] for k in ("n_params", "n_active_params", "weight_gb",
+                                "pool_gb", "free_gb_before_draw", "draw_s",
+                                "memory_allocated_gb",
+                                "max_memory_allocated_gb", "layer0",
+                                "plain_s", "profile")},
+           "tokens": eng["tokens"],
+           "counters": eng["counters"], "rehearsed": MOE_REHEARSED,
+           "flash_routes": eng["flash_routes"],
+           "move_plans": eng["move_plans"], "stream": eng["stream"],
+           "tokens_equal_plain": not parts,
+           "requests_parting": len(parts), "partings": parts,
+           "router_tie_bar": MOE_ROUTER_TIE,
+           "plain_steps": steps, "plain_steps_with_router_tie": router_ties,
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"moe phase: {failures}")
+    return eng["launches"]
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2218,9 +2590,11 @@ def main() -> None:
     results.update(tp_results)
     for name in TP_KERNELS:
         launches[name] = paths["tp"][name]
+    torch.cuda.empty_cache()
+    paths["moe"] = phase_moe(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
-         "path": ("victims, sim" if name == "mdc_priority" else "engine"
+         "path": ("victims, sim" if name == "mdc_priority" else "engine, moe"
                   if name in ENGINE_KERNELS else "tp" if name in TP_KERNELS
                   else "none"),
          "launches": launches[name],
@@ -2228,7 +2602,11 @@ def main() -> None:
          "ms": results[name]["kernel_ms"],
          **{k: results[name][k] for k in ("max_abs_err", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}}
+                                          "library_ms")},
+         # the same kernel at the moe phase's heads (H 32 over Kh 4)
+         **({"at_moe_heads": {k: results[f"{name}_moe"][k] for k in (
+             "kernel_ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape")}} if f"{name}_moe" in results else {})}
         for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

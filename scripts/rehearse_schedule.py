@@ -10,6 +10,7 @@ the CPU, to size a pool before a run on the card.
     PYTHONPATH=src python3 scripts/rehearse_schedule.py async-f32 8
     PYTHONPATH=src python3 scripts/rehearse_schedule.py recovery 30
     PYTHONPATH=src python3 scripts/rehearse_schedule.py tp 12
+    PYTHONPATH=src python3 scripts/rehearse_schedule.py moe 12
 
 Without a stop token the pool's decisions (admission, placement, cleaning,
 preemption, prefix hits) depend on the prompts' lengths and shared pages,
@@ -36,6 +37,8 @@ dispatch) and the f32 leg's middle cut: the ``RECOVERY_REHEARSED`` that
 ``chip_smoke.py`` asserts.  ``tp`` is the tp phase's stream, the engine
 phase's first ``chip_smoke.TP_REQUESTS`` requests (its pool compacts at
 ``chip_smoke.TP_SLABS``; the sharded engine plans as the unsharded one).
+``moe`` is the same stream through the MoE smoke model (the moe phase's
+``MOE_REHEARSED``): the plan does not depend on the family either.
 """
 
 from __future__ import annotations
@@ -146,7 +149,10 @@ def main() -> None:
         reqs = chip_smoke.long_requests(full.vocab_size,
                                         chip_smoke.ASYNC_F32_NEW)
         kw = dict(async_compaction=True)
-    elif stream == "tp":
+    elif stream in ("tp", "moe"):
+        if stream == "moe":
+            model = Model(get_config(chip_smoke.MOE_ARCH).smoke(),
+                          device="cpu", seed=0)
         prompts, news = chip_smoke.engine_requests(full.vocab_size)
         n = chip_smoke.TP_REQUESTS
         reqs = [(p, int(m)) for p, m in zip(prompts[:n], news[:n])]
@@ -158,8 +164,8 @@ def main() -> None:
               "engine": {}, "async": dict(async_compaction=True)}[stream]
     else:
         raise SystemExit(f"unknown stream {stream!r}: preemption, prefix, "
-                         f"chunked, engine, async, async-f32, recovery or "
-                         f"tp")
+                         f"chunked, engine, async, async-f32, recovery, tp "
+                         f"or moe")
     for n_slabs in slabs:
         eng = PagedServingEngine(model, **{**chip_smoke.POOL, **kw,
                                            "n_slabs": n_slabs},

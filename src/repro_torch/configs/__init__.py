@@ -1,9 +1,11 @@
-"""Architecture registry of the port: the dense GQA family, which is what the
-paged serving engine runs."""
-from . import granite_3_2b, nemotron_4_340b, qwen3_1p7b, yi_34b
+"""Architecture registry of the port: the families the paged serving engine
+runs, dense GQA and GQA with a top-k MoE FFN."""
+from . import (granite_3_2b, nemotron_4_340b, qwen3_1p7b, qwen3_moe_30b_a3b,
+               yi_34b)
 from .base import ModelConfig
 
-_MODULES = [qwen3_1p7b, granite_3_2b, nemotron_4_340b, yi_34b]
+_MODULES = [qwen3_1p7b, granite_3_2b, nemotron_4_340b, yi_34b,
+            qwen3_moe_30b_a3b]
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

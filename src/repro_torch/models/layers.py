@@ -57,10 +57,21 @@ def unflatten(items):
     return out
 
 
+# A leaf of at least this many elements is drawn one slice of its leading
+# (layers) axis at a time: drawn whole in float32, one of Qwen3-30B-A3B's
+# expert leaves (9.66 G elements) would not fit beside its bf16 result on
+# an 80 GB card.  Every leaf of the dense configs the tests and the chip
+# run draw lies below it (the largest, qwen3-1.7b's w_gate, holds 352 M),
+# so those are drawn whole.
+SLICED_DRAW_ELEMENTS = 1 << 30
+
+
 def init_params(specs, generator: torch.Generator, *, device=None):
     """Materialize a spec tree: N(0, scale²) drawn in float32 from
     ``generator`` and cast to each leaf's dtype (zeros / ones for the
-    sentinel scales).  ``generator`` must live on ``device``."""
+    sentinel scales).  A leaf of ``SLICED_DRAW_ELEMENTS`` or more is drawn
+    slice by slice of its leading axis, so the draw holds one slice's
+    float32 at a time.  ``generator`` must live on ``device``."""
     dev = resolve_device(device)
     out = []
     for path, s in flatten(specs):
@@ -68,6 +79,12 @@ def init_params(specs, generator: torch.Generator, *, device=None):
             t = torch.zeros(s.shape, dtype=s.dtype, device=dev)
         elif s.scale == -1.0:
             t = torch.ones(s.shape, dtype=s.dtype, device=dev)
+        elif math.prod(s.shape) >= SLICED_DRAW_ELEMENTS:
+            t = torch.empty(s.shape, dtype=s.dtype, device=dev)
+            for i in range(s.shape[0]):
+                t[i].copy_(torch.randn(s.shape[1:], generator=generator,
+                                       device=dev, dtype=torch.float32)
+                           .mul_(s.scale))
         else:
             t = (torch.randn(s.shape, generator=generator, device=dev,
                              dtype=torch.float32) * s.scale).to(s.dtype)

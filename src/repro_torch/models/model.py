@@ -3,6 +3,8 @@ layout."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -39,6 +41,24 @@ class Model(nn.Module):
         parameters, so ``.to()`` and ``state_dict()`` stay in step)."""
         return unflatten((tuple(name.split("/")), p)
                          for name, p in self.named_parameters())
+
+    def n_params(self) -> int:
+        """Parameters of the configuration, counted from its spec tree (a
+        rank's sharded model counts them whole, as the JAX ``Model``)."""
+        return sum(math.prod(s.shape)
+                   for _, s in flatten(tfm.model_specs(self.cfg)))
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE discounts inactive experts): the
+        routed experts' leaves count ``top_k`` of ``n_experts``."""
+        cfg = self.cfg
+        total = self.n_params()
+        if not cfg.n_experts:
+            return total
+        expert = sum(math.prod(s.shape) for k, s in
+                     tfm.model_specs(cfg)["blocks"]["mlp"].items()
+                     if k.startswith("w_"))
+        return total - expert + expert * cfg.top_k // cfg.n_experts
 
     def greedy_decode(self, prompt, max_new_tokens, **kw):
         return tfm.greedy_decode(self.params, prompt, self.cfg,

@@ -1,6 +1,7 @@
-"""Model assembly for the dense GQA family: parameter specs, the prompt
-prefill (whole, the tail after a cached prefix, or one chunk of it), and
-the dense-cache decode that serves as the token oracle.
+"""Model assembly for the GQA families the engine serves, dense and MoE
+(a top-k routed FFN, :mod:`.moe`, in place of the dense MLP): parameter
+specs, the prompt prefill (whole, the tail after a cached prefix, or one
+chunk of it), and the dense-cache decode that serves as the token oracle.
 
 Parameters keep the JAX package's layout (stacked per-layer leaves with a
 leading layers axis; ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``,
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as att
+from . import moe as moe_mod
 from .layers import norm_spec, rmsnorm, spec, sq_relu_mlp, swiglu
 
 
@@ -30,14 +32,17 @@ def mlp_specs(cfg, layers):
 
 
 def model_specs(cfg):
-    if cfg.family != "dense":
-        raise ValueError(f"the port runs the dense family, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port runs the dense and moe families, not "
+                         f"{cfg.family!r}")
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     s = {"embed": spec((V, d), scale=0.02), "final_norm": norm_spec(d)}
     if not cfg.tie_embeddings:
         s["lm_head"] = spec((d, V), scale=1.0 / math.sqrt(d))
     s["blocks"] = {"ln1": norm_spec(d, L), "ln2": norm_spec(d, L),
-                   "attn": att.attn_specs(cfg, L), "mlp": mlp_specs(cfg, L)}
+                   "attn": att.attn_specs(cfg, L),
+                   "mlp": (moe_mod.moe_specs(cfg, L) if cfg.family == "moe"
+                           else mlp_specs(cfg, L))}
     return s
 
 
@@ -48,6 +53,8 @@ def layer(blocks, i: int):
 
 
 def _block_mlp(h, p, cfg):
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(h, p, cfg, cfg.capacity_factor, cfg.moe_groups)
     if cfg.mlp_act == "sq_relu":
         return sq_relu_mlp(h, p["w_up"], p["w_down"])
     return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])

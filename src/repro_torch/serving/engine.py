@@ -121,7 +121,10 @@ updates the pools in place.
 Batch slots are fixed (``max_batch``); inactive slots point at a reserved
 trash page and are masked out.  Per-slot bookkeeping is numpy arrays
 (``rid``, ``lens``, ``to_gen``, ``npages``, ``tokens``, ``_prefilling``)
-plus the ``bt`` block-table matrix.  Supported family: dense (GQA attention).
+plus the ``bt`` block-table matrix.  Supported families: dense + moe (GQA
+attention; the MoE FFN groups the tokens of each call, so the prefill keeps
+the JAX engine's buckets and the decode routes every slot, inactive ones
+too, whose frozen token the step keeps).
 
 Tensor-parallel serving (``mesh=``, a ``"model"`` ``DeviceMesh`` from
 ``launch.mesh.make_serving_mesh``) runs one engine per rank, one process
@@ -262,8 +265,9 @@ class PagedServingEngine:
                  calibration: bool = False, phase_log: bool = False,
                  device=None, mesh=None):
         cfg = model.cfg
-        if cfg.family != "dense":
-            raise ValueError(f"the port serves the dense family, not {cfg.family!r}")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"the port serves the dense and moe families, "
+                             f"not {cfg.family!r}")
         self.model, self.cfg = model, cfg
         self.device = resolve_device(device)
         self.params = params if params is not None else model.params

@@ -38,8 +38,8 @@ def test_config_equals_jax_field_for_field(name, smoke):
 
 
 def test_get_config_rejects_families_outside_the_slice():
-    with pytest.raises(KeyError, match="qwen3-moe"):
-        get_config("qwen3-moe-30b-a3b")
+    with pytest.raises(KeyError, match="mamba2"):
+        get_config("mamba2-1.3b")
 
 
 @pytest.mark.parametrize("name", ARCHS)

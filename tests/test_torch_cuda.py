@@ -1335,3 +1335,82 @@ def test_nccl_world_size_one_is_the_unsharded_engine(dev, tmp_path):
     assert got["pool_sharded"]
     assert got["tokens"] == base["tokens"]
     assert got["metrics"] == base["metrics"]
+
+
+# ------------------------------------------------------ the MoE family
+
+MOE = "qwen3-moe-30b-a3b"
+
+
+def _moe_input(cfg, T, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return _randn(rng, (1, T, cfg.d_model), dtype, dev)
+
+
+@pytest.mark.parametrize("cf", [4.0, 1.0], ids=["no-drop", "drops"])
+def test_moe_ffn_on_card_matches_cpu(dev, cf):
+    """The smoke MoE layer at f32 on the card against the CPU: a 64-token
+    call in 32 groups of two tokens, at the smoke config's capacity (no
+    drop) and at 1.0 (drops)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer
+    cfg = get_config(MOE).smoke().with_(capacity_factor=cf)
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    lp = layer(params["blocks"], 0)["mlp"]
+    x = _moe_input(cfg, 64, "cpu", torch.float32)
+    want = moe.moe_ffn(x, lp, cfg, cf, cfg.moe_groups)
+    got = moe.moe_ffn(x.to(dev), _f32(lp, dev), cfg, cf, cfg.moe_groups)
+    torch.testing.assert_close(got.cpu(), want, **TOL[torch.float32])
+    xg, _, top_p, top_e, cap = moe._route(x.to(dev), lp["router"].to(dev),
+                                          cfg, cf, cfg.moe_groups)
+    keep = moe._dispatch_group(xg, top_e, top_p, cfg.n_experts, cfg.top_k,
+                               cap)[1][3]
+    assert bool(keep.all()) == (cf == 4.0)
+
+
+@pytest.mark.parametrize("T", [8, 1024], ids=["decode", "prefill"])
+def test_full_width_moe_layer_repeats_bitwise(dev, T):
+    """One full-width Qwen3-30B-A3B layer's ``moe_ffn`` (128 experts, top-8,
+    bf16) called twice on the same input gives the same bits: the combine
+    sums each token's picks in a fixed order, without atomics."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+    cfg = get_config(MOE)
+    specs = {k: s._replace(shape=s.shape[1:]) for k, s in
+             moe.moe_specs(cfg, 1).items()}
+    lp = init_params(specs, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    x = _moe_input(cfg, T, dev, torch.bfloat16)
+    a = moe.moe_ffn(x, lp, cfg, cfg.capacity_factor, cfg.moe_groups)
+    b = moe.moe_ffn(x, lp, cfg, cfg.capacity_factor, cfg.moe_groups)
+    assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+    assert torch.equal(a, b)
+
+
+def test_moe_engine_on_card_matches_cpu_engine(dev):
+    """The MoE smoke engine at f32 on the card against the CPU, on a
+    compacting stream: same tokens, same pool counters, and the card's
+    decode through the paged kernel."""
+    cfg = get_config(MOE).smoke()
+    params = _f32(Model(cfg, device="cpu", seed=0).params, "cpu")
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, cfg.vocab_size, size=n), m) for n, m in
+            zip([5, 17, 9, 24, 3, 12], [6, 10, 4, 8, 12, 5])]
+    results = []
+    ops.reset_launches()
+    for device in ("cpu", dev):
+        eng = PagedServingEngine(Model(cfg, _f32(params, device)), n_slabs=7,
+                                 blocks_per_slab=2, page_T=8, max_batch=3,
+                                 max_seq=96, streams=1, compact_trigger=2,
+                                 compact_batch=3, max_decode_chunk=8,
+                                 pool_dtype=torch.float32, device=device)
+        rids = [eng.submit(p, n) for p, n in reqs]
+        eng.run_to_completion()
+        eng.pool.check_invariants()
+        m = eng.metrics()
+        results.append(([eng.finished[r] for r in rids],
+                        {k: m[k] for k in ("blocks_written", "blocks_moved",
+                                           "compactions", "wamp")}))
+    assert results[0] == results[1]
+    assert results[0][1]["compactions"] >= 1
+    assert ops.launches["paged_attention"] > 0

@@ -82,6 +82,17 @@ def smoke_pair():
     return _pair("smoke")
 
 
+@pytest.fixture(scope="module")
+def moe_pair():
+    """The MoE smoke model (Qwen3-30B-A3B's family: 8 experts, top-2, 2 kv
+    heads), as ``_pair`` builds the dense ones."""
+    jm = JaxModel(jax_get_config("qwen3-moe-30b-a3b").smoke())
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jm.init(jax.random.PRNGKey(0)))
+    return (jm, jp, get_config("qwen3-moe-30b-a3b").smoke(),
+            params_from_jax(jax.tree.map(np.asarray, jp)))
+
+
 # ---------------------------------------------------------------- streams
 # each the geometry and requests of the JAX test it mirrors
 
@@ -172,7 +183,7 @@ def wrapper_inputs():
 
 
 @pytest.fixture(scope="module")
-def mesh2(tp_pair, smoke_pair, wrapper_inputs, tmp_path_factory):
+def mesh2(tp_pair, smoke_pair, moe_pair, wrapper_inputs, tmp_path_factory):
     """Every mesh-2 case, on two gloo ranks in one spawn: per rank
     {case: result}."""
     root = tmp_path_factory.mktemp("tp_journal")
@@ -190,6 +201,7 @@ def mesh2(tp_pair, smoke_pair, wrapper_inputs, tmp_path_factory):
         "snapshots": _case(tp_pair, _recovery_reqs,
                            dict(RECOVERY_KW, snapshot_every=2),
                            recovery=(str(root / "s"), 5)),
+        "moe": _case(moe_pair, _serve_reqs, _serve_kw()),
     }
     return tp_mesh.spawn_ranks(tp.run_cases, 2, cases, backend="gloo",
                                device="cpu", timeout_s=SPAWN_TIMEOUT_S)
@@ -360,6 +372,23 @@ def test_indivisible_kv_heads_replicate(mesh8, smoke_pair):
         assert not got["pool_sharded"]
         assert got["pool_shape"] == base["pool_shape"]
         assert got["model_heads"] == base["model_heads"]
+        assert got["tokens"] == base["tokens"]
+        assert got["metrics"] == base["metrics"]
+
+
+def test_moe_engine_under_mesh2(mesh2, moe_pair):
+    """The MoE family under a 2-rank mesh: each rank attends with 1 of the
+    2 kv heads, and the routed FFN (whose expert leaves no rule shards)
+    runs whole on every rank after the context all-gather, in the
+    one-device order.  The _serve stream's tokens and ``metrics()`` are
+    bitwise the port's one-device MoE engine's, which
+    ``tests/test_torch_moe.py`` holds to the JAX engine on this stream."""
+    base = _unsharded(moe_pair, _serve_reqs, _serve_kw())
+    assert base["metrics"]["compactions"] >= 1
+    for r in mesh2:
+        got = r["moe"]
+        assert got["pool_sharded"] and got["pool_shape"][3] == 1
+        assert got["model_heads"] == (2, 1)
         assert got["tokens"] == base["tokens"]
         assert got["metrics"] == base["metrics"]
 
