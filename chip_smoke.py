@@ -222,16 +222,13 @@ Phases, in order; any failure raises and the process exits non-zero:
              route).  Each request through the plain path on the card at
              the engine's prompt bucket (so the MoE groups and drops as the
              engine's does): its tokens equal the engine's, or the first
-             mismatch sits on a logit near-tie (``near_tie_bar``) or a
-             router near-tie at that step (a routed token whose k-th and
-             (k+1)-th probabilities are within ``MOE_ROUTER_TIE`` of each
-             other, relative).  Layer 0 of a 1,024-token bucket through
-             the port's moe functions: the capacity-dropped picks, and
+             mismatch sits on a logit near-tie (``near_tie_bar``) of the
+             plain path.  Layer 0 of a 1,024-token bucket through the
+             port's moe functions: the capacity-dropped picks, and
              ``moe_ffn`` at the prefill and decode shapes called twice,
              bitwise equal.  Reported: the parameter counts, wall and
-             dispatch times, peak memory, and the device split of a decode
-             step at 8 slots under ``torch.profiler`` (expert products,
-             router, dispatch, combine, paged attention, the rest).
+             dispatch times, peak memory.  (The decode step's device split
+             is ``scripts/profile_engine.py --arch qwen3-moe-30b-a3b``.)
              Each of the last ten phases zeroes the launch counters before
              it and reads them after, and fails unless its kernels launched.
 
@@ -415,13 +412,6 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_REHEARSED = dict(dispatches=34, blocks_written=295, blocks_moved=114,
                      compactions=4, wamp=114 / 295)
 MOE_HEADROOM = 8e9   # bytes free beyond the weights and the pool
-# a token's k-th and (k+1)-th router probabilities within this share of the
-# k-th: a bf16 rounding apart before the router can swap the two experts
-# (one bf16 step in each of half the 2,048 inputs moves a router logit by
-# ~5e-3 at this model's init scales), so the top-k is a near-tie
-MOE_ROUTER_TIE = 1e-2
-MOE_PROFILE_NEW = 64   # new tokens per request in the profiled decode
-MOE_PROFILE_CHUNK = 4  # token steps in the profiled dispatch
 MOE_TIMEOUT_S = 600
 
 
@@ -2257,88 +2247,50 @@ def phase_tp(cfg, smi) -> tuple[dict, dict]:
 
 # ------------------------------------------------------------ moe phase
 
-def pow2_bucket(plen: int, page_T: int = 16) -> int:
-    """The engine's prompt bucket (``PagedServingEngine._prefill_bucket``)."""
-    return max(1 << (plen - 1).bit_length(), 1 << (page_T - 1).bit_length())
-
-
-@contextlib.contextmanager
-def router_gaps(gaps: list, limit: list):
-    """While active, every ``moe._route`` call appends to ``gaps`` the least
-    relative gap, over the first ``limit[0]`` tokens of the call, between a
-    token's k-th and (k+1)-th router probabilities, (p_k - p_k+1) / p_k
-    (a device scalar)."""
-    route = moe._route
-
-    def recording(x, router, cfg, *args):
-        out = route(x, router, cfg, *args)
-        probs = out[1].reshape(-1, cfg.n_experts)[:limit[0]]
-        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
-        gaps.append(((top[:, -2] - top[:, -1]) / top[:, -2]).min())
-        return out
-
-    moe._route = recording
-    try:
-        yield
-    finally:
-        moe._route = route
-
-
-def moe_plain(params, cfg, prompt, n_new, expect) -> dict:
+def moe_plain(params, cfg, prompt, n_new, expect, bucket) -> dict:
     """The plain path on the card for one request: ``tfm.prefill`` of the
-    prompt right-padded to the engine's bucket (``kernel=False``: chunked
-    attention; a dense bf16 cache), so its MoE groups its tokens as the
-    engine does, then ``tfm.decode_step`` one token at a time, up to the
+    prompt right-padded to ``bucket``, the engine's (``kernel=False``:
+    chunked attention; a dense bf16 cache), so its MoE groups its tokens as
+    the engine does, then ``tfm.decode_step`` one token at a time, up to the
     first token that differs from ``expect`` (the engine's).  Per emitted
-    token: the top-2 logit margin, the top logit, and the least relative
-    router gap of that step's routings (the prefill's over the real tokens
-    only: the pad never takes a real token's expert slot)."""
+    token: the top-2 logit margin and the top logit."""
     dev = params["embed"].device
     plen = len(prompt)
-    bucket = pow2_bucket(plen)
     toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
     toks[0, :plen] = torch.as_tensor(prompt, device=dev)
-    gaps, limit = [], [plen]
-    out, margins, tops, step_gaps = [], [], [], []
-    with router_gaps(gaps, limit):
-        logits, cache = tfm.prefill(params, toks, cfg,
-                                    max(bucket, plen + n_new + 1),
-                                    cache_dtype=torch.bfloat16, true_len=plen,
-                                    kernel=False)
-        limit[0] = 1
-        while True:
-            top2 = torch.topk(logits[0].float(), 2).values
-            a, b, gap = torch.stack([top2[0], top2[1],
-                                     torch.stack(gaps).min()]).tolist()
-            gaps.clear()
-            margins.append(a - b)
-            tops.append(a)
-            step_gaps.append(gap)
-            out.append(int(torch.argmax(logits[0])))
-            if len(out) == n_new or out[-1] != expect[len(out) - 1]:
-                break
-            logits, cache = tfm.decode_step(
-                params, cache, torch.tensor([out[-1]], device=dev), cfg)
-    return {"tokens": out, "margins": margins, "tops": tops,
-            "router_gaps": step_gaps}
+    out, margins, tops = [], [], []
+    logits, cache = tfm.prefill(params, toks, cfg,
+                                max(bucket, plen + n_new + 1),
+                                cache_dtype=torch.bfloat16, true_len=plen,
+                                kernel=False)
+    while True:
+        a, b = torch.topk(logits[0].float(), 2).values.tolist()
+        margins.append(a - b)
+        tops.append(a)
+        out.append(int(torch.argmax(logits[0])))
+        if len(out) == n_new or out[-1] != expect[len(out) - 1]:
+            break
+        logits, cache = tfm.decode_step(
+            params, cache, torch.tensor([out[-1]], device=dev), cfg)
+    return {"tokens": out, "margins": margins, "tops": tops}
 
 
-def moe_layer0(model, prompt) -> dict:
-    """Layer 0 of one prompt's bucket through the port's moe functions:
-    the capacity-dropped picks, and ``moe_ffn`` called twice at the
-    prefill shape and at the decode shape (8 tokens), bitwise."""
+def moe_layer0(model, prompt, bucket) -> dict:
+    """Layer 0 of one prompt right-padded to ``bucket`` (the engine's)
+    through the port's moe functions: the capacity-dropped picks, and
+    ``moe_ffn`` called twice at the prefill shape and at the decode shape
+    (8 tokens), bitwise."""
     cfg, params = model.cfg, model.params
     dev = params["embed"].device
     plen = len(prompt)
-    bucket = pow2_bucket(plen)
     toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
     toks[0, :plen] = torch.as_tensor(prompt, device=dev)
     lp = tfm.layer(params["blocks"], 0)
     x = tfm._embed(params, toks)
     a, _ = att.gqa_prefill(rmsnorm(x, lp["ln1"]), lp["attn"], cfg)
     h = rmsnorm(x + a, lp["ln2"])
-    xg, _, top_p, top_e, cap = moe._route(h, lp["mlp"]["router"], cfg,
-                                          cfg.capacity_factor, cfg.moe_groups)
+    xg, top_p, top_e, cap = moe._route(h, lp["mlp"]["router"], cfg,
+                                       cfg.capacity_factor, cfg.moe_groups)
     st_tok, _, _, keep = moe._dispatch_group(xg, top_e, top_p, cfg.n_experts,
                                              cfg.top_k, cap)[1]
     G, Tg = xg.shape[:2]
@@ -2357,97 +2309,6 @@ def moe_layer0(model, prompt) -> dict:
             "dropped_picks": int((~keep).sum()),
             "dropped_real_picks": int((~keep & real).sum()),
             "moe_ffn_bitwise_repeat": repeat}
-
-
-def moe_profile(model, requests) -> dict:
-    """The device split of the engine's decode at 8 slots: the requests'
-    first 256 prompt tokens and ``MOE_PROFILE_NEW`` new tokens each through
-    the engine phase's pool; once every slot decodes, one dispatch of
-    ``MOE_PROFILE_CHUNK`` token steps under ``torch.profiler``, the MoE
-    FFN, its router, dispatch and combine labelled by ``record_function``.
-    A label's device time is that of the kernels launched inside it (its
-    host op's ``device_time_total``); the expert products are the FFN's
-    less its three labelled parts; paged attention is its kernel's time.  Busy is the
-    window's kernel time; its wall (host clock, profiler on) gives the
-    idle share."""
-    eng = PagedServingEngine(model, **{**POOL,
-                                       "max_decode_chunk": MOE_PROFILE_CHUNK},
-                             device=model.params["embed"].device)
-    for p, _ in requests:
-        eng.submit(p[:256], MOE_PROFILE_NEW)
-    for _ in range(len(requests)):
-        if eng._decoding().sum() == len(requests):
-            break
-        eng.step()
-    else:
-        raise AssertionError("moe profile: not every slot decodes")
-    labels = {"moe_ffn": (moe, "moe_ffn"), "moe.route": (moe, "_route"),
-              "moe.dispatch": (moe, "_dispatch_group"),
-              "moe.combine": (moe, "_combine_group")}
-    saved = {k: getattr(m, f) for k, (m, f) in labels.items()}
-
-    def labelled(name, fn):
-        def call(*args, **kw):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kw)
-        return call
-
-    for k, (m, f) in labels.items():
-        setattr(m, f, labelled(k, saved[k]))
-    steps = []
-    one_token = eng._one_token
-
-    def counted(*args):
-        steps.append(1)
-        return one_token(*args)
-
-    eng._one_token = counted
-    try:
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        for k, (m, f) in labels.items():
-            setattr(m, f, saved[k])
-    token_steps = len(steps)
-    events = prof.events()
-    # kernels only: a record_function label also shows on the device's
-    # timeline, as a span from its first kernel to its last
-    kernels: dict[str, float] = {}
-    for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name not in labels):
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3
-    busy = sum(kernels.values())
-    # the port's kernels go out through ctypes, which the profiler does not
-    # tie to the host op around the call: count them by their names
-    paged = sum(t for n, t in kernels.items() if "paged_attention_kernel" in n)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    by_label = {"paged_attention": paged}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name in labels:
-            by_label[e.name] = (by_label.get(e.name, 0.0)
-                                + e.device_time_total / 1e3)
-    experts = (by_label.get("moe_ffn", 0.0) - by_label.get("moe.route", 0.0)
-               - by_label.get("moe.dispatch", 0.0)
-               - by_label.get("moe.combine", 0.0))
-    per = {"experts_and_silu": experts, **by_label}
-    return {"token_steps": token_steps, "slots": len(requests),
-            "wall_ms_per_token_step_profiled": wall / token_steps,
-            "device_busy_ms_per_token_step": busy / token_steps,
-            "device_idle_share_profiled": 1.0 - busy / wall,
-            "ms_per_token_step": {k: v / token_steps for k, v in per.items()},
-            "share_of_busy": {k: v / busy for k, v in per.items()},
-            "top_kernels_ms_per_token_step": {n[:80]: t / token_steps
-                                              for n, t in top},
-            "other_share": 1.0 - (by_label.get("moe_ffn", 0.0)
-                                  + by_label.get("paged_attention", 0.0))
-            / busy}
 
 
 def moe_rank(rank, device) -> dict:
@@ -2481,20 +2342,23 @@ def moe_rank(rank, device) -> dict:
            "n_params": model.n_params(),
            "n_active_params": model.n_active_params(),
            "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9}
-    long = next(p for p, _ in requests if len(p) > 512)
-    out["layer0"] = moe_layer0(model, long)
-    run = serve(model, requests, n_slabs=TP_SLABS)
+    # each prompt's bucket, by the engine's own rule
+    buckets = {}
+    run = serve(model, requests, n_slabs=TP_SLABS, setup=lambda eng: (
+        buckets.update({len(p): eng._prefill_bucket(len(p), 0)[0]
+                        for p, _ in requests})))
     out["engine"] = {"tokens": run["tokens"],
                      "counters": {k: run["metrics"][k] for k in COUNTERS},
                      "launches": run["launches"],
                      "flash_routes": run["flash_routes"],
                      "move_plans": run["move_plans"],
                      "stream": stream_summary(run), "memory": run["memory"]}
+    long = next(p for p, _ in requests if len(p) > 512)
+    out["layer0"] = moe_layer0(model, long, buckets[len(long)])
     t1 = time.perf_counter()
-    out["plain"] = [moe_plain(model.params, cfg, p, n, want) for (p, n), want
-                    in zip(requests, run["tokens"])]
+    out["plain"] = [moe_plain(model.params, cfg, p, n, want, buckets[len(p)])
+                    for (p, n), want in zip(requests, run["tokens"])]
     out["plain_s"] = time.perf_counter() - t1
-    out["profile"] = moe_profile(model, requests)
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -2521,27 +2385,21 @@ def phase_moe(smi) -> dict:
     if not all(r["layer0"]["moe_ffn_bitwise_repeat"].values()):
         failures.append(f"moe_ffn does not repeat bitwise: "
                         f"{r['layer0']['moe_ffn_bitwise_repeat']}")
-    parts, steps, router_ties = [], 0, 0
+    parts = []
     for i, (got, want) in enumerate(zip(eng["tokens"], plain)):
-        steps += len(want["tokens"])
-        router_ties += sum(g < MOE_ROUTER_TIE for g in want["router_gaps"])
         first = next((j for j, (a, b) in enumerate(zip(got, want["tokens"]))
                       if a != b), None)
         if first is None:
             continue
         bar = near_tie_bar(torch.bfloat16, want["tops"][first])
-        logit_tie = want["margins"][first] <= bar
-        router_tie = want["router_gaps"][first] < MOE_ROUTER_TIE
         parts.append({"request": i, "first_mismatch": first,
                       "margin_at_mismatch": want["margins"][first],
                       "near_tie_bar": bar,
-                      "router_gap_at_mismatch": want["router_gaps"][first],
-                      "rule": ("logit" if logit_tie else "router"
-                               if router_tie else None)})
-    bad = [p for p in parts if p["rule"] is None]
+                      "near_tie": want["margins"][first] <= bar})
+    bad = [p for p in parts if not p["near_tie"]]
     if bad:
-        failures.append(f"tokens part from the plain path off a near-tie: "
-                        f"{bad}")
+        failures.append(f"tokens part from the plain path off a logit "
+                        f"near-tie: {bad}")
     out = {"phase": "moe", "card": smi, "model": MOE_ARCH, "dtype": "bfloat16",
            "requests": len(plain), "n_slabs": TP_SLABS,
            "parent_memory_allocated_gb": parent_gb,
@@ -2549,15 +2407,14 @@ def phase_moe(smi) -> dict:
                                 "pool_gb", "free_gb_before_draw", "draw_s",
                                 "memory_allocated_gb",
                                 "max_memory_allocated_gb", "layer0",
-                                "plain_s", "profile")},
+                                "plain_s")},
            "tokens": eng["tokens"],
            "counters": eng["counters"], "rehearsed": MOE_REHEARSED,
            "flash_routes": eng["flash_routes"],
            "move_plans": eng["move_plans"], "stream": eng["stream"],
            "tokens_equal_plain": not parts,
            "requests_parting": len(parts), "partings": parts,
-           "router_tie_bar": MOE_ROUTER_TIE,
-           "plain_steps": steps, "plain_steps_with_router_tie": router_ties,
+           "plain_steps": sum(len(w["tokens"]) for w in plain),
            "phase_seconds": time.perf_counter() - t0, "failures": failures}
     emit(out)
     if failures:

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes, on one CUDA card.
 
-    python3 scripts/profile_engine.py
+    python3 scripts/profile_engine.py [--arch qwen3-moe-30b-a3b]
 
-Builds the full-width qwen3-1.7b (random bf16 weights from a seed) and the
-paged engine of ``chip_smoke.py``'s engine phase, then profiles these
-windows with ``torch.profiler`` (CPU and CUDA activities):
+Builds ``--arch`` at full width (qwen3-1.7b by default; random bf16
+weights from a seed) and the paged engine of ``chip_smoke.py``'s engine
+phase, then profiles these windows with ``torch.profiler`` (CPU and CUDA
+activities):
 
 * decode  — eight slots admitted (prompts of 512 tokens), then dispatches
             of a full batch with no admission in the window;
@@ -47,11 +48,18 @@ the device's busy ms (sum of kernel times under the profiler), the idle
 share against the unprofiled wall, kernel launches, the kernels that take
 the most device time, the time of each of the port's own kernels, and the
 host operators with the most self CPU time under the profiler (with their
-calls).  Measurement only: nothing here is asserted.
+calls).  For the moe family (Qwen3-30B-A3B: 61.1 GB of weights, so nothing
+else on the card) each window also splits the MoE FFN's device time
+(``moe_ms``, ``moe_share_of_busy``): its router, dispatch and combine,
+each the kernels launched inside a ``record_function`` span around that
+function, and the expert products with their silu, the FFN's span less
+the three.  Measurement only: nothing here is asserted.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -71,7 +79,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from chip_smoke import timed  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import CompactionPlan, PagedServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
@@ -81,15 +89,48 @@ from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
 PORT_KERNELS = {"flash_attention": "flash_fwd", "paged_attention":
                 "paged_attention_kernel", "segment_move": "move_rows",
                 "segment_compact": "compact_rows"}
+# the MoE FFN's spans under the profiler: label -> the function in ``moe``
+MOE_LABELS = {"moe_ffn": "moe_ffn", "moe.route": "_route",
+              "moe.dispatch": "_dispatch_group",
+              "moe.combine": "_combine_group"}
+
+
+@contextlib.contextmanager
+def profiled():
+    """``torch.profiler`` over the CPU and the card, with each MOE_LABELS
+    function run inside a ``record_function`` span of its label."""
+    saved = {f: getattr(moe, f) for f in MOE_LABELS.values()}
+
+    def labelled(label, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    for label, f in MOE_LABELS.items():
+        setattr(moe, f, labelled(label, saved[f]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yield prof
+    finally:
+        for f, fn in saved.items():
+            setattr(moe, f, fn)
 
 
 def kernel_table(prof, wall_ms: float, n_units: int) -> dict:
     """Device time of the CUDA kernels in a profile, per unit, against the
     wall time of the same window run without the profiler."""
-    rows = []
+    rows, spans = [], {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function span also shows on the device's timeline, from
+        # its first kernel to its last: kernels only
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in MOE_LABELS):
             rows.append((e.name, e.device_time_total / 1e3))
+        elif (e.device_type == torch.autograd.DeviceType.CPU
+              and e.name in MOE_LABELS):
+            spans[e.name] = spans.get(e.name, 0.0) + e.device_time_total / 1e3
     busy = sum(t for _, t in rows)
     by_name: dict[str, float] = {}
     for name, t in rows:
@@ -102,12 +143,18 @@ def kernel_table(prof, wall_ms: float, n_units: int) -> dict:
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     top_host = {a.key[:60]: [a.self_cpu_time_total / 1e3 / n_units,
                              a.count / n_units] for a in host[:10]}
-    return {"wall_ms": wall_ms / n_units, "device_busy_ms": busy / n_units,
-            "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-            "launches": len(rows) / n_units,
-            "top_kernels_ms": {n[:80]: t / n_units for n, t in top},
-            "top_host_ops_ms_calls": top_host,
-            "port_kernels_ms": {k: t for k, t in port.items() if t}}
+    out = {"wall_ms": wall_ms / n_units, "device_busy_ms": busy / n_units,
+           "device_idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+           "launches": len(rows) / n_units,
+           "top_kernels_ms": {n[:80]: t / n_units for n, t in top},
+           "top_host_ops_ms_calls": top_host,
+           "port_kernels_ms": {k: t for k, t in port.items() if t}}
+    if spans:
+        split = {"experts_and_silu": spans["moe_ffn"] - sum(
+            t for k, t in spans.items() if k != "moe_ffn"), **spans}
+        out["moe_ms"] = {k: t / n_units for k, t in split.items()}
+        out["moe_share_of_busy"] = {k: t / busy for k, t in split.items()}
+    return out
 
 
 def count_syncs(fn):
@@ -185,7 +232,7 @@ def async_move(model, cfg) -> None:
     # three dispatches under one profile: a move the profiler drops (one
     # call on the card missed the first) still leaves two to read
     ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         wall = [dispatch(issue_async) for _ in range(3)]
     issued = ops.launches["segment_move"]
     kernels = [e for e in prof.events()
@@ -221,13 +268,18 @@ def async_move(model, cfg) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="the model, at full width (a name of the port's "
+                         "ARCHS)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(args.arch)
     model = Model(cfg, device="cuda", seed=0)
     eng = PagedServingEngine(model, n_slabs=30, blocks_per_slab=16, page_T=16,
                              max_batch=8, max_seq=2048, streams=1,
@@ -253,7 +305,7 @@ def main() -> None:
     # The same window once without the profiler (its wall is the one to
     # read) and once under it (for the device-side split).
     plain_ms, plain_steps = steps(3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         wall, token_steps = steps(3)
     (_, sync_steps), syncs = count_syncs(lambda: steps(1))
     print(json.dumps({"window": "decode", "batch": eng.max_batch,
@@ -277,7 +329,7 @@ def main() -> None:
     ops.reset_launches()
     plain_ms = prefill()
     routes = dict(ops.flash_routes)  # the route of the window's attention
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         wall = prefill()
     print(json.dumps({"window": "prefill", "tokens": 1024, "per": "prompt",
                       "wall_ms_profiled": wall, "flash_routes": routes,
@@ -319,8 +371,7 @@ def main() -> None:
         ops.reset_launches()
         run(fn)
         offsets = dict(ops.flash_offsets)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             wall = run(fn)
         print(json.dumps({"window": name, "tokens": tokens, "per": "prompt",
                           "wall_ms_runs": walls[name],
@@ -371,7 +422,7 @@ def main() -> None:
     plain_ms, plain_n, plain_steps = prompt_chunks()
     split = {f"{k}_ms": sum(a.elapsed_time(b) for a, b in v) / plain_n
              for k, v in parts.items()}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         wall, n_disp, token_steps = prompt_chunks()
     print(json.dumps({"window": "fused_chunk", "chunk_tokens": 256,
                       "per": "dispatch", "dispatches": n_disp,

@@ -100,8 +100,8 @@ def _combine_group(y, meta, T):
 
 def _route(x, router, cfg, capacity_factor, moe_groups):
     """The grouping and the router of :func:`moe_ffn`: x (B, S, d) as
-    (G, Tg, d) groups, each token's f32 probabilities (G, Tg, E), its top-k
-    probabilities renormalised and experts (G, Tg, k), and the capacity."""
+    (G, Tg, d) groups, each token's top-k f32 probabilities renormalised and
+    its experts (G, Tg, k), and the capacity."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -117,14 +117,14 @@ def _route(x, router, cfg, capacity_factor, moe_groups):
     # ceil + clamp to [1, Tg]: capacity == Tg holds the worst case, so
     # decode-sized groups and no-drop configs never drop.
     capacity = min(Tg, max(1, math.ceil(Tg * k * capacity_factor / E)))
-    return xg, probs, top_p, top_e, capacity
+    return xg, top_p, top_e, capacity
 
 
 def moe_ffn(x, p, cfg, capacity_factor=1.25, moe_groups=32):
     """x: (B, S, d) -> (B, S, d).  Dropping MoE with per-group capacity."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    xg, _, top_p, top_e, capacity = _route(x, p["router"], cfg,
+    xg, top_p, top_e, capacity = _route(x, p["router"], cfg,
                                            capacity_factor, moe_groups)
     G = xg.shape[0]
     gathered, meta = _dispatch_group(xg, top_e, top_p, E, k, capacity)

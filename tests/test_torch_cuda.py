@@ -1361,8 +1361,8 @@ def test_moe_ffn_on_card_matches_cpu(dev, cf):
     want = moe.moe_ffn(x, lp, cfg, cf, cfg.moe_groups)
     got = moe.moe_ffn(x.to(dev), _f32(lp, dev), cfg, cf, cfg.moe_groups)
     torch.testing.assert_close(got.cpu(), want, **TOL[torch.float32])
-    xg, _, top_p, top_e, cap = moe._route(x.to(dev), lp["router"].to(dev),
-                                          cfg, cf, cfg.moe_groups)
+    xg, top_p, top_e, cap = moe._route(x.to(dev), lp["router"].to(dev),
+                                       cfg, cf, cfg.moe_groups)
     keep = moe._dispatch_group(xg, top_e, top_p, cfg.n_experts, cfg.top_k,
                                cap)[1][3]
     assert bool(keep.all()) == (cf == 4.0)

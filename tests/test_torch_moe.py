@@ -107,9 +107,9 @@ def _jax_dispatch(x, router, cfg, cf, groups):
 
 
 def _port_dispatch(x, router, cfg, cf, groups):
-    xg, _, top_p, top_e, cap = moe._route(torch.from_numpy(x),
-                                          torch.from_numpy(router), cfg, cf,
-                                          groups)
+    xg, top_p, top_e, cap = moe._route(torch.from_numpy(x),
+                                       torch.from_numpy(router), cfg, cf,
+                                       groups)
     gathered, meta = moe._dispatch_group(xg, top_e, top_p, cfg.n_experts,
                                          cfg.top_k, cap)
     return top_e.numpy(), cap, gathered.numpy(), meta
