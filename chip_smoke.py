@@ -229,8 +229,32 @@ Phases, in order; any failure raises and the process exits non-zero:
              bitwise equal.  Reported: the parameter counts, wall and
              dispatch times, peak memory.  (The decode step's device split
              is ``scripts/profile_engine.py --arch qwen3-moe-30b-a3b``.)
-             Each of the last ten phases zeroes the launch counters before
-             it and reads them after, and fails unless its kernels launched.
+17. train  — the training side at full width: qwen3-1.7b uncut (28
+             layers, d 2,048, vocab 151,936, ~2.03 B params), random bf16
+             weights from the seed, through ``launch.train.train`` (the JAX
+             trainer's AdamW and schedule, ``SyntheticLMStream`` at B 2 x S
+             1,024, remat as the config says) in a process of its own with
+             deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG``).  It
+             first asserts room for two checkpoints on the temp dir's disk
+             and for a host snapshot.  A clean run of 6 steps, then a
+             faulty one that checkpoints every 4 steps into the MDC store
+             (``keep_last=1``) and loses its node at step 5: one restart,
+             resumed from step 4, and its last two losses within 2e-4
+             (rtol and atol, ``tests/test_checkpoint.py``'s) of the clean
+             run's; reported: the largest difference and whether it is
+             bitwise.  Then the smoke config at f32 for 8 steps on the
+             card and on the CPU (TF32 off): losses within 1e-4 relative.
+             Reported: step ms (median after the first), tokens/s, the
+             share of the bf16 dense peak, peak ``max_memory_allocated``,
+             each save's host-snapshot and background-write seconds, the
+             restore's seconds, the stragglers, and the store's byte-Wamp
+             and segments cleaned.  No kernel of the port is on the
+             training path (training attention is the plain chunked
+             attention under autograd, as the JAX package's is XLA): the
+             counters, zeroed before it, must read 0 after.
+             Each of the other last ten phases zeroes the launch counters
+             before it and reads them after, and fails unless its kernels
+             launched.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -413,6 +437,20 @@ MOE_REHEARSED = dict(dispatches=34, blocks_written=295, blocks_moved=114,
                      compactions=4, wamp=114 / 295)
 MOE_HEADROOM = 8e9   # bytes free beyond the weights and the pool
 MOE_TIMEOUT_S = 600
+TRAIN_ARCH = "qwen3-1.7b"
+# train(): the JAX trainer's optimizer settings (its lr, warmup and AdamW
+# are train()'s defaults), full width, 6 steps of B 2 x S 1024
+TRAIN_RUN = dict(arch=TRAIN_ARCH, smoke=False, steps=6, global_batch=2,
+                 seq_len=1024, verbose=False, seed=SEED)
+# the store at full width: 4 MiB chunks in 64 MiB segments (~4,900 chunks
+# and ~300 segments per 20 GB save; the JAX trainer's 64 KiB / 1 MiB would
+# make ~312k chunks, each with the store's per-chunk host work)
+TRAIN_FAULT = dict(save_every=4, fail_at=(5,), keep_last=1,
+                   ckpt_chunk_bytes=4 << 20, ckpt_seg_bytes=64 << 20)
+TRAIN_RESUME_TOL = 2e-4   # tests/test_checkpoint.py's rtol and atol
+TRAIN_SMOKE_STEPS = 8
+TRAIN_SMOKE_RTOL = 1e-4   # card against the CPU, f32, TF32 off
+TRAIN_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -2422,6 +2460,166 @@ def phase_moe(smi) -> dict:
     return eng["launches"]
 
 
+def train_state_bytes(cfg) -> int:
+    """Bytes of one checkpoint of the trainer's state: the params at their
+    spec dtypes and two f32 moments."""
+    return sum(math.prod(sp.shape) * (sp.dtype.itemsize + 8)
+               for _, sp in flatten(tfm.model_specs(cfg)))
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def train_summary(log: dict, n_params: int, cfg) -> dict:
+    """Step ms (median after the first), tokens/s and the share of the bf16
+    dense peak: (6 * params * tokens + the causal attention's products,
+    forward and backward) / step time / 989 TFLOP/s."""
+    B, S = TRAIN_RUN["global_batch"], TRAIN_RUN["seq_len"]
+    step_s = statistics.median(log["step_s"][1:])
+    attn = 6 * B * S * S * cfg.n_heads * cfg.hd * cfg.n_layers
+    flops = 6 * n_params * B * S + attn
+    return {"loss": log["loss"], "step_s": log["step_s"],
+            "step_ms_median": step_s * 1e3, "tokens_per_s": B * S / step_s,
+            "flops_per_step": flops,
+            "share_of_bf16_peak": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "stragglers": log["stragglers"]}
+
+
+def train_rank(rank, device) -> dict:
+    """The train phase's process (spawned by ``phase_train``): deterministic
+    kernels, then qwen3-1.7b at full width through ``launch.train.train``,
+    a clean run and a faulty one that resumes from its checkpoint, then the
+    smoke config at f32 on the card and on the CPU."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.train import train
+    cfg = get_config(TRAIN_ARCH)
+    n_params = Model(cfg, params={}).n_params()
+    state_bytes = train_state_bytes(cfg)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    free_disk = shutil.disk_usage(root).free
+    host = host_available_bytes()
+    out = {"n_params": n_params, "state_gb": state_bytes / 1e9,
+           "tmp_free_gb": free_disk / 1e9, "host_available_gb": host / 1e9,
+           "card_free_gb": torch.cuda.mem_get_info()[0] / 1e9}
+    # the faulty leg holds two checkpoints on disk (keep_last=1 drops the
+    # older after the newer is written) and one host snapshot
+    if free_disk < 2.2 * state_bytes or host < 1.5 * state_bytes:
+        raise MemoryError(f"train: two checkpoints of {state_bytes / 1e9:.1f}"
+                          f" GB need the disk ({free_disk / 1e9:.1f} GB free"
+                          f" under {root}) and the host "
+                          f"({host / 1e9:.1f} GB available)")
+    def note(what):  # progress on stderr: a timeout shows where it was
+        print(f"train: {what} at {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr, flush=True)
+
+    t_start = time.perf_counter()
+    ops.reset_launches()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        clean = train(ckpt_dir=None, device=device, **TRAIN_RUN)
+        out["clean_s"] = time.perf_counter() - t0
+        note("clean run done")
+        out["clean_max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        clean.pop("params")
+        out["clean"] = train_summary(clean, n_params, cfg)
+        out["memory_allocated_after_clean_gb"] = \
+            (torch.cuda.memory_allocated() - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        faulty = train(ckpt_dir=os.path.join(root, "ckpt"), device=device,
+                       **TRAIN_RUN, **TRAIN_FAULT)
+        out["faulty_s"] = time.perf_counter() - t0
+        note("faulty run done")
+        out["faulty_max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        faulty.pop("params")
+        st = faulty["ckpt_stats"]
+        out["faulty"] = {
+            **train_summary(faulty, n_params, cfg),
+            "restarts": faulty["restarts"],
+            "resumed_from": faulty["resumed_from"],
+            "steps_replayed": faulty["steps_replayed"],
+            "ckpt_timings": faulty["ckpt_timings"],
+            "ckpt_byte_wamp": faulty["ckpt_wamp"],
+            "ckpt_user_bytes": st.user_bytes, "ckpt_gc_bytes": st.gc_bytes,
+            "ckpt_segments_cleaned": st.cleaned_segments,
+            "ckpt_cleanings": st.cleanings}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # smoke width at f32: the card against the CPU, one draw
+    scfg = get_config(TRAIN_ARCH).smoke()
+    p32 = unflatten((path, t.float()) for path, t in flatten(
+        Model(scfg, params={}).init(SEED, device="cpu")))
+    skw = dict(arch=TRAIN_ARCH, smoke=True, steps=TRAIN_SMOKE_STEPS,
+               verbose=False, seed=SEED, params=p32)
+    out["smoke"] = {"card": train(device=device, **skw)["loss"],
+                    "cpu": train(device="cpu", **skw)["loss"]}
+    note("smoke legs done")
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def phase_train(smi) -> dict:
+    """The training side (docstring, phase 17), in a process of its own.
+    Returns its launches of the kernels (none)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r, = spawn_ranks(importlib.import_module("chip_smoke").train_rank, 1,
+                     backend="gloo", device="cuda", timeout_s=TRAIN_TIMEOUT_S)
+    failures = []
+    clean, faulty = r["clean"], r["faulty"]
+    if faulty["restarts"] != 1 or faulty["resumed_from"] != [4]:
+        failures.append(f"restarts {faulty['restarts']}, resumed from "
+                        f"{faulty['resumed_from']} (want 1, [4])")
+    a, b = np.array(faulty["loss"][-2:]), np.array(clean["loss"][-2:])
+    resume_err = float(np.abs(a - b).max())
+    if not np.allclose(a, b, rtol=TRAIN_RESUME_TOL, atol=TRAIN_RESUME_TOL):
+        failures.append(f"resumed losses {a.tolist()} against the clean "
+                        f"run's {b.tolist()}")
+    if not all(np.isfinite(clean["loss"])):
+        failures.append(f"non-finite losses {clean['loss']}")
+    sc, scpu = np.array(r["smoke"]["card"]), np.array(r["smoke"]["cpu"])
+    smoke_rel = float(np.abs(sc - scpu).max() / np.abs(scpu).max())
+    if not np.allclose(sc, scpu, rtol=TRAIN_SMOKE_RTOL, atol=0):
+        failures.append(f"smoke losses on the card {sc.tolist()} against "
+                        f"the CPU's {scpu.tolist()}")
+    if any(r["launches"].values()):
+        failures.append(f"the train phase launched kernels: {r['launches']}")
+    out = {"phase": "train", "card": smi, "model": TRAIN_ARCH,
+           "dtype": "bfloat16", "remat": get_config(TRAIN_ARCH).remat,
+           "deterministic": True,
+           **{k: r[k] for k in ("n_params", "state_gb", "tmp_free_gb",
+                                "host_available_gb", "card_free_gb",
+                                "clean_s", "faulty_s",
+                                "clean_max_memory_allocated_gb",
+                                "faulty_max_memory_allocated_gb",
+                                "memory_allocated_after_clean_gb")},
+           "clean": clean, "faulty": faulty,
+           "resumed_max_abs_diff": resume_err,
+           "resumed_bitwise": bool(np.array_equal(a, b)),
+           "smoke": {"steps": TRAIN_SMOKE_STEPS, "dtype": "float32",
+                     "card": sc.tolist(), "cpu": scpu.tolist(),
+                     "max_rel_diff": smoke_rel},
+           "launches": r["launches"],
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"train phase: {failures}")
+    return r["launches"]
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2449,6 +2647,8 @@ def main() -> None:
         launches[name] = paths["tp"][name]
     torch.cuda.empty_cache()
     paths["moe"] = phase_moe(smi)
+    torch.cuda.empty_cache()
+    paths["train"] = phase_train(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims, sim" if name == "mdc_priority" else "engine, moe"

@@ -5,7 +5,8 @@ leaf, so this module needs no JAX) and keeps its layout leaf for leaf:
 ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``, ``embed (V, d)``,
 ``lm_head (d, V)``, and so on.  ``torch.from_numpy`` rejects the
 ``ml_dtypes.bfloat16`` arrays JAX hands out, so a bf16 leaf goes through a
-``uint16`` view of its bits, which is exact.
+``uint16`` view of its bits, which is exact.  The optimizer's state comes
+across as well (:func:`opt_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .models.layers import flatten, unflatten
+from .optim import AdamWState
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -28,3 +30,12 @@ def params_from_jax(tree) -> dict:
     leaf, bit-exact; move them with ``.to(device)``."""
     return unflatten((path, tensor_from_numpy(leaf))
                      for path, leaf in flatten(tree))
+
+
+def opt_state_from_jax(state) -> AdamWState:
+    """A JAX ``AdamWState(step, mu, nu)`` (leaves as numpy arrays) → the
+    port's: ``step`` a 0-d int32 tensor on the host, the moments as
+    :func:`params_from_jax` makes them."""
+    step, mu, nu = state
+    return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                      params_from_jax(mu), params_from_jax(nu))

@@ -1,8 +1,8 @@
 """Log-structured checkpoint store with MDC garbage collection.
 
-A copy of ``repro.checkpoint.logstore`` for numpy leaves, which the serving
-engine's session snapshots use (``serving.recovery``); its training-side
-user, the checkpoint manager, is not ported yet.
+A copy of ``repro.checkpoint.logstore`` for numpy leaves.  Its users are
+the serving engine's session snapshots (``serving.recovery``) and the
+trainer's checkpoint manager (:mod:`.manager`).
 
 The paper's *variable-size page* case (§4.4): a "page" is one chunk of one
 leaf, a "segment" is one append-only segment file on disk.  Saves are
@@ -25,6 +25,20 @@ checkpoint-shaped: segment *files*, chunk versions and their step pins,
 manifests, and restore.  Wamp is *bytes moved / bytes written*.  The files
 and ``store_state.json`` are the JAX store's, so either package opens the
 other's store.
+
+bfloat16 leaves: numpy has no bfloat16 without ``ml_dtypes``, which the
+port does not use.  A :class:`BFloat16Bits` leaf (a ``uint16`` array of
+the bit patterns) is written under the dtype name ``"bfloat16"``, as the
+JAX store writes an ``ml_dtypes`` one, and a ``"bfloat16"`` leaf is
+restored as :class:`BFloat16Bits`, so bf16 leaves cross between the two
+packages bit for bit.
+
+Host work at a trainer's scale (tens of GB per save): a save hashes each
+leaf's chunks on a thread pool, places every chunk (routing, offsets,
+accounting) in order, then writes them, each segment file on one thread
+and the files in parallel, before it commits ``store_state.json``; a
+restore reads each segment file's chunks on one thread, straight into the
+leaves.  The files, offsets and state are those of the sequential code.
 """
 
 from __future__ import annotations
@@ -32,15 +46,69 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from ..core.logstructure import USED, ByteLog, Placement, StoreStats
 
-__all__ = ["LogStructuredCheckpointStore", "ChunkVersion", "StoreStats"]
+__all__ = ["LogStructuredCheckpointStore", "ChunkVersion", "StoreStats",
+           "BFloat16Bits"]
 
 _FIRST_WRITE_COLD = 0.0
+
+
+class BFloat16Bits(np.ndarray):
+    """A ``uint16`` array holding bfloat16 bit patterns (module docstring);
+    make one with ``bits.view(BFloat16Bits)``."""
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if isinstance(arr, BFloat16Bits) else str(arr.dtype)
+
+
+def _sha1(data) -> str:
+    return hashlib.sha1(data).hexdigest()
+
+
+def _pool() -> ThreadPoolExecutor:
+    """The threads of one save or restore (started as work is submitted)."""
+    return ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                              thread_name_prefix="ckpt-io")
+
+
+def _read_all(reads: dict, pool: ThreadPoolExecutor) -> None:
+    """Fill ``{path: [(offset, buffer), ...]}``: each file's reads in order
+    on one thread, the files in parallel."""
+    def one(item):
+        path, parts = item
+        with open(path, "rb") as f:
+            for off, buf in parts:
+                f.seek(off)
+                if f.readinto(buf) != len(buf):
+                    raise OSError(f"short read of {path} at {off}")
+
+    list(pool.map(one, reads.items()))
+
+
+def _write_all(writes: list, pool: ThreadPoolExecutor) -> None:
+    """Write ``(path, offset, data)`` chunks: each file's in order on one
+    thread, the files in parallel."""
+    by_path: dict = {}
+    for path, off, data in writes:
+        by_path.setdefault(path, []).append((off, data))
+
+    def one(item):
+        path, parts = item
+        with open(path, "r+b") as f:
+            for off, data in parts:
+                f.seek(off)
+                f.write(data)
+
+    list(pool.map(one, by_path.items()))
+
 
 @dataclasses.dataclass
 class ChunkVersion:
@@ -213,20 +281,27 @@ class LogStructuredCheckpointStore:
     def _seal(self, sid: int) -> None:
         self.core.seal(sid)
 
-    def _append(self, data: bytes, p: Placement) -> tuple[int, int]:
+    def _append(self, data, p: Placement,
+                deferred: list | None = None) -> tuple[int, int]:
         """Route and append one chunk payload; returns (segment id, offset).
 
         The :class:`Placement` hint carries the exact u_p2 tag and the
         predicted invalidation time; routing (which of the k death-stream
-        segment files receives the chunk) happens in the shared core."""
+        segment files receives the chunk) happens in the shared core.
+        With ``deferred`` the file write is queued there for
+        :func:`_write_all` and only the accounting happens here: the
+        offset is the segment's written size, which equals its file's."""
         stream = int(self.core.route(p, 1)[0])
         seg = self._open_segment(stream)
         if seg.written + len(data) > self.seg_bytes and seg.written > 0:
             self._seal(seg.sid)
             seg = self._open_segment(stream)
-        with seg.path.open("ab") as f:
-            off = f.tell()
-            f.write(data)
+        off = seg.written
+        if deferred is None:
+            with seg.path.open("ab") as f:
+                f.write(data)
+        else:
+            deferred.append((seg.path, off, data))
         self.core.append_bytes(seg.sid, len(data), p)
         if seg.written >= self.seg_bytes:
             self._seal(seg.sid)
@@ -242,16 +317,24 @@ class LogStructuredCheckpointStore:
         # u_p2 (coldest of the batch) is only known once the whole batch has
         # been scanned, so new chunks are collected here and appended in
         # phase 2 with their *exact* tag — no placeholder-then-retag.
-        pending: list[tuple[str, bytes, str, float | None]] = []
+        # Chunks are zero-copy views of the leaves, hashed in parallel
+        # (hashlib releases the GIL): a trainer's leaves run to gigabytes.
+        views = {}
         for path, arr in leaves.items():
+            dtype = _dtype_name(arr)
             arr = np.ascontiguousarray(arr)
-            raw = arr.tobytes()
+            raw, cb = memoryview(arr).cast("B"), self.chunk_bytes
+            n = max(1, -(-len(raw) // cb))
+            views[path] = (dtype, list(arr.shape),
+                           [raw[ci * cb:(ci + 1) * cb] for ci in range(n)])
+        with _pool() as pool:  # every hash is done when the pool closes
+            shas = pool.map(_sha1, [d for _, _, datas in views.values()
+                                    for d in datas])
+        pending: list[tuple[str, memoryview, str, float | None]] = []
+        for path, (dtype, shape, datas) in views.items():
             chunks = []
-            n = max(1, -(-len(raw) // self.chunk_bytes))
-            for ci in range(n):
-                data = raw[ci * self.chunk_bytes:(ci + 1) * self.chunk_bytes]
-                key = f"{path}#{ci}"
-                sha = hashlib.sha1(data).hexdigest()
+            for ci, data in enumerate(datas):
+                key, sha = f"{path}#{ci}", next(shas)
                 vs = self.versions.get(key)
                 latest = vs[-1] if vs else None
                 if latest is not None and latest.sha == sha:
@@ -267,8 +350,7 @@ class LogStructuredCheckpointStore:
                 pending.append((key, data, sha, up2))
                 chunks.append(key)
             manifest["leaves"][path] = {
-                "dtype": str(arr.dtype), "shape": list(arr.shape),
-                "chunks": chunks}
+                "dtype": dtype, "shape": shape, "chunks": chunks}
 
         # Phase 2 — append with exact tags.  est_death is one mean supersede
         # interval ahead of now (§5.2.2's estimator); first writes carry the
@@ -276,12 +358,15 @@ class LogStructuredCheckpointStore:
         # never-changing leaves (frozen params) belong.
         known = [u for _, _, _, u in pending if u is not None]
         cold = min(known) if known else _FIRST_WRITE_COLD
+        writes: list = []
         for key, data, sha, up2 in pending:
             tag = cold if up2 is None else up2
             sid, off = self._append(data, Placement(
-                up2=tag, est_death=2.0 * self.u_now - tag))
+                up2=tag, est_death=2.0 * self.u_now - tag), writes)
             self.versions.setdefault(key, []).append(
                 ChunkVersion(key, sid, off, len(data), sha, tag, {step}))
+        with _pool() as pool:
+            _write_all(writes, pool)  # every byte lands before the commit
 
         self.steps[step] = manifest
         json_path = self.root / "manifests" / f"step_{step:09d}.json"
@@ -395,17 +480,23 @@ class LogStructuredCheckpointStore:
         if step is None or step not in self.steps:
             raise FileNotFoundError(f"no checkpoint for step {step}")
         man = self.steps[step]
-        out = {}
+        out, reads = {}, {}
         for path, meta in man["leaves"].items():
-            parts = []
-            for key in meta["chunks"]:
-                v = self._version_for(key, step)
-                with self.segments[v.seg].path.open("rb") as f:
-                    f.seek(v.offset)
-                    parts.append(f.read(v.size))
-            raw = b"".join(parts)
-            out[path] = np.frombuffer(raw, dtype=np.dtype(meta["dtype"])
-                                      ).reshape(meta["shape"]).copy()
+            versions = [self._version_for(key, step) for key in meta["chunks"]]
+            raw = np.empty(sum(v.size for v in versions), dtype=np.uint8)
+            at = 0
+            for v in versions:  # each chunk is read straight into the leaf
+                reads.setdefault(self.segments[v.seg].path, []).append(
+                    (v.offset, memoryview(raw)[at:at + v.size]))
+                at += v.size
+            out[path] = (meta, raw)
+        with _pool() as pool:
+            _read_all(reads, pool)
+        for path, (meta, raw) in out.items():
+            bf16 = meta["dtype"] == "bfloat16"
+            arr = raw.view(np.uint16 if bf16 else np.dtype(meta["dtype"])
+                           ).reshape(meta["shape"])
+            out[path] = arr.view(BFloat16Bits) if bf16 else arr
         return out
 
     def _version_for(self, key: str, step: int) -> ChunkVersion:

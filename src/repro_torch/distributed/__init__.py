@@ -1,2 +1,2 @@
-"""Fault injection and bounded retry for the serving engine, and the
-sharding rules of tensor-parallel serving."""
+"""Fault injection, bounded retry and the restart driver, and the sharding
+rules of tensor-parallel serving."""

@@ -6,7 +6,9 @@ prefill / decode wrappers of the dense serving path.
 through the hand-written flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`); ``chunked_attention`` is
 the plain online-softmax function the JAX package lowers through XLA, kept
-here for the token oracle (``transformer.greedy_decode``).
+here for the token oracle (``transformer.greedy_decode``) and for training
+(``gqa_train``, differentiated by autograd: the JAX package has no backward
+kernel, and neither has the port).
 
 Tensor-parallel serving passes ``mesh`` (a ``"model"`` ``DeviceMesh``) with
 parameters whose ``wq`` / ``wk`` / ``wv`` hold this rank's heads: the
@@ -134,6 +136,17 @@ def _project_qkv(x, p, cfg, positions):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def gqa_train(x, p, cfg, *, causal=True):
+    """Full-sequence self-attention of training: the plain chunked
+    attention at the config's ``q_block`` / ``kv_block``."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    out = chunked_attention(q, k, v, causal=causal,
+                            q_block=cfg.q_block, kv_block=cfg.kv_block)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
 
 
 def _attend(q, k, v, cfg, *, kernel: bool, mesh, q_offset: int = 0):

@@ -92,6 +92,13 @@ def init_params(specs, generator: torch.Generator, *, device=None):
     return unflatten(out)
 
 
+def abstract_params(specs):
+    """The spec tree as ``meta`` tensors: shapes and dtypes, no storage (a
+    checkpoint restore's template)."""
+    return unflatten((path, torch.empty(s.shape, dtype=s.dtype, device="meta"))
+                     for path, s in flatten(specs))
+
+
 # ---------------------------------------------------------------- primitives
 
 def rmsnorm(x, w, eps=1e-6):
@@ -128,3 +135,21 @@ def sq_relu_mlp(x, w_up, w_down):
     """Squared-ReLU MLP (nemotron-4)."""
     h = torch.square(torch.relu((x @ w_up).float())).to(x.dtype)
     return h @ w_down
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits (..., V) any float dtype; labels int; mean NLL in f32 over the
+    unmasked positions.
+
+    The label logit is picked with a gather, which is exact on one device;
+    the JAX function's iota-mask reduction exists for a vocabulary sharded
+    over a mesh, and would build a (..., V) iota here.
+    """
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,5 +1,5 @@
 """The model as an ``nn.Module`` holding its parameters at the JAX package's
-layout."""
+layout, and the training loss."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import transformer as tfm
-from .layers import flatten, init_params, unflatten
+from .layers import flatten, init_params, softmax_cross_entropy, unflatten
 
 
 class Model(nn.Module):
@@ -21,16 +21,19 @@ class Model(nn.Module):
     ``params`` given (e.g. from :func:`repro_torch.bridge.params_from_jax`)
     are taken as they are, on their own device; otherwise the tree is drawn
     from ``torch.Generator(device).manual_seed(seed)``.  ``device=None``
-    means the CUDA card and raises without one."""
+    means the CUDA card and raises without one.
+
+    The serving parameters stay frozen: no serving path builds an autograd
+    graph.  Training holds its own leaves with ``requires_grad`` and passes
+    them to :meth:`loss` / :meth:`forward`, the JAX ``Model``'s functional
+    signatures; its model is ``Model(cfg, params={})``, which holds none."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, device=None,
                  seed: int = 0):
         super().__init__()
         self.cfg = cfg
         if params is None:
-            dev = resolve_device(device)
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_params(tfm.model_specs(cfg), gen, device=dev)
+            params = self.init(seed, device=device)
         for path, t in flatten(params):
             self.register_parameter("/".join(path),
                                     nn.Parameter(t, requires_grad=False))
@@ -41,6 +44,14 @@ class Model(nn.Module):
         parameters, so ``.to()`` and ``state_dict()`` stay in step)."""
         return unflatten((tuple(name.split("/")), p)
                          for name, p in self.named_parameters())
+
+    def init(self, seed: int = 0, *, device=None) -> dict:
+        """A fresh parameter tree drawn from
+        ``torch.Generator(device).manual_seed(seed)`` (the module keeps
+        none of it)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return init_params(tfm.model_specs(self.cfg), gen, device=dev)
 
     def n_params(self) -> int:
         """Parameters of the configuration, counted from its spec tree (a
@@ -63,3 +74,16 @@ class Model(nn.Module):
     def greedy_decode(self, prompt, max_new_tokens, **kw):
         return tfm.greedy_decode(self.params, prompt, self.cfg,
                                  max_new_tokens, **kw)
+
+    # -- training ----------------------------------------------------------
+    def forward(self, params, tokens, extras=None):
+        return tfm.forward(params, tokens, self.cfg, extras)
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy of ``batch["tokens"]`` (B, S), the mean
+        over B·(S-1) positions in f32.  The JAX ``Model.loss`` adds no MoE
+        load-balance term (``moe.aux_load_balance_loss`` is the trainer's
+        to add), and neither does this."""
+        tokens = batch["tokens"]
+        logits = tfm.forward(params, tokens, self.cfg)
+        return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])

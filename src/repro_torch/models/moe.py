@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN: top-k routing, grouped sort-based dispatch (a port
-of ``repro.models.moe``; the trainer's load-balance loss is not ported).
+"""Mixture-of-Experts FFN: top-k routing, grouped sort-based dispatch, and
+the trainer's load-balance loss (a port of ``repro.models.moe``).
 
 GShard-style grouping: the T = B·S tokens split into G = gcd(T, moe_groups)
 groups of contiguous tokens, and the sort, the position of each pick inside
@@ -143,3 +143,17 @@ def moe_ffn(x, p, cfg, capacity_factor=1.25, moe_groups=32):
         out = out + swiglu(xt, p["shared_gate"], p["shared_up"],
                            p["shared_down"]).reshape(B, S, d)
     return out
+
+
+def aux_load_balance_loss(x, p, cfg):
+    """Switch-style auxiliary load-balance loss (used by the trainer)."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_e = torch.topk(probs, cfg.top_k, dim=-1).indices
+    E = cfg.n_experts
+    frac_tokens = (torch.bincount(top_e.reshape(-1), minlength=E).float()
+                   / (B * S * cfg.top_k))
+    frac_probs = probs.mean(dim=0)
+    return E * torch.sum(frac_tokens * frac_probs)

@@ -1,7 +1,8 @@
 """Model assembly for the GQA families the engine serves, dense and MoE
 (a top-k routed FFN, :mod:`.moe`, in place of the dense MLP): parameter
-specs, the prompt prefill (whole, the tail after a cached prefix, or one
-chunk of it), and the dense-cache decode that serves as the token oracle.
+specs, the training forward, the prompt prefill (whole, the tail after a
+cached prefix, or one chunk of it), and the dense-cache decode that serves
+as the token oracle.
 
 Parameters keep the JAX package's layout (stacked per-layer leaves with a
 leading layers axis; ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``,
@@ -11,14 +12,17 @@ over that axis where the JAX package scans.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from . import attention as att
 from . import moe as moe_mod
-from .layers import norm_spec, rmsnorm, spec, sq_relu_mlp, swiglu
+from .layers import (flatten, norm_spec, rmsnorm, spec, sq_relu_mlp, swiglu,
+                     unflatten)
 
 
 def mlp_specs(cfg, layers):
@@ -69,6 +73,70 @@ def _unembed(params, x, cfg):
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return x @ params["lm_head"]
+
+
+# ------------------------------------------------------- remat policy
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of ``remat="dots"``, JAX's
+    ``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    without batch dims (the projections and the MLP, which reach aten as
+    ``mm`` / ``addmm`` or as a ``bmm`` over one batch) and recompute the
+    rest, the attention's batched products included."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg):
+    """``fn`` with the config's activation checkpointing: ``"none"``,
+    ``"full"`` (recompute the whole block in the backward) or ``"dots"``
+    (recompute all but the products without batch dims)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=ctx)
+    raise ValueError(cfg.remat)
+
+
+# --------------------------------------------------------------- forwards
+
+def unstack_layers(blocks, n_layers: int) -> list:
+    """Per-layer views of the stacked block parameters, one ``unbind`` per
+    leaf: autograd then stacks the layers' gradients into each leaf's
+    gradient once, where slicing a layer out of the leaf per layer would
+    scatter every layer's gradient into a zeroed leaf-sized buffer."""
+    per = [(path, t.unbind(0)) for path, t in flatten(blocks)]
+    return [unflatten((path, ts[i]) for path, ts in per)
+            for i in range(n_layers)]
+
+
+def _train_block(x, lp, cfg):
+    x = x + att.gqa_train(rmsnorm(x, lp["ln1"]), lp["attn"], cfg, causal=True)
+    return x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+
+
+def forward(params, tokens, cfg, extras=None):
+    """Training/scoring forward: tokens (B, S) -> logits (B, S, V), through
+    autograd when the params require grad.  The dense and moe families; the
+    others come with ROADMAP item 15.  (``extras`` feeds the VLM and
+    encoder-decoder families only, which the port has not.)"""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"the port's forward runs the dense and moe families; "
+            f"{cfg.family!r} comes with ROADMAP item 15")
+    x = _embed(params, tokens)
+    block = _maybe_remat(functools.partial(_train_block, cfg=cfg), cfg)
+    for lp in unstack_layers(params["blocks"], cfg.n_layers):
+        x = block(x, lp)
+    return _unembed(params, x, cfg)
 
 
 def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,

@@ -1414,3 +1414,94 @@ def test_moe_engine_on_card_matches_cpu_engine(dev):
     assert results[0] == results[1]
     assert results[0][1]["compactions"] >= 1
     assert ops.launches["paged_attention"] > 0
+
+
+# ------------------------------------------------------ the training side
+
+def test_train_step_on_card_matches_cpu(dev):
+    """The smoke model at f32 on the card against the CPU (TF32 off): the
+    loss and its gradients, then three train steps' losses."""
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import cosine_with_warmup
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config("qwen3-1.7b").smoke()
+    model = Model(cfg, params={})
+    params = _f32(model.init(0, device="cpu"), "cpu")
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                .astype(np.int32)) for _ in range(3)]
+    out = {}
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device, copy=True), params)
+        for t in leaves(p):
+            t.requires_grad_(True)
+        loss = model.loss(p, {"tokens": batches[0].to(device)})
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves(p))]
+        opt = AdamW(lr=cosine_with_warmup(3e-4, 10, 3), b2=0.95,
+                    weight_decay=0.1, clip_norm=1.0)
+        step, st = make_train_fn(model, opt), opt.init(p)
+        losses = []
+        for b in batches:
+            p, st, l = step(p, st, {"tokens": b.to(device)})
+            losses.append(float(l))
+        out[device] = (float(loss.detach()), grads, losses)
+    (l0, g0, s0), (l1, g1, s1) = out["cpu"], out[dev]
+    assert l1 == pytest.approx(l0, rel=1e-5)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    np.testing.assert_allclose(s1, s0, rtol=1e-4)
+
+
+def test_checkpoint_restore_on_card_is_bitwise(dev, tmp_path):
+    """``restore(device="cuda")`` (and the default device) gives back
+    tensors on the card, bit for bit the saved ones, bf16 included."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = Model(cfg, params={}).init(4, device=dev)
+    tree = {"params": params, "opt_state": AdamW().init(params)}
+    tree["opt_state"].mu["embed"].normal_()
+    mgr = CheckpointManager(tmp_path, seg_bytes=1 << 16, chunk_bytes=4 << 10)
+    mgr.save(2, tree)
+    for device in ("cuda", None):
+        got = mgr.restore(tree, 2, device=device)
+        pairs = list(zip(leaves(got), leaves(tree)))
+        assert any(a.dtype == torch.bfloat16 for a, _ in pairs)
+        for a, b in pairs:
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b.to(a.device))
+
+
+def test_failed_attempt_is_freed_before_the_restore(dev, tmp_path,
+                                                     monkeypatch):
+    """When the restart loop restores the next attempt, the card holds no
+    tensor of the failed one: ``memory_allocated`` is back to its level
+    before the run (taken after a warm-up run, which leaves the cuBLAS
+    workspaces of the forward and backward threads allocated)."""
+    import gc
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import train
+    kw = dict(steps=6, global_batch=2, seq_len=64, verbose=False, device=dev)
+    train(steps=1, global_batch=2, seq_len=64, verbose=False, device=dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    seen = []
+    real = CheckpointManager.restore
+
+    def spy(self, *a, **k):
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated())
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(CheckpointManager, "restore", spy)
+    log = train(ckpt_dir=str(tmp_path / "ck"), save_every=2, fail_at=(3,),
+                **kw)
+    assert log["restarts"] == 1 and log["resumed_from"] == [2]
+    assert seen == [base]
+    del log
+    gc.collect()
+    assert torch.cuda.memory_allocated() == base
