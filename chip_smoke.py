@@ -35,7 +35,9 @@ Phases, in order; any failure raises and the process exits non-zero:
              ``scaled_dot_product_attention`` with the same (lower-right
              causal) mask.  Paged attention and flash also run at the
              moe phase's heads (Qwen3-30B-A3B: G 8 over Kh 4; H 32 / Kh 4
-             at S 1,024).
+             at S 1,024), and flash at the families phase's Zamba2-7B heads
+             (H 32 / Kh 32, D 112, zero-padded to a D 128 launch on the
+             tensor-core route; its bound counts D 112's work).
 4. engine  — the paged serving engine on the full-width qwen3-1.7b (28
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
@@ -252,6 +254,38 @@ Phases, in order; any failure raises and the process exits non-zero:
              training path (training attention is the plain chunked
              attention under autograd, as the JAX package's is XLA): the
              counters, zeroed before it, must read 0 after.
+18. families — the MLA-MoE, hybrid and SSM families at full width, in a
+             process of its own, each model freed before the next is drawn.
+             (a) Each uncut from random bf16 weights (DeepSeek-V2-Lite 16.2
+             B parameters, 2.66 B active; Zamba2-7B 6.75 B; Mamba2-1.3B 1.45
+             B), its parameter counts beside the JAX package's: two
+             1,024-token prompts as one batch and one of 1,000 (not a
+             multiple of the SSD chunk of 128) through the contiguous-cache
+             ``prefill`` (bf16 cache) and 32 ``decode_step``s fed the true
+             next tokens.  Asserted: finite logits; the hybrid's prefill
+             launching flash once per group (13) on the route its D 112
+             pads to, one of those launches within the bf16 bar (rtol 2e-2)
+             of the plain attention on its own inputs; no flash launch off
+             the hybrid (the bar's absolute part is 2e-2 of max
+             |v|, the scale of the rounding of P·V: ``flash_check``).
+             Reported: the prefill's last row
+             against ``forward``'s over the prompt, each decode step's top-1
+             against ``forward`` over prompt and fed tokens, the forward's
+             dropped MoE picks, draw seconds, peak
+             ``max_memory_allocated``, prefill ms and decode ms per token
+             step (CUDA events; the decode is host-bound).  (b) Each at
+             full width in f32, cut to ``FAMILY_F32_LAYERS`` (the depth at
+             which rounding is not carried past the logits' margins; DeepSeek
+             at the capacity that drops nothing), one 1,000-token prompt and
+             32 decode steps: the prefill's last row within the JAX test's
+             bar (atol 0.08, rtol 0.05) of ``forward``'s, top-1 agreement of
+             decode with ``forward`` >= 0.85 for the SSM and the hybrid
+             (``tests/test_models.py``'s bar; reported for MLA-MoE), the
+             hybrid's flash launches on the CUDA-core route within 2e-5 of
+             the plain attention; reported: ``forward``'s own move under a
+             1e-7 relative perturbation of its embeddings.  (c) At smoke
+             width, f32, each family's logits (forward, prefill, 4 decode
+             steps) on the card within 1e-4 of the CPU's max-abs.
              Each of the other last ten phases zeroes the launch counters
              before it and reads them after, and fails unless its kernels
              launched.
@@ -452,6 +486,35 @@ TRAIN_SMOKE_STEPS = 8
 TRAIN_SMOKE_RTOL = 1e-4   # card against the CPU, f32, TF32 off
 TRAIN_TIMEOUT_S = 600
 
+# the families phase: DeepSeek-V2-Lite (MLA + MoE), Zamba2-7B (hybrid) and
+# Mamba2-1.3B (SSM) uncut, random bf16 weights from the seed, one after
+# another in a process of its own; the JAX package's parameter counts of
+# the full configs (``repro.models.Model.n_params`` / ``n_active_params``)
+FAMILY_ARCHS = {"deepseek-v2-lite-16b": (16210324992, 2663247360),
+                "zamba2-7b": (6750539856, 6750539856),
+                "mamba2-1.3b": (1446505472, 1446505472)}
+ZAMBA_ARCH = "zamba2-7b"
+FAMILY_PROMPTS = ((2, 1024), (1, 1000))   # (batch, prompt tokens)
+FAMILY_DECODE = 32
+FAMILY_AGREE = 0.85                       # tests/test_models.py:97
+FAMILY_PREFILL_BAR = dict(atol=0.08, rtol=0.05)   # tests/test_models.py:77
+FAMILY_SMOKE_TOL = 1e-4   # card against the CPU, f32, of the CPU's max-abs
+FAMILY_TIMEOUT_S = 600
+# The f32 leg, where decode is held to forward: full width, the layers of
+# each family at which a 1e-7 relative perturbation of the f32 embeddings
+# moves forward's logits by less than 0.02 (``scripts/family_sensitivity.py``
+# on the card: 0.0128 at 8 DeepSeek layers, 0.0118 at 13 Zamba2 layers (two
+# groups and a tail layer), 0.0037 at all 48 Mamba2 layers; 0.23 at 16
+# DeepSeek layers, 0.14 / 2.08 at 25 / 81 Zamba2 layers).  Deeper, the
+# random stack carries any rounding difference between two paths to O(1)
+# in the logits, so neither bf16 nor f32 can show that decode computes
+# forward's function there.  DeepSeek's leg takes the capacity that drops
+# nothing (E / top_k), so its prefill, decode and forward route alike.
+FAMILY_F32_LAYERS = {"deepseek-v2-lite-16b": 8, "zamba2-7b": 13,
+                     "mamba2-1.3b": 48}
+FAMILY_F32_PROMPT = (1, 1000)
+FAMILY_PERTURB = 1e-7
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -605,13 +668,15 @@ def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None, Kh=8,
                       "tokens": n_tok}}
 
 
-def check_flash_attention(dtype, S, timer, H=16, Kh=8) -> dict:
-    """Causal prefill attention at qwen3-1.7b's heads (H 16, Kh 8; Qwen3-
-    30B-A3B's are H 32, Kh 4) over S tokens, in the model's (B, S, H, D)
-    layout; the launch must take the route that ``ops.flash_route`` names
-    for (dtype, D)."""
+def check_flash_attention(dtype, S, timer, H=16, Kh=8, D=128) -> dict:
+    """Causal prefill attention at qwen3-1.7b's heads (H 16, Kh 8, D 128;
+    Qwen3-30B-A3B's are H 32, Kh 4; Zamba2-7B's H 32, Kh 32, D 112, which
+    the wrapper zero-pads to a launch at 128) over S tokens, in the model's
+    (B, S, H, D) layout; the launch must take the route that
+    ``ops.flash_route`` names for (dtype, D).  The bound counts the work at
+    D itself."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    B, D = 1, 128
+    B = 1
     q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
     k = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
     v = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
@@ -642,7 +707,9 @@ def check_flash_attention(dtype, S, timer, H=16, Kh=8) -> dict:
             "kernel_ms": kernel_ms,
             "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": {"B": B, "H": H, "Kh": Kh, "S": S, "D": D, "causal": True}}
+            "shape": {"B": B, "H": H, "Kh": Kh, "S": S, "D": D,
+                      "launch_D": ops.flash_launch_dim(dtype, D),
+                      "causal": True}}
 
 
 def check_flash_offset(dtype, timer, Sq=512, Skv=1024) -> dict:
@@ -810,6 +877,15 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", "name": "flash_attention", "model": MOE_ARCH,
           "dtype": "torch.bfloat16", **r})
     main["flash_attention_moe"] = r
+    # the families phase's shared attention (Zamba2-7B: 32 q over 32 kv
+    # heads of D 112, zero-padded to the D 128 launch)
+    zamba = get_config(ZAMBA_ARCH)
+    r = check_flash_attention(torch.bfloat16, max(FLASH_BUCKETS), timer,
+                              H=zamba.n_heads, Kh=zamba.n_kv_heads,
+                              D=zamba.hd)
+    emit({"phase": "kernel", "name": "flash_attention", "model": ZAMBA_ARCH,
+          "dtype": "torch.bfloat16", **r})
+    main["flash_attention_zamba2"] = r
     for dtype, E in ((torch.bfloat16, 16384), (torch.int32, 16383)):
         r = check_segment_compact(dtype, E, timer)
         emit({"phase": "kernel", "name": "segment_compact", "dtype": str(dtype), **r})
@@ -2620,6 +2696,283 @@ def phase_train(smi) -> dict:
     return r["launches"]
 
 
+
+# ------------------------------------------------------- families phase
+
+@contextlib.contextmanager
+def count_drops(tally: dict):
+    """Count the MoE picks and the capacity-dropped picks of every
+    ``moe_ffn`` call inside the block (one host read per call)."""
+    real = moe._dispatch_group
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        keep = out[1][3]
+        tally["picks"] = tally.get("picks", 0) + int(keep.numel())
+        tally["dropped"] = tally.get("dropped", 0) + int((~keep).sum())
+        return out
+
+    moe._dispatch_group = spy
+    try:
+        yield tally
+    finally:
+        moe._dispatch_group = real
+
+
+@contextlib.contextmanager
+def first_flash_inputs(seen: list):
+    """Keep the inputs of the first ``ops.flash_attention`` call made
+    inside the block (the wrapper itself runs, and counts, as always)."""
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone(), kw))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = real
+
+
+def flash_check(q, k, v, kw) -> dict:
+    """One of a prefill's flash launches, on the inputs it had, against the
+    plain version: within ``TOL`` relative and ``TOL`` of max |v| absolute.
+    The model's V is far from unit scale (|v| up to ~30 at Zamba2's random
+    weights, whose near-one-hot softmax passes v through), and P·V in the
+    operands' dtype rounds p to 2**-8 of itself in bf16 in both versions,
+    so the absolute part follows v's scale.  Also each version's distance
+    from the attention computed from the same inputs wholly in f32."""
+    kw = dict(causal=kw["causal"], q_offset=kw["q_offset"])
+    got = ops.flash_attention(q, k, v, **kw).float()
+    want = ref.flash_attention_ref(q, k, v, **kw).float()
+    exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    tol, v_max = TOL[q.dtype], float(v.abs().max())
+    return {"shape": list(q.shape), "kv_shape": list(k.shape),
+            "dtype": str(q.dtype).removeprefix("torch."),
+            "route": ops.flash_route(q.dtype, q.shape[-1]),
+            "launch_dim": ops.flash_launch_dim(q.dtype, q.shape[-1]),
+            "v_max_abs": v_max, "max_abs_err": max_err(got, want),
+            "bar_share": float(((got - want).abs()
+                                / (tol * v_max + tol * want.abs())).max()),
+            "kernel_vs_f32_max_abs": max_err(got, exact),
+            "plain_vs_f32_max_abs": max_err(want, exact)}
+
+
+def family_prompt_run(params, cfg, B: int, S: int, rng,
+                      cache_dtype=torch.bfloat16) -> dict:
+    """One prompt batch through the port's contiguous-cache path on the
+    card: ``prefill`` of B prompts of S tokens, then ``FAMILY_DECODE``
+    ``decode_step``s fed the true next tokens; against ``forward`` over the
+    prompt (the prefill's last row) and over the prompt and the fed tokens
+    (each decode step's row).  At f32 also ``forward`` with its embeddings
+    perturbed by ``FAMILY_PERTURB`` (relative): how far rounding alone
+    moves this stack's logits."""
+    n = FAMILY_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + n))
+                            ).cuda()
+    drops = {}
+    with count_drops(drops) if cfg.n_experts else contextlib.nullcontext():
+        short = tfm.forward(params, toks[:, :S], cfg)[:, -1].float()
+        full = tfm.forward(params, toks, cfg)[:, S - 1:].float()
+    n0, r0 = dict(ops.launches), dict(ops.flash_routes)
+    seen = []
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    with first_flash_inputs(seen):
+        start.record()
+        logits, cache = tfm.prefill(params, toks[:, :S], cfg, S + n + 1,
+                                    cache_dtype=cache_dtype)
+        mid.record()
+    steps = [logits.float()]
+    for j in range(n):
+        logits, cache = tfm.decode_step(params, cache, toks[:, S + j], cfg)
+        steps.append(logits.float())
+    end.record()
+    torch.cuda.synchronize()
+    dec = torch.stack(steps, 1)               # (B, n + 1, V): rows S-1 ..
+    agree = (dec[:, 1:].argmax(-1) == full[:, 1:].argmax(-1)).float()
+    pre = dec[:, 0]
+    out = {"batch": B, "prompt": S, "decode_steps": n,
+           "cache_dtype": str(cache_dtype).removeprefix("torch."),
+           "finite": bool(torch.isfinite(dec).all()
+                          and torch.isfinite(full).all()),
+           "logits_max_abs": float(full.abs().max()),
+           "prefill_ms": start.elapsed_time(mid),
+           "decode_ms_per_step": mid.elapsed_time(end) / n,
+           "prefill_vs_forward_max_abs": max_err(pre, short),
+           "prefill_vs_forward_close": bool(torch.allclose(
+               pre, short, **FAMILY_PREFILL_BAR)),
+           "prefill_top1_equal": bool(torch.equal(pre.argmax(-1),
+                                                  short.argmax(-1))),
+           "decode_vs_forward_max_abs": max_err(dec[:, 1:], full[:, 1:]),
+           "top1_agree": float(agree.mean()), "agree_count": int(agree.sum()),
+           "rows": int(agree.numel()),
+           "launches": {k: ops.launches[k] - n0[k] for k in n0},
+           "flash_launches": ops.launches["flash_attention"]
+           - n0["flash_attention"],
+           "flash_routes": {r: ops.flash_routes[r] - r0[r] for r in r0},
+           "cur_len": int(cache["cur_len"][0])}
+    if drops:
+        out["forward_moe"] = drops
+    if seen:  # one of the prefill's flash launches against the plain version
+        out["flash_check"] = flash_check(*seen[0])
+    if cache_dtype == torch.float32:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        bumped = dict(params, embed=params["embed"] * (
+            1 + FAMILY_PERTURB * torch.randn(params["embed"].shape,
+                                             generator=g, device="cuda")))
+        moved = tfm.forward(bumped, toks, cfg)[:, S:].float()
+        out["perturbed_forward_max_abs"] = max_err(moved, full[:, 1:])
+    return out
+
+
+def family_smoke(arch: str) -> dict:
+    """The family's smoke config at f32 (TF32 off) on the card against the
+    CPU, one draw: forward logits, then prefill of 21 tokens and 4 decode
+    steps; the largest difference as a share of the CPU's max-abs."""
+    cfg = get_config(arch).smoke()
+    p32 = unflatten((path, t.float()) for path, t in flatten(
+        Model(cfg, params={}).init(SEED, device="cpu")))
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 25)))
+    rows = {}
+    for device in ("cpu", "cuda"):
+        p = unflatten((path, t.to(device)) for path, t in flatten(p32))
+        tk = toks.to(device)
+        out = [tfm.forward(p, tk, cfg)]
+        lg, cache = tfm.prefill(p, tk[:, :21], cfg, 26,
+                                cache_dtype=torch.float32)
+        out.append(lg)
+        for t in range(21, 25):
+            lg, cache = tfm.decode_step(p, cache, tk[:, t], cfg)
+            out.append(lg)
+        rows[device] = [o.cpu() for o in out]
+    rel = max(max_err(a, b) / float(b.abs().max())
+              for a, b in zip(rows["cuda"], rows["cpu"]))
+    return {"max_rel_diff": rel, "close": rel <= FAMILY_SMOKE_TOL}
+
+
+def families_rank(rank, device) -> dict:
+    """The families phase's process (spawned by ``phase_families``): each
+    architecture of ``FAMILY_ARCHS`` at full width on the card in turn,
+    uncut in bf16, then cut to ``FAMILY_F32_LAYERS`` in f32, each model
+    freed before the next is drawn; then the smoke configs card against
+    CPU.  ``launches`` sums the kernels' launches of the uncut prefill and
+    decode runs (the checks' launches not counted)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    path = {k: 0 for k in ops.launches}
+    with torch.no_grad():
+        for arch in FAMILY_ARCHS:
+            cfg = get_config(arch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = Model(cfg, device="cuda", seed=SEED)
+            torch.cuda.synchronize()
+            r = {"family": cfg.family, "draw_s": time.perf_counter() - t0,
+                 "n_params": model.n_params(),
+                 "n_active_params": model.n_active_params(),
+                 "weight_gb": torch.cuda.memory_allocated() / 1e9}
+            rng = np.random.default_rng(SEED)
+            r["runs"] = [family_prompt_run(model.params, cfg, B, S, rng)
+                         for B, S in FAMILY_PROMPTS]
+            for run in r["runs"]:
+                for k, n in run["launches"].items():
+                    path[k] += n
+            r["max_memory_allocated_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            fcfg = cfg.with_(n_layers=FAMILY_F32_LAYERS[arch])
+            if cfg.n_experts:
+                fcfg = fcfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+            p32 = unflatten((p, t.float()) for p, t in flatten(
+                Model(fcfg, params={}).init(SEED, device="cuda")))
+            r["f32"] = {"n_layers": fcfg.n_layers,
+                        "capacity_factor": fcfg.capacity_factor,
+                        **family_prompt_run(p32, fcfg, *FAMILY_F32_PROMPT,
+                                            rng, cache_dtype=torch.float32)}
+            del p32
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[arch] = r
+        for arch in FAMILY_ARCHS:
+            out[arch]["smoke_f32"] = family_smoke(arch)
+    out["launches"] = path
+    return out
+
+
+def phase_families(smi) -> dict:
+    """The MLA-MoE, SSM and hybrid families at full width (docstring, phase
+    18), in a process of its own.  Returns its launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r, = spawn_ranks(importlib.import_module("chip_smoke").families_rank, 1,
+                     backend="gloo", device="cuda",
+                     timeout_s=FAMILY_TIMEOUT_S)
+    failures = []
+    archs = {}
+    for arch, (n_jax, n_active_jax) in FAMILY_ARCHS.items():
+        a = r[arch]
+        cfg = get_config(arch)
+        if (a["n_params"], a["n_active_params"]) != (n_jax, n_active_jax):
+            failures.append(f"{arch}: parameter counts {a['n_params']} / "
+                            f"{a['n_active_params']} != JAX's {n_jax} / "
+                            f"{n_active_jax}")
+        for run in a["runs"] + [a["f32"]]:
+            tag = f"{arch} {run['cache_dtype']} B{run['batch']} S{run['prompt']}"
+            if not run["finite"]:
+                failures.append(f"{tag}: non-finite logits")
+            if run["cur_len"] != run["prompt"] + FAMILY_DECODE:
+                failures.append(f"{tag}: cur_len {run['cur_len']}")
+            if cfg.family == "hybrid":
+                groups = run.get("n_layers", cfg.n_layers) // cfg.attn_period
+                dt = getattr(torch, run["cache_dtype"])
+                route = ops.flash_route(dt, cfg.hd)
+                if (run["flash_launches"], run["flash_routes"][route]) != (
+                        groups, groups):
+                    failures.append(f"{tag}: {run['flash_launches']} flash "
+                                    f"launches {run['flash_routes']} per "
+                                    f"prefill, want {groups} on {route}")
+                chk = run.get("flash_check")
+                if chk is None or chk["bar_share"] > 1:
+                    failures.append(f"{tag}: flash against its plain "
+                                    f"version: {chk}")
+            elif run["flash_launches"]:
+                failures.append(f"{tag}: {run['flash_launches']} flash "
+                                f"launches off the hybrid")
+        # decode against forward where rounding is not amplified past the
+        # logits' margins: the f32 leg (FAMILY_F32_LAYERS)
+        f32 = a["f32"]
+        if not f32["prefill_vs_forward_close"]:
+            failures.append(f"{arch} f32: prefill's last row "
+                            f"{f32['prefill_vs_forward_max_abs']} from "
+                            f"forward's, beyond {FAMILY_PREFILL_BAR}")
+        if cfg.family in ("ssm", "hybrid") and f32["top1_agree"] < FAMILY_AGREE:
+            failures.append(f"{arch} f32: decode agrees with forward on "
+                            f"{f32['top1_agree']:.3f} of top-1, below "
+                            f"{FAMILY_AGREE}")
+        a["top1_agree_bf16"] = (sum(x["agree_count"] for x in a["runs"])
+                                / sum(x["rows"] for x in a["runs"]))
+        if not a["smoke_f32"]["close"]:
+            failures.append(f"{arch}: smoke f32 card against CPU "
+                            f"{a['smoke_f32']['max_rel_diff']}")
+        archs[arch] = {**a, "n_params_jax": n_jax,
+                       "n_active_params_jax": n_active_jax}
+    out = {"phase": "families", "card": smi, "dtype": "bfloat16",
+           "prompts": FAMILY_PROMPTS, "archs": archs,
+           "launches": r["launches"],
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"families phase: {failures}")
+    return r["launches"]
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2649,21 +3002,26 @@ def main() -> None:
     paths["moe"] = phase_moe(smi)
     torch.cuda.empty_cache()
     paths["train"] = phase_train(smi)
+    torch.cuda.empty_cache()
+    paths["families"] = phase_families(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
-         "path": ("victims, sim" if name == "mdc_priority" else "engine, moe"
-                  if name in ENGINE_KERNELS else "tp" if name in TP_KERNELS
-                  else "none"),
+         "path": ("victims, sim" if name == "mdc_priority"
+                  else "engine, moe, families" if name == "flash_attention"
+                  else "engine, moe" if name in ENGINE_KERNELS
+                  else "tp" if name in TP_KERNELS else "none"),
          "launches": launches[name],
          "path_launches": {p: n[name] for p, n in paths.items()},
          "ms": results[name]["kernel_ms"],
          **{k: results[name][k] for k in ("max_abs_err", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
-         # the same kernel at the moe phase's heads (H 32 over Kh 4)
-         **({"at_moe_heads": {k: results[f"{name}_moe"][k] for k in (
+         # the same kernel at the moe phase's heads (H 32 over Kh 4) and at
+         # the families phase's Zamba2 heads (H 32 over Kh 32, D 112)
+         **{f"at_{model}_heads": {k: results[f"{name}_{model}"][k] for k in (
              "kernel_ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")}} if f"{name}_moe" in results else {})}
+             "library_ms", "shape")} for model in ("moe", "zamba2")
+            if f"{name}_{model}" in results}}
         for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

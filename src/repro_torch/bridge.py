@@ -6,7 +6,8 @@ leaf, so this module needs no JAX) and keeps its layout leaf for leaf:
 ``lm_head (d, V)``, and so on.  ``torch.from_numpy`` rejects the
 ``ml_dtypes.bfloat16`` arrays JAX hands out, so a bf16 leaf goes through a
 ``uint16`` view of its bits, which is exact.  The optimizer's state comes
-across as well (:func:`opt_state_from_jax`).
+across as well (:func:`opt_state_from_jax`), and so does a decode cache
+(:func:`cache_from_jax`).
 """
 
 from __future__ import annotations
@@ -39,3 +40,13 @@ def opt_state_from_jax(state) -> AdamWState:
     step, mu, nu = state
     return AdamWState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
                       params_from_jax(mu), params_from_jax(nu))
+
+
+def cache_from_jax(cache) -> dict:
+    """A JAX decode cache (``repro.models.transformer.init_cache``'s dict,
+    leaves as numpy arrays) → the port's (``transformer.cache_spec``'s):
+    the same names and layouts (``k`` / ``v``, ``c`` / ``r``, ``state``,
+    ``conv_x`` / ``conv_bc``, ``cur_len``), each leaf bit-exact on the
+    CPU.  The port's ``decode_step`` writes the cache in place, so each
+    leaf is a fresh copy."""
+    return {name: tensor_from_numpy(leaf) for name, leaf in cache.items()}

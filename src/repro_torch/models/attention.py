@@ -1,5 +1,6 @@
 """GQA attention: the projections, the plain chunked attention, and the
-prefill / decode wrappers of the dense serving path.
+prefill / decode wrappers of the dense serving path; DeepSeek's MLA (its
+own section below).
 
 ``gqa_prefill``, ``gqa_prefill_cont`` (the tail after a cached prefix) and
 ``gqa_prefill_chunk`` (one chunk of a chunked prefill) run their attention
@@ -257,3 +258,107 @@ def gqa_decode(x, p, cfg, cache_k, cache_v, cur_len):
     cache_v[rows, cur_len] = v[:, 0].to(cache_v.dtype)
     out = decode_attention(q, cache_k, cache_v, cur_len + 1)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+# ------------------------------------------------------------------- MLA --
+#
+# DeepSeek's multi-head latent attention.  Training and prefill attend in
+# the decompressed form through the plain ``chunked_attention``: their q·k
+# dimension is nope + rope (192 at DeepSeek-V2-Lite) and their v dimension
+# 128, a shape no instance of the flash kernel takes (later work: flash at
+# Dqk 192 / Dv 128).  The decode scores the latent cache directly (the
+# absorbed form), as the JAX package's does.
+
+def _promote(*ts):
+    """``ts`` cast to their promoted dtype (JAX's promotion of a mixed
+    product, e.g. a bf16 cache's context against f32 weights;
+    ``torch.einsum`` takes one dtype)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def mla_specs(cfg, layers):
+    d = cfg.d_model
+    H = cfg.n_heads
+    r = cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq": spec((layers, d, H, nd + rd)),
+        "w_dkv": spec((layers, d, r)),
+        "kv_norm": spec((layers, r), scale=-1.0, dtype=torch.float32),
+        "w_kr": spec((layers, d, rd)),
+        "w_uk": spec((layers, r, H, nd)),
+        "w_uv": spec((layers, r, H, vd)),
+        "wo": spec((layers, H, vd, d), scale=1.0 / math.sqrt(H * vd)),
+    }
+
+
+def _mla_qc(x, p, cfg, positions):
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    c_kv = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"])
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["w_kr"])[:, :, None, :]  # 1 shared head
+    cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_full(x, p, cfg):
+    """The decompressed attention of a whole sequence: (out, (c_kv,
+    k_rope))."""
+    B, S, _ = x.shape
+    rd = cfg.qk_rope_dim
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, positions)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], rd)], dim=-1)
+    out = chunked_attention(q, k, v, causal=True,
+                            q_block=cfg.q_block, kv_block=cfg.kv_block)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"]), (c_kv, k_rope)
+
+
+def mla_train(x, p, cfg):
+    """Full-sequence MLA (decompressed form; cache-free)."""
+    return _mla_full(x, p, cfg)[0]
+
+
+def mla_prefill(x, p, cfg):
+    """MLA prefill returning the latent cache (c_kv (B,S,r), k_rope
+    (B,S,rope)): the cache is r + rope wide instead of 2·H·hd."""
+    return _mla_full(x, p, cfg)
+
+
+def mla_decode(x, p, cfg, cache_c, cache_r, cur_len):
+    """Absorbed-form MLA decode: score directly against the latent cache.
+
+    cache_c: (B,T,r); cache_r: (B,T,rope), both written in place at
+    ``cur_len`` (B,).  The scores are bf16 (or f32) products accumulated in
+    f32, the JAX package's ``preferred_element_type``; the probabilities
+    are cast to the cache's dtype before the context product.  Returns the
+    attention output."""
+    B = x.shape[0]
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, cur_len[:, None])
+    rows = torch.arange(B, device=x.device)
+    cache_c[rows, cur_len] = c_kv[:, 0].to(cache_c.dtype)
+    cache_r[rows, cur_len] = k_rope[:, 0].to(cache_r.dtype)
+
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"])
+    logits = (torch.einsum("bqhr,btr->bhqt", q_abs.float(), cache_c.float())
+              + torch.einsum("bqhp,btp->bhqt", q_rope.float(),
+                             cache_r.float())) * scale
+    T = cache_c.shape[1]
+    valid = torch.arange(T, device=x.device)[None] < (cur_len + 1)[:, None]
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhqt,btr->bqhr", probs.to(cache_c.dtype), cache_c)
+    out = torch.einsum("bqhr,rhv->bqhv", *_promote(ctx, p["w_uv"]))
+    return torch.einsum("bshe,hed->bsd", *_promote(out, p["wo"]))

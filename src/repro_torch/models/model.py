@@ -60,8 +60,9 @@ class Model(nn.Module):
                    for _, s in flatten(tfm.model_specs(self.cfg)))
 
     def n_active_params(self) -> int:
-        """Active params per token (MoE discounts inactive experts): the
-        routed experts' leaves count ``top_k`` of ``n_experts``."""
+        """Active params per token (MoE and MLA-MoE discount inactive
+        experts): the routed experts' ``w_*`` leaves count ``top_k`` of
+        ``n_experts``; the shared experts and the router count whole."""
         cfg = self.cfg
         total = self.n_params()
         if not cfg.n_experts:
@@ -75,15 +76,25 @@ class Model(nn.Module):
         return tfm.greedy_decode(self.params, prompt, self.cfg,
                                  max_new_tokens, **kw)
 
+    # -- the contiguous decode cache ----------------------------------------
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16):
+        """A zeroed decode cache on the parameters' device."""
+        return tfm.init_cache(self.cfg, batch, max_len, dtype,
+                              device=self.params["embed"].device)
+
+    def cache_spec(self, batch, max_len, dtype=torch.bfloat16):
+        return tfm.cache_spec(self.cfg, batch, max_len, dtype)
+
     # -- training ----------------------------------------------------------
     def forward(self, params, tokens, extras=None):
         return tfm.forward(params, tokens, self.cfg, extras)
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S), the mean
-        over B·(S-1) positions in f32.  The JAX ``Model.loss`` adds no MoE
-        load-balance term (``moe.aux_load_balance_loss`` is the trainer's
-        to add), and neither does this."""
+        over B·(S-1) positions in f32, for every family.  The JAX
+        ``Model.loss`` adds its MoE aux term as ``+ 0.0`` (the load-balance
+        loss, ``moe.aux_load_balance_loss``, is the trainer's to add), so
+        this adds none."""
         tokens = batch["tokens"]
         logits = tfm.forward(params, tokens, self.cfg)
         return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])

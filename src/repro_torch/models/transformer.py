@@ -1,13 +1,26 @@
-"""Model assembly for the GQA families the engine serves, dense and MoE
-(a top-k routed FFN, :mod:`.moe`, in place of the dense MLP): parameter
-specs, the training forward, the prompt prefill (whole, the tail after a
-cached prefix, or one chunk of it), and the dense-cache decode that serves
-as the token oracle.
+"""Model assembly: parameter specs, the training forward, the prompt
+prefill and the dense-cache decode, one implementation parameterized by
+``ModelConfig.family``:
+
+  dense    — GQA attention + MLP                        (qwen3, granite, yi,
+                                                         nemotron)
+  moe      — GQA attention + top-k MoE (:mod:`.moe`)    (qwen3-moe)
+  mla_moe  — DeepSeek MLA + (shared + routed) MoE       (deepseek-v2-lite)
+  ssm      — Mamba2 / SSD (:mod:`.ssm`)                 (mamba2-1.3b)
+  hybrid   — Mamba2 backbone + a weight-tied shared attention block after
+             every ``attn_period`` layers               (zamba2-7b)
+
+The paged serving engine runs dense and moe, through the prefill of a whole
+prompt, of the tail after a cached prefix and of one chunk of it; every
+family runs :func:`forward` (training), :func:`prefill`, :func:`decode_step`
+over the contiguous cache of :func:`init_cache` and :func:`greedy_decode`
+(the token oracle).
 
 Parameters keep the JAX package's layout (stacked per-layer leaves with a
 leading layers axis; ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``,
-``embed (V, d)``, ``lm_head (d, V)``), and the layer loop is a Python loop
-over that axis where the JAX package scans.
+``embed (V, d)``, ``lm_head (d, V)``; the hybrid's ``shared_attn`` with a
+leading 1-sized layers axis), and the layer loop is a Python loop over that
+axis where the JAX package scans.
 """
 
 from __future__ import annotations
@@ -21,8 +34,11 @@ from torch.utils import checkpoint as ckpt
 
 from . import attention as att
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (flatten, norm_spec, rmsnorm, spec, sq_relu_mlp, swiglu,
                      unflatten)
+
+FAMILIES = ("dense", "moe", "mla_moe", "ssm", "hybrid")
 
 
 def mlp_specs(cfg, layers):
@@ -35,18 +51,32 @@ def mlp_specs(cfg, layers):
             "w_down": spec((layers, ff, d))}
 
 
+def _check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the port runs the {', '.join(FAMILIES)} families; "
+            f"{cfg.family!r} comes with ROADMAP item 15")
+
+
 def model_specs(cfg):
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the port runs the dense and moe families, not "
-                         f"{cfg.family!r}")
+    _check_family(cfg)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     s = {"embed": spec((V, d), scale=0.02), "final_norm": norm_spec(d)}
     if not cfg.tie_embeddings:
         s["lm_head"] = spec((d, V), scale=1.0 / math.sqrt(d))
-    s["blocks"] = {"ln1": norm_spec(d, L), "ln2": norm_spec(d, L),
-                   "attn": att.attn_specs(cfg, L),
-                   "mlp": (moe_mod.moe_specs(cfg, L) if cfg.family == "moe"
-                           else mlp_specs(cfg, L))}
+    fam = cfg.family
+    if fam in ("dense", "moe", "mla_moe"):
+        s["blocks"] = {"ln1": norm_spec(d, L), "ln2": norm_spec(d, L),
+                       "attn": (att.mla_specs(cfg, L) if fam == "mla_moe"
+                                else att.attn_specs(cfg, L)),
+                       "mlp": (mlp_specs(cfg, L) if fam == "dense"
+                               else moe_mod.moe_specs(cfg, L))}
+    else:  # ssm, hybrid
+        s["blocks"] = {"ln": norm_spec(d, L), "ssm": ssm_mod.ssm_specs(cfg, L)}
+        if fam == "hybrid":
+            s["shared_attn"] = {"ln1": norm_spec(d, 1), "ln2": norm_spec(d, 1),
+                                "attn": att.attn_specs(cfg, 1),
+                                "mlp": mlp_specs(cfg, 1)}
     return s
 
 
@@ -56,12 +86,16 @@ def layer(blocks, i: int):
             for k, v in blocks.items()}
 
 
-def _block_mlp(h, p, cfg):
-    if cfg.family == "moe":
-        return moe_mod.moe_ffn(h, p, cfg, cfg.capacity_factor, cfg.moe_groups)
+def _mlp(h, p, cfg):
     if cfg.mlp_act == "sq_relu":
         return sq_relu_mlp(h, p["w_up"], p["w_down"])
     return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _block_mlp(h, p, cfg):
+    if cfg.family in ("moe", "mla_moe"):
+        return moe_mod.moe_ffn(h, p, cfg, cfg.capacity_factor, cfg.moe_groups)
+    return _mlp(h, p, cfg)
 
 
 def _embed(params, tokens):
@@ -119,52 +153,181 @@ def unstack_layers(blocks, n_layers: int) -> list:
 
 
 def _train_block(x, lp, cfg):
-    x = x + att.gqa_train(rmsnorm(x, lp["ln1"]), lp["attn"], cfg, causal=True)
+    attn = att.mla_train if cfg.family == "mla_moe" else functools.partial(
+        att.gqa_train, causal=True)
+    x = x + attn(rmsnorm(x, lp["ln1"]), lp["attn"], cfg)
     return x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+
+
+def _ssm_block(x, lp, cfg):
+    return x + ssm_mod.mamba2_seq(rmsnorm(x, lp["ln"]), lp["ssm"], cfg)
+
+
+def _shared_attn_block(x, sq, cfg):
+    """Zamba2's weight-tied attention + MLP block; ``sq`` is the one layer
+    of ``shared_attn``."""
+    x = x + att.gqa_train(rmsnorm(x, sq["ln1"]), sq["attn"], cfg, causal=True)
+    return x + _mlp(rmsnorm(x, sq["ln2"]), sq["mlp"], cfg)
+
+
+def _shared_attn(params, cfg):
+    """The hybrid's one layer of ``shared_attn``; None for other families."""
+    return layer(params["shared_attn"], 0) if cfg.family == "hybrid" else None
+
+
+def _hybrid_split(cfg):
+    """The shared attention after each group of ``attn_period`` SSM layers:
+    (groups, period, tail), e.g. 13 groups of 6 and a tail of 3 at 81."""
+    g = cfg.attn_period
+    n_groups = cfg.n_layers // g
+    return n_groups, g, cfg.n_layers - n_groups * g
+
+
+def _ssm_order(cfg):
+    """The SSM families' blocks in order: ``("ssm", layer)``, and for the
+    hybrid ``("attn", group)`` after each group."""
+    if cfg.family == "ssm":
+        yield from (("ssm", i) for i in range(cfg.n_layers))
+        return
+    n_groups, g, _ = _hybrid_split(cfg)
+    for gi in range(n_groups):
+        for j in range(g):
+            yield "ssm", gi * g + j
+        yield "attn", gi
+    for i in range(n_groups * g, cfg.n_layers):
+        yield "ssm", i
 
 
 def forward(params, tokens, cfg, extras=None):
     """Training/scoring forward: tokens (B, S) -> logits (B, S, V), through
-    autograd when the params require grad.  The dense and moe families; the
-    others come with ROADMAP item 15.  (``extras`` feeds the VLM and
+    autograd when the params require grad.  (``extras`` feeds the VLM and
     encoder-decoder families only, which the port has not.)"""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"the port's forward runs the dense and moe families; "
-            f"{cfg.family!r} comes with ROADMAP item 15")
+    _check_family(cfg)
     x = _embed(params, tokens)
-    block = _maybe_remat(functools.partial(_train_block, cfg=cfg), cfg)
-    for lp in unstack_layers(params["blocks"], cfg.n_layers):
-        x = block(x, lp)
+    layers = unstack_layers(params["blocks"], cfg.n_layers)
+    if cfg.family in ("dense", "moe", "mla_moe"):
+        block = _maybe_remat(functools.partial(_train_block, cfg=cfg), cfg)
+        for lp in layers:
+            x = block(x, lp)
+        return _unembed(params, x, cfg)
+    block = _maybe_remat(functools.partial(_ssm_block, cfg=cfg), cfg)
+    sq = _shared_attn(params, cfg)
+    for kind, i in _ssm_order(cfg):
+        x = (block(x, layers[i]) if kind == "ssm"
+             else _shared_attn_block(x, sq, cfg))
     return _unembed(params, x, cfg)
 
 
+# ------------------------------------------------------------- the cache
+
+def cache_spec(cfg, batch, max_len, dtype=torch.bfloat16) -> dict:
+    """``{name: (shape, dtype)}`` of the contiguous decode cache: K / V
+    (layers, batch, max_len, kv heads, hd) for dense and moe; the latent
+    ``c`` (layers, batch, max_len, kv_lora_rank) and ``r`` (..., rope) for
+    mla_moe; for ssm and hybrid the f32 ``state`` (layers, batch, heads,
+    head_dim, state) and the conv windows ``conv_x`` / ``conv_bc``
+    (layers, batch, CONV_K - 1, ...) in ``dtype``, and for hybrid K / V per
+    group of layers; ``cur_len`` (batch,) int32."""
+    _check_family(cfg)
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    di = cfg.ssm_expand * cfg.d_model
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    fam = cfg.family
+    out = {}
+    if fam in ("dense", "moe"):
+        out["k"] = out["v"] = ((L, batch, max_len, K, hd), dtype)
+    elif fam == "mla_moe":
+        out["c"] = ((L, batch, max_len, cfg.kv_lora_rank), dtype)
+        out["r"] = ((L, batch, max_len, cfg.qk_rope_dim), dtype)
+    else:
+        out["state"] = ((L, batch, H, P, N), torch.float32)
+        out["conv_x"] = ((L, batch, ssm_mod.CONV_K - 1, di), dtype)
+        out["conv_bc"] = ((L, batch, ssm_mod.CONV_K - 1, 2 * N), dtype)
+        if fam == "hybrid":
+            n_groups = _hybrid_split(cfg)[0]
+            out["k"] = out["v"] = ((n_groups, batch, max_len, K, hd), dtype)
+    out["cur_len"] = ((batch,), torch.int32)
+    return out
+
+
+def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device=None):
+    """A zeroed cache of :func:`cache_spec` on ``device`` (default: the
+    CPU, as ``torch.zeros``)."""
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in cache_spec(cfg, batch, max_len,
+                                                dtype).items()}
+
+
+# --------------------------------------------------------------- prefill
+
 def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
             true_len=None, kernel: bool = True, mesh=None):
-    """Run the whole prompt; return (last-position logits, K/V cache).
+    """Run the whole prompt; return (last-position logits, the decode
+    cache of :func:`cache_spec`).
 
-    ``tokens`` (B, S) may be right-padded to a bucket: causal masking makes
-    the pad invisible to positions < ``true_len``, and the logits are read
-    at ``true_len - 1``.  The cache holds K and V (L, B, max_len, Kh, hd)
-    in ``cache_dtype`` and ``cur_len`` (B,).  ``kernel`` selects the flash
-    kernel (the engine) or the plain chunked attention (the oracle).
-    ``mesh``: tensor-parallel serving, the attention parameters and the
-    returned K/V being this rank's heads (``attention`` module)."""
+    For the attention families ``tokens`` (B, S) may be right-padded to a
+    bucket: causal masking makes the pad invisible to positions <
+    ``true_len``, and the logits are read at ``true_len - 1``.  The SSM
+    families take the unpadded prompt (their recurrent state would absorb
+    pad tokens), so for them ``true_len`` must be S or None.  ``kernel``
+    selects the flash kernel (the engine; the hybrid's shared attention)
+    or the plain chunked attention (the oracle); MLA attends through the
+    plain chunked attention either way (``attention`` module).  ``mesh``:
+    tensor-parallel serving of dense and moe, the attention parameters and
+    the returned K/V being this rank's heads (``attention`` module)."""
+    _check_family(cfg)
+    fam = cfg.family
     B, S = tokens.shape
+    if fam in ("ssm", "hybrid") and true_len not in (None, S):
+        raise ValueError(f"{fam}: prefill takes the unpadded prompt "
+                         f"(true_len {true_len}, {S} tokens)")
+    if mesh is not None and fam not in ("dense", "moe"):
+        raise ValueError(f"{fam}: no tensor-parallel prefill")
     x = _embed(params, tokens)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params["blocks"], i)
-        a, (k, v) = att.gqa_prefill(rmsnorm(x, lp["ln1"]), lp["attn"], cfg,
-                                    kernel=kernel, mesh=mesh)
-        x = x + a
-        x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
-        ks.append(F.pad(k, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
-        vs.append(F.pad(v, (0, 0, 0, 0, 0, max_len - S)).to(cache_dtype))
+
+    def pad(t):  # (B, S, ...) -> (B, max_len, ...) in the cache dtype
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, max_len - S)).to(
+            cache_dtype)
+
+    cols: dict = {}
+
+    def keep(**kw):
+        for name, t in kw.items():
+            cols.setdefault(name, []).append(t)
+
+    if fam in ("dense", "moe", "mla_moe"):
+        for i in range(cfg.n_layers):
+            lp = layer(params["blocks"], i)
+            h = rmsnorm(x, lp["ln1"])
+            if fam == "mla_moe":
+                a, (c, r) = att.mla_prefill(h, lp["attn"], cfg)
+                keep(c=pad(c), r=pad(r))
+            else:
+                a, (k, v) = att.gqa_prefill(h, lp["attn"], cfg,
+                                            kernel=kernel, mesh=mesh)
+                keep(k=pad(k), v=pad(v))
+            x = x + a
+            x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+    else:
+        sq = _shared_attn(params, cfg)
+        for kind, i in _ssm_order(cfg):
+            if kind == "ssm":
+                lp = layer(params["blocks"], i)
+                y, st, (cx, cbc) = ssm_mod.mamba2_seq(
+                    rmsnorm(x, lp["ln"]), lp["ssm"], cfg, return_state=True)
+                x = x + y
+                keep(state=st, conv_x=cx.to(cache_dtype),
+                     conv_bc=cbc.to(cache_dtype))
+            else:
+                a, (k, v) = att.gqa_prefill(rmsnorm(x, sq["ln1"]),
+                                            sq["attn"], cfg, kernel=kernel)
+                x = x + a
+                x = x + _mlp(rmsnorm(x, sq["ln2"]), sq["mlp"], cfg)
+                keep(k=pad(k), v=pad(v))
     n = S if true_len is None else int(true_len)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-             "cur_len": torch.full((B,), n, dtype=torch.int32,
-                                   device=tokens.device)}
+    cache = {name: torch.stack(ts) for name, ts in cols.items()}
+    cache["cur_len"] = torch.full((B,), n, dtype=torch.int32,
+                                  device=tokens.device)
     logits = _unembed(params, x[:, n - 1:n], cfg)[:, 0]
     return logits, cache
 
@@ -185,7 +348,9 @@ def prefill_with_prefix(params, tokens, cfg, prefix_k, prefix_v, max_len, *,
 
     Returns (last-tail-position logits, K tail cache (L, B, max_len, Kh,
     hd), V tail cache) — only the tail's K/V, for the engine to scatter
-    into its own pages.  ``mesh`` as in :func:`prefill`."""
+    into its own pages.  ``mesh`` as in :func:`prefill`.  The paged
+    engine's families only (dense, moe)."""
+    assert cfg.family in ("dense", "moe"), cfg.family
     B, S = tokens.shape
     x = _embed(params, tokens)
     ks, vs = [], []
@@ -223,7 +388,9 @@ def prefill_chunk(params, tokens, cfg, ext_k, ext_v, pos0: int,
     Returns (the logits of row ``last_idx`` — the prompt's last token, on
     the final chunk; None when ``last_idx`` is None —, k_chunk (L, B, S,
     Kh, hd), v_chunk): only this chunk's K/V, for the engine to scatter
-    into the chunk's pages.  ``mesh`` as in :func:`prefill`."""
+    into the chunk's pages.  ``mesh`` as in :func:`prefill`.  The paged
+    engine's families only (dense, moe)."""
+    assert cfg.family in ("dense", "moe"), cfg.family
     x = _embed(params, tokens)
     if ext_k.dtype != x.dtype:
         ext_k, ext_v = ext_k.to(x.dtype), ext_v.to(x.dtype)
@@ -242,17 +409,46 @@ def prefill_chunk(params, tokens, cfg, ext_k, ext_v, pos0: int,
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+def _ssm_decode(x, lp, cfg, cache, i: int):
+    """Layer ``i``'s SSM block on one token; its cache rows are written in
+    place."""
+    y, st, (cx, cbc) = ssm_mod.mamba2_decode(
+        rmsnorm(x, lp["ln"]), lp["ssm"], cfg, cache["state"][i],
+        (cache["conv_x"][i], cache["conv_bc"][i]))
+    cache["state"][i] = st
+    cache["conv_x"][i] = cx
+    cache["conv_bc"][i] = cbc
+    return x + y
+
+
 def decode_step(params, cache, token, cfg):
     """One greedy decode step on plain functions.  token: (B,) int32 (the
-    *current* token); returns (logits (B, V), cache).  The cache's K/V are
-    written in place and ``cur_len`` advances."""
+    *current* token); returns (logits (B, V), cache).  The cache (of
+    :func:`cache_spec`) is written in place and ``cur_len`` advances."""
+    _check_family(cfg)
+    fam = cfg.family
     cur = cache["cur_len"]
     x = _embed(params, token[:, None])
-    for i in range(cfg.n_layers):
-        lp = layer(params["blocks"], i)
-        x = x + att.gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg,
-                               cache["k"][i], cache["v"][i], cur)
-        x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+    if fam in ("dense", "moe", "mla_moe"):
+        for i in range(cfg.n_layers):
+            lp = layer(params["blocks"], i)
+            h = rmsnorm(x, lp["ln1"])
+            if fam == "mla_moe":
+                x = x + att.mla_decode(h, lp["attn"], cfg, cache["c"][i],
+                                       cache["r"][i], cur)
+            else:
+                x = x + att.gqa_decode(h, lp["attn"], cfg, cache["k"][i],
+                                       cache["v"][i], cur)
+            x = x + _block_mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+    else:
+        sq = _shared_attn(params, cfg)
+        for kind, i in _ssm_order(cfg):
+            if kind == "ssm":
+                x = _ssm_decode(x, layer(params["blocks"], i), cfg, cache, i)
+            else:
+                x = x + att.gqa_decode(rmsnorm(x, sq["ln1"]), sq["attn"], cfg,
+                                       cache["k"][i], cache["v"][i], cur)
+                x = x + _mlp(rmsnorm(x, sq["ln2"]), sq["mlp"], cfg)
     logits = _unembed(params, x, cfg)[:, 0]
     cache["cur_len"] = cur + 1
     return logits, cache

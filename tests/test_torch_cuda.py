@@ -1505,3 +1505,85 @@ def test_failed_attempt_is_freed_before_the_restore(dev, tmp_path,
     del log
     gc.collect()
     assert torch.cuda.memory_allocated() == base
+
+
+# --------------------------------- the MLA-MoE, SSM and hybrid families
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal", [
+    (2, 256, 256, 8, 8, 112, True),     # Zamba2's head dim, MHA
+    (1, 200, 200, 4, 2, 112, True),     # ragged, GQA
+    (1, 64, 192, 2, 2, 48, False),      # another dim without an instance
+])
+def test_flash_attention_pads_a_head_dim_without_an_instance(
+        dev, B, Sq, Skv, H, Kh, D, causal, dtype, route):
+    """A head dim the kernel has no instance of runs zero-padded to the
+    next one on the route the padding gives (bf16 112 on the tensor
+    cores), one launch, the true scale: against the plain version at D."""
+    assert ops.flash_launch_dim(dtype, D) > D
+    _flash_case(dev, B, Sq, Skv, H, Kh, D, causal, dtype, route)
+
+
+def test_flash_attention_padded_rows_follow_q_offset(dev):
+    """At D 112 too, rows at an offset are bit for bit the rows of the
+    q_offset = 0 call."""
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (1, 512, 32, 112), torch.bfloat16, dev)
+    k = _randn(rng, (1, 512, 32, 112), torch.bfloat16, dev)
+    v = _randn(rng, (1, 512, 32, 112), torch.bfloat16, dev)
+    whole = ops.flash_attention(q, k, v, causal=True)
+    part = ops.flash_attention(q[:, 256:], k, v, causal=True, q_offset=256)
+    assert whole.shape[-1] == 112
+    assert torch.equal(part, whole[:, 256:])
+
+
+FAMILY_ARCHS = [("deepseek-v2-lite-16b", {}), ("mamba2-1.3b", {}),
+                ("zamba2-7b", {}), ("zamba2-7b", {"n_layers": 5})]
+
+
+@pytest.mark.parametrize("arch,kw", FAMILY_ARCHS,
+                         ids=["mla_moe", "ssm", "hybrid", "hybrid_tail"])
+def test_families_smoke_on_card_match_cpu(dev, arch, kw):
+    """Each family's smoke model at f32 (TF32 off) on the card against the
+    CPU: forward logits, the loss's gradients, then prefill of a ragged
+    21-token prompt and 6 decode steps, within 1e-4 of the CPU's max-abs.
+    The hybrid's prefill runs its shared attention through the flash
+    kernel on the card (one launch per group, at the smoke head dim 32 on
+    the CUDA-core route) and the plain chunked attention on the CPU."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import leaves
+    cfg = get_config(arch).smoke().with_(**kw)
+    params = _f32(Model(cfg, params={}).init(0, device="cpu"), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 27)).astype(np.int32))
+    out = {}
+    for device in ("cpu", dev):
+        p = _f32(params, device)
+        for t in leaves(p):
+            t.requires_grad_(True)
+        logits = tfm.forward(p, toks.to(device), cfg)
+        loss = Model(cfg, params={}).loss(p, {"tokens": toks.to(device)})
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves(p))]
+        p = _f32(params, device)
+        n0 = ops.launches["flash_attention"]
+        with torch.no_grad():
+            lg, cache = tfm.prefill(p, toks[:, :21].to(device), cfg, 32,
+                                    cache_dtype=torch.float32)
+            steps = [lg.cpu()]
+            for t in range(21, 27):
+                lg, cache = tfm.decode_step(p, cache, toks[:, t].to(device),
+                                            cfg)
+                steps.append(lg.cpu())
+        launched = ops.launches["flash_attention"] - n0
+        out[device] = (logits.detach().cpu(), grads, steps, launched)
+    (l0, g0, s0, n_cpu), (l1, g1, s1, n_card) = out["cpu"], out[dev]
+    n_attn = tfm._hybrid_split(cfg)[0] if cfg.family == "hybrid" else 0
+    assert (n_cpu, n_card) == (0, n_attn)
+    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-4 * float(l0.abs().max()))
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    for a, b in zip(s1, s0):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

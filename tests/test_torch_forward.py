@@ -130,6 +130,6 @@ def test_remat_gives_the_same_loss_and_grads(remat):
 
 
 def test_forward_refuses_other_families():
-    cfg = get_config("qwen3-1.7b").smoke().with_(family="ssm")
+    cfg = get_config("qwen3-1.7b").smoke().with_(family="encdec")
     with pytest.raises(NotImplementedError, match="item 15"):
         tfm.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
