@@ -37,7 +37,11 @@ Phases, in order; any failure raises and the process exits non-zero:
              moe phase's heads (Qwen3-30B-A3B: G 8 over Kh 4; H 32 / Kh 4
              at S 1,024), and flash at the families phase's Zamba2-7B heads
              (H 32 / Kh 32, D 112, zero-padded to a D 128 launch on the
-             tensor-core route; its bound counts D 112's work).
+             tensor-core route; its bound counts D 112's work) and at the
+             encdec phase's shapes: Whisper-medium's encoder (B 2, H 16 /
+             Kh 16, D 64, 1,500 x 1,500 frames) and cross attention (384
+             rows over 1,500 frame keys), both non-causal (SDPA without a
+             mask), and InternVL2-76B's heads (H 64 / Kh 8, S 1,024).
 4. engine  — the paged serving engine on the full-width qwen3-1.7b (28
              layers, random bf16 weights from a seed) serving 32 requests,
              with the pool sized so that MDC compaction fires under pressure.
@@ -66,7 +70,7 @@ Phases, in order; any failure raises and the process exits non-zero:
              phase runs in the same process history as before they existed.
 7. prefix  — 16 requests sharing one 512-token system prompt (tails of
              64-256 tokens, 32-64 new tokens) through the full-width engine
-             four times, cold and with the prefix cache in turns: hit rate,
+             twice, cold and then with the prefix cache: hit rate,
              prefill tokens saved, shared frames, flash launches with a query
              offset, pool and tree invariants; wall and prefill stream times
              (CUDA events around each admission's prefill); the share of requests
@@ -86,9 +90,8 @@ Phases, in order; any failure raises and the process exits non-zero:
              ceil(prompt / 256), >= 1 compaction, pool invariants, all three
              engine kernels launched and flash launches with a query offset;
              wall, tokens/s, dispatches, launches and the median and largest
-             dispatch wall beside the engine phase's monolithic run and a
-             second, warm one (whose tokens must repeat the first's), and
-             the share of requests whose bf16 tokens equal them (reported).
+             dispatch wall beside the engine phase's monolithic run, and
+             the share of requests whose bf16 tokens equal it (reported).
              Then 4 requests of 300-1,000 tokens at f32 (TF32 off), chunked:
              equal to the plain decode, or a first mismatch on a near-tie.
 10. async  — the engine phase's 32 requests and pool with asynchronous,
@@ -102,9 +105,8 @@ Phases, in order; any failure raises and the process exits non-zero:
              rehearsal's (``scripts/rehearse_schedule.py async 30``), no debt
              and no fenced slab left, and ``segment_move`` launched on the
              side stream; wall, tokens/s, dispatches and the median and
-             largest dispatch wall beside the engine phase's run and the
-             chunked phase's warm rerun, and Wamp beside the synchronous
-             run's.  Then the f32 leg's 4 long requests (16-128 new tokens,
+             largest dispatch wall beside the engine phase's run, and Wamp
+             beside it.  Then the f32 leg's 4 long requests (16-128 new tokens,
              f32 weights and pool, TF32 off) through a pool small enough to
              compact (``rehearse_schedule.py async-f32 8``), async and sync:
              equal tokens, and equal to the plain decode or parting from it
@@ -286,9 +288,38 @@ Phases, in order; any failure raises and the process exits non-zero:
              1e-7 relative perturbation of its embeddings.  (c) At smoke
              width, f32, each family's logits (forward, prefill, 4 decode
              steps) on the card within 1e-4 of the CPU's max-abs.
-             Each of the other last ten phases zeroes the launch counters
-             before it and reads them after, and fails unless its kernels
-             launched.
+19. encdec — the encoder-decoder family and the VLM stub, in a process of
+             their own, each model freed before the next is drawn.  (a)
+             Whisper-medium uncut (24 encoder + 24 decoder layers, d 1,024,
+             vocab 51,865, 1.01 B parameters, equal to the JAX package's),
+             random bf16 weights and 1,500 frame embeddings from the seed:
+             ``prefill`` of 2 x 384 tokens (whisper decodes at most 448),
+             then 32 ``decode_step``s fed the true next tokens.  Asserted:
+             finite logits; 72 flash launches per prefill, all on the
+             tensor-core route at D 64 — 24 causal (the decoder's self
+             attention), 24 non-causal 1,500 x 1,500 (the encoder), 24
+             non-causal 384 x 1,500 (the cross attention) — one of each
+             within its bar of the plain version on its own inputs.  Then
+             ``Model.loss`` forward and backward at full width with frames
+             (B 1 x 384): finite, its peak memory reported.  (b) Whisper in
+             f32 at ``ENCDEC_F32_LAYERS``: the prefill's last row within the
+             JAX test's bar of ``forward``'s, decode's top-1 agreement with
+             ``forward`` >= 0.85, 72 flash launches on the CUDA-core route
+             within their bars.  (c) InternVL2-76B cut to ``VLM_LAYERS`` of
+             its 80 layers (the uncut ~141 GB of bf16 weights do not fit;
+             the uncut config's parameter count equals the JAX package's):
+             ``forward`` with 256 patches (logits (1, 256 + 256, V),
+             finite), then the text-only ``prefill`` of 2 x 1,024 (the
+             port's VLM prefill refuses patches: the reference's cache
+             misplaces them) with one flash launch per layer at H 64 / Kh 8
+             on the tensor-core route, one within its bar, and 16 decode
+             steps.  (d) Both smoke configs at f32, card against CPU within
+             1e-4.  Reported: draw seconds, peak memory, prefill ms and
+             decode ms per token step, decode's and the prefill's agreement
+             with ``forward`` in bf16.
+             Each of the other last eleven phases zeroes the launch
+             counters before it and reads them after, and fails unless its
+             kernels launched.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -515,6 +546,42 @@ FAMILY_F32_LAYERS = {"deepseek-v2-lite-16b": 8, "zamba2-7b": 13,
 FAMILY_F32_PROMPT = (1, 1000)
 FAMILY_PERTURB = 1e-7
 
+# the encdec phase: Whisper-medium uncut (24 encoder + 24 decoder layers
+# over 1,500 frames) and InternVL2-76B's dense backbone cut in depth (its 80
+# layers' ~141 GB of bf16 weights do not fit on the card; 24 layers are
+# ~45 GB), random bf16 weights from the seed, in a process of their own;
+# the JAX package's parameter counts of the uncut configs
+ENCDEC_ARCH = "whisper-medium"
+VLM_ARCH = "internvl2-76b"
+ENCDEC_N_PARAMS = {ENCDEC_ARCH: 1012313088, VLM_ARCH: 70562095104}
+ENCDEC_PROMPT = (2, 384)   # (batch, prompt tokens); whisper decodes <= 448
+ENCDEC_DECODE = 32
+ENCDEC_LOSS = (1, 384)     # the full-width loss's batch (B 2 saves ~2x)
+VLM_LAYERS = 24
+VLM_PROMPT = (2, 1024)     # text only: the VLM's prefill refuses patches
+VLM_DECODE = 16
+VLM_FORWARD = (1, 256)     # text tokens after the 256 patches
+ENCDEC_TIMEOUT_S = 600
+# Whisper's f32 leg (decode held to forward): full width, the depth of both
+# stacks at which a 1e-7 relative perturbation of the f32 embeddings and
+# frames moves forward's logits by less than 0.02
+# (``scripts/family_sensitivity.py whisper-medium`` on the card)
+ENCDEC_F32_LAYERS = 2
+ENCDEC_F32_PROMPT = (1, 384)
+
+
+def encdec_flash_shapes() -> dict:
+    """The encdec phase's flash launches as ``check_flash_attention``
+    keywords: Whisper-medium's encoder and cross attention (non-causal) and
+    InternVL2-76B's heads at its text prefill (causal)."""
+    w, vlm = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
+    (B, S), F = ENCDEC_PROMPT, w.n_frames
+    heads = dict(H=w.n_heads, Kh=w.n_kv_heads, D=w.hd, B=B, causal=False)
+    return {"whisper_encoder": dict(S=F, **heads),
+            "whisper_cross": dict(S=S, Skv=F, **heads),
+            "vlm": dict(S=VLM_PROMPT[1], H=vlm.n_heads, Kh=vlm.n_kv_heads,
+                        D=vlm.hd)}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -668,26 +735,32 @@ def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None, Kh=8,
                       "tokens": n_tok}}
 
 
-def check_flash_attention(dtype, S, timer, H=16, Kh=8, D=128) -> dict:
-    """Causal prefill attention at qwen3-1.7b's heads (H 16, Kh 8, D 128;
+def check_flash_attention(dtype, S, timer, H=16, Kh=8, D=128, *, B=1,
+                          Skv=None, causal=True) -> dict:
+    """Prefill attention at qwen3-1.7b's heads (H 16, Kh 8, D 128;
     Qwen3-30B-A3B's are H 32, Kh 4; Zamba2-7B's H 32, Kh 32, D 112, which
-    the wrapper zero-pads to a launch at 128) over S tokens, in the model's
-    (B, S, H, D) layout; the launch must take the route that
-    ``ops.flash_route`` names for (dtype, D).  The bound counts the work at
-    D itself."""
+    the wrapper zero-pads to a launch at 128; InternVL2-76B's H 64, Kh 8;
+    Whisper-medium's H 16, Kh 16, D 64) of B sequences, S query rows over
+    ``Skv`` keys (default S), causal (with Skv = S) or not (Whisper's
+    encoder and cross attention), in the model's (B, S, H, D) layout; the
+    launch must take the route that ``ops.flash_route`` names for (dtype,
+    D).  The bound counts the work at D itself: the causal triangle, or
+    every row against every key."""
+    Skv = S if Skv is None else Skv
+    if causal and Skv != S:
+        raise ValueError("causal lines have Skv = S")
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    B = 1
     q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, S, Kh, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, Kh, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, Kh, D, generator=g, device="cuda").to(dtype)
     route = ops.flash_route(dtype, D)
     before = ops.flash_routes[route]
-    got = ops.flash_attention(q, k, v, causal=True)
+    got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     if ops.flash_routes[route] != before + 1:
         raise AssertionError(f"flash_attention {dtype} S={S}: not on the "
                              f"{route} route")
-    want = ref.flash_attention_ref(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
     # yardstick: the library's fused attention on the same inputs in its
@@ -697,19 +770,22 @@ def check_flash_attention(dtype, S, timer, H=16, Kh=8, D=128) -> dict:
     k_h = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
     v_h = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
     es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = (2 * B * H * S * D + 2 * B * Kh * S * D) * es
-    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    n_bytes = (2 * B * H * S * D + 2 * B * Kh * Skv * D) * es
+    flops = 4.0 * B * H * D * (S * (S + 1) / 2 if causal else S * Skv)
     b_ms, b_by = bound(n_bytes, flops, dtype)
     kernel_ms, library_ms = timer(
-        lambda: ops.flash_attention(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qh, k_h, v_h, is_causal=True))
+        lambda: ops.flash_attention(q, k, v, causal=causal),
+        lambda: F.scaled_dot_product_attention(qh, k_h, v_h,
+                                               is_causal=causal))
     return {"flash_route": route, "max_abs_err": max_err(got, want),
             "kernel_ms": kernel_ms,
-            "plain_ms": timer(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+            "plain_ms": timer(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal)),
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"B": B, "H": H, "Kh": Kh, "S": S, "D": D,
+                      **({} if Skv == S else {"Skv": Skv}),
                       "launch_D": ops.flash_launch_dim(dtype, D),
-                      "causal": True}}
+                      "causal": causal}}
 
 
 def check_flash_offset(dtype, timer, Sq=512, Skv=1024) -> dict:
@@ -886,6 +962,15 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", "name": "flash_attention", "model": ZAMBA_ARCH,
           "dtype": "torch.bfloat16", **r})
     main["flash_attention_zamba2"] = r
+    # the encdec phase's shapes: Whisper-medium's encoder (non-causal, 1,500
+    # frames over 1,500) and cross attention (the prompt's 384 rows over
+    # 1,500 frame keys), H 16 / Kh 16, D 64, B 2; InternVL2-76B's heads (H
+    # 64 / Kh 8, D 128) at its S 1,024 text prefill
+    for key, kw in encdec_flash_shapes().items():
+        r = check_flash_attention(torch.bfloat16, timer=timer, **kw)
+        emit({"phase": "kernel", "name": "flash_attention",
+              "model": key, "dtype": "torch.bfloat16", **r})
+        main[f"flash_attention_{key}"] = r
     for dtype, E in ((torch.bfloat16, 16384), (torch.int32, 16383)):
         r = check_segment_compact(dtype, E, timer)
         emit({"phase": "kernel", "name": "segment_compact", "dtype": str(dtype), **r})
@@ -1168,12 +1253,11 @@ def phase_prefix(cfg) -> dict:
     the f32 leg (4 requests, f32 weights and pool) whose tokens are held."""
     reqs = prefix_requests(cfg.vocab_size)
     model = Model(cfg, device="cuda", seed=SEED)
-    # cold and hit in turns, twice, so that neither sits alone on the
-    # first-run costs or on one stretch of the shared host's load
-    runs = {"cold": [], "hit": []}
-    for _ in range(2):
-        for name, on in (("cold", False), ("hit", True)):
-            runs[name].append(serve(model, reqs, prefix_cache=on))
+    # cold, then hit (one pair: a second pair in turns, for the walls'
+    # noise, gave its time to the encdec phase; the cold-against-hit
+    # prefill times in turns are ``scripts/profile_engine.py``'s)
+    runs = {name: [serve(model, reqs, prefix_cache=on)]
+            for name, on in (("cold", False), ("hit", True))}
     del model
     torch.cuda.empty_cache()
     cold, hit = runs["cold"][-1], runs["hit"][-1]
@@ -1190,9 +1274,6 @@ def phase_prefix(cfg) -> dict:
     if missing:
         raise AssertionError(f"the prefix path never launched {missing}")
     same = sum(a == b for a, b in zip(hit["tokens"], cold["tokens"]))
-    if any(r["tokens"] != hit["tokens"] for r in runs["hit"]) or any(
-            r["tokens"] != cold["tokens"] for r in runs["cold"]):
-        raise AssertionError("a repeated run gave other tokens")
 
     # f32 leg: the tokens phase's weights at f32, an f32 pool, TF32 off
     bf = Model(cfg, device="cuda", seed=SEED).params
@@ -1324,21 +1405,18 @@ def first_mismatches(model, cfg, requests, runs,
 def phase_chunked(cfg, mono) -> tuple[dict, dict]:
     """The engine phase's 32 requests with chunked prefill (PREFILL_CHUNK
     tokens per fused dispatch) through the same pool, beside the engine
-    phase's monolithic run ``mono`` and a second monolithic run after it
-    (``mono`` was the process's first engine run, so its first dispatch
-    also pays the first calls of every GEMM shape); then the f32 leg: 4
-    requests of 300 to 1,000 tokens (f32 weights and pool, TF32 off) whose
-    chunked tokens must be the plain decode's, or part from it on a
-    near-tie.  Returns the chunked run's launches and the second
-    monolithic run."""
+    phase's monolithic run ``mono`` (the process's first engine run, so
+    its first dispatch also pays the first calls of every GEMM shape; a
+    warm monolithic rerun gave its time to the encdec phase, and the
+    chunk's device split is ``scripts/profile_engine.py``'s fused_chunk);
+    then the f32 leg: 4 requests of 300 to 1,000 tokens (f32 weights and
+    pool, TF32 off) whose chunked tokens must be the plain decode's, or
+    part from it on a near-tie.  Returns the chunked run's launches."""
     prompts, news = engine_requests(cfg.vocab_size)
     reqs = [(p, int(n)) for p, n in zip(prompts, news)]
     model = Model(cfg, device="cuda", seed=SEED)
     run = serve(model, reqs, prefill_chunk=PREFILL_CHUNK)
-    again = serve(model, reqs)
     del model
-    if again["tokens"] != mono["tokens"]:
-        raise AssertionError("a repeated monolithic run gave other tokens")
     torch.cuda.empty_cache()
     m = run["metrics"]
     chunks = sum(-(-len(p) // PREFILL_CHUNK) for p, _ in reqs)
@@ -1374,20 +1452,19 @@ def phase_chunked(cfg, mono) -> tuple[dict, dict]:
           "flash_offsets": run["flash_offsets"],
           "tokens_equal_share": same / len(reqs),
           "chunked": stream_summary(run),
-          "monolithic": [stream_summary(r) for r in (mono, again)],
+          "monolithic": [stream_summary(mono)],
           "f32": {"requests": len(small),
                   "prompt_tokens": [len(p) for p, _ in small],
                   "chunks": f32["metrics"]["prefill_chunks_dispatched"],
                   "equal": not mismatches, "mismatches": mismatches}})
-    return run["launches"], again
+    return run["launches"]
 
 
-def phase_async(cfg, mono, warm) -> dict:
+def phase_async(cfg, mono) -> dict:
     """The engine phase's 32 requests and pool with async compaction at the
     default clean budget, ``audit()`` after every dispatch, beside the
-    engine phase's synchronous run ``mono`` and the chunked phase's warm
-    synchronous rerun ``warm``; then the f32 leg, async against sync and the
-    plain decode.  Every check is made before any fails, and the phase's
+    engine phase's synchronous run ``mono``; then the f32 leg, async
+    against sync and the plain decode.  Every check is made before any fails, and the phase's
     line names each failure."""
     t0 = time.perf_counter()
     prompts, news = engine_requests(cfg.vocab_size)
@@ -1457,7 +1534,7 @@ def phase_async(cfg, mono, warm) -> dict:
           "wamp_within_half_percent":
               abs(m["wamp"] - sync_m["wamp"]) <= 0.005 * sync_m["wamp"],
           "async": stream_summary(run),
-          "sync": [stream_summary(r) for r in (mono, warm)],
+          "sync": [stream_summary(mono)],
           "f32": {"requests": len(small), "n_slabs": ASYNC_F32_SLABS,
                   "new_tokens": list(ASYNC_F32_NEW),
                   "gc_planned": f32["metrics"]["gc_planned"],
@@ -2720,14 +2797,19 @@ def count_drops(tally: dict):
 
 
 @contextlib.contextmanager
-def first_flash_inputs(seen: list):
-    """Keep the inputs of the first ``ops.flash_attention`` call made
-    inside the block (the wrapper itself runs, and counts, as always)."""
+def flash_inputs(seen: dict):
+    """Per shape of the ``ops.flash_attention`` calls made inside the block,
+    keyed ``(causal, Sq, Skv)`` in order of first use: the number of calls
+    and the inputs of the first (the wrapper itself runs, and counts, as
+    always)."""
     real = ops.flash_attention
 
     def spy(q, k, v, **kw):
-        if not seen:
-            seen.append((q.clone(), k.clone(), v.clone(), kw))
+        key = (kw["causal"], q.shape[1], k.shape[1])
+        if key not in seen:
+            seen[key] = {"calls": 0,
+                         "inputs": (q.clone(), k.clone(), v.clone(), kw)}
+        seen[key]["calls"] += 1
         return real(q, k, v, **kw)
 
     ops.flash_attention = spy
@@ -2761,29 +2843,40 @@ def flash_check(q, k, v, kw) -> dict:
             "plain_vs_f32_max_abs": max_err(want, exact)}
 
 
+def encdec_frames(cfg, B: int, dtype, seed: int = SEED):
+    """Whisper's stub frontend: (B, n_frames, d) frame embeddings drawn
+    from a seeded ``torch.Generator`` on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(B, cfg.n_frames, cfg.d_model, generator=g,
+                       device="cuda").to(dtype)
+
+
 def family_prompt_run(params, cfg, B: int, S: int, rng,
-                      cache_dtype=torch.bfloat16) -> dict:
+                      cache_dtype=torch.bfloat16, extras=None,
+                      n_decode: int = FAMILY_DECODE) -> dict:
     """One prompt batch through the port's contiguous-cache path on the
-    card: ``prefill`` of B prompts of S tokens, then ``FAMILY_DECODE``
-    ``decode_step``s fed the true next tokens; against ``forward`` over the
-    prompt (the prefill's last row) and over the prompt and the fed tokens
-    (each decode step's row).  At f32 also ``forward`` with its embeddings
-    perturbed by ``FAMILY_PERTURB`` (relative): how far rounding alone
-    moves this stack's logits."""
-    n = FAMILY_DECODE
+    card: ``prefill`` of B prompts of S tokens (with ``extras``, Whisper's
+    frames), then ``n_decode`` ``decode_step``s fed the true next tokens;
+    against ``forward`` over the prompt (the prefill's last row) and over
+    the prompt and the fed tokens (each decode step's row).  The launch
+    counters are zeroed just before the prefill and read just after the
+    last decode step.  At f32 also ``forward`` with its embeddings (and
+    frames) perturbed by ``FAMILY_PERTURB`` (relative): how far rounding
+    alone moves this stack's logits."""
+    n = n_decode
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + n))
                             ).cuda()
     drops = {}
     with count_drops(drops) if cfg.n_experts else contextlib.nullcontext():
-        short = tfm.forward(params, toks[:, :S], cfg)[:, -1].float()
-        full = tfm.forward(params, toks, cfg)[:, S - 1:].float()
-    n0, r0 = dict(ops.launches), dict(ops.flash_routes)
-    seen = []
+        short = tfm.forward(params, toks[:, :S], cfg, extras)[:, -1].float()
+        full = tfm.forward(params, toks, cfg, extras)[:, S - 1:].float()
+    seen = {}
     start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    with first_flash_inputs(seen):
+    ops.reset_launches()
+    with flash_inputs(seen):
         start.record()
         logits, cache = tfm.prefill(params, toks[:, :S], cfg, S + n + 1,
-                                    cache_dtype=cache_dtype)
+                                    extras, cache_dtype=cache_dtype)
         mid.record()
     steps = [logits.float()]
     for j in range(n):
@@ -2791,6 +2884,7 @@ def family_prompt_run(params, cfg, B: int, S: int, rng,
         steps.append(logits.float())
     end.record()
     torch.cuda.synchronize()
+    launches, routes = dict(ops.launches), dict(ops.flash_routes)
     dec = torch.stack(steps, 1)               # (B, n + 1, V): rows S-1 ..
     agree = (dec[:, 1:].argmax(-1) == full[:, 1:].argmax(-1)).float()
     pre = dec[:, 0]
@@ -2809,40 +2903,58 @@ def family_prompt_run(params, cfg, B: int, S: int, rng,
            "decode_vs_forward_max_abs": max_err(dec[:, 1:], full[:, 1:]),
            "top1_agree": float(agree.mean()), "agree_count": int(agree.sum()),
            "rows": int(agree.numel()),
-           "launches": {k: ops.launches[k] - n0[k] for k in n0},
-           "flash_launches": ops.launches["flash_attention"]
-           - n0["flash_attention"],
-           "flash_routes": {r: ops.flash_routes[r] - r0[r] for r in r0},
+           "launches": launches,
+           "flash_launches": launches["flash_attention"],
+           "flash_routes": routes,
            "cur_len": int(cache["cur_len"][0])}
     if drops:
         out["forward_moe"] = drops
-    if seen:  # one of the prefill's flash launches against the plain version
-        out["flash_check"] = flash_check(*seen[0])
+    if seen:  # per shape, one of the prefill's flash launches against the
+        # plain version
+        out["flash_checks"] = [
+            {"causal": c, "Sq": sq, "Skv": skv, "calls": e["calls"],
+             **flash_check(*e["inputs"])}
+            for (c, sq, skv), e in seen.items()]
     if cache_dtype == torch.float32:
         g = torch.Generator(device="cuda").manual_seed(SEED)
-        bumped = dict(params, embed=params["embed"] * (
-            1 + FAMILY_PERTURB * torch.randn(params["embed"].shape,
-                                             generator=g, device="cuda")))
-        moved = tfm.forward(bumped, toks, cfg)[:, S:].float()
+
+        def nudge(t):
+            return t * (1 + FAMILY_PERTURB * torch.randn(
+                t.shape, generator=g, device="cuda"))
+
+        bumped = dict(params, embed=nudge(params["embed"]))
+        ex = (None if extras is None
+              else {k: nudge(v) for k, v in extras.items()})
+        moved = tfm.forward(bumped, toks, cfg, ex)[:, S:].float()
         out["perturbed_forward_max_abs"] = max_err(moved, full[:, 1:])
     return out
 
 
 def family_smoke(arch: str) -> dict:
     """The family's smoke config at f32 (TF32 off) on the card against the
-    CPU, one draw: forward logits, then prefill of 21 tokens and 4 decode
+    CPU, one draw: forward logits (with Whisper's frames, or the VLM's
+    patches), then prefill of 21 tokens (the VLM's text only) and 4 decode
     steps; the largest difference as a share of the CPU's max-abs."""
     cfg = get_config(arch).smoke()
     p32 = unflatten((path, t.float()) for path, t in flatten(
         Model(cfg, params={}).init(SEED, device="cpu")))
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (2, 25)))
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 25)))
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    if cfg.n_patches:
+        extras["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, tfm.VISION_DIM)).astype(np.float32))
     rows = {}
     for device in ("cpu", "cuda"):
         p = unflatten((path, t.to(device)) for path, t in flatten(p32))
         tk = toks.to(device)
-        out = [tfm.forward(p, tk, cfg)]
+        ex = {k: v.to(device) for k, v in extras.items()} or None
+        out = [tfm.forward(p, tk, cfg, ex)]
         lg, cache = tfm.prefill(p, tk[:, :21], cfg, 26,
+                                ex if cfg.family == "encdec" else None,
                                 cache_dtype=torch.float32)
         out.append(lg)
         for t in range(21, 25):
@@ -2939,7 +3051,7 @@ def phase_families(smi) -> dict:
                     failures.append(f"{tag}: {run['flash_launches']} flash "
                                     f"launches {run['flash_routes']} per "
                                     f"prefill, want {groups} on {route}")
-                chk = run.get("flash_check")
+                chk = run.get("flash_checks", [None])[0]
                 if chk is None or chk["bar_share"] > 1:
                     failures.append(f"{tag}: flash against its plain "
                                     f"version: {chk}")
@@ -2973,6 +3085,222 @@ def phase_families(smi) -> dict:
         raise AssertionError(f"families phase: {failures}")
     return r["launches"]
 
+
+# ---------------------------------------------------------- encdec phase
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def whisper_loss(params, cfg) -> dict:
+    """``Model.loss`` forward and backward at full width with frames, one
+    batch of ``ENCDEC_LOSS`` (the training path: the plain chunked
+    attention under autograd); the parameters' storage is shared, not
+    copied."""
+    B, S = ENCDEC_LOSS
+    leaves_ = [t.detach().requires_grad_(True) for _, t in flatten(params)]
+    p = unflatten((path, t) for (path, _), t in zip(flatten(params), leaves_))
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    batch = {"tokens": toks, "frames": encdec_frames(cfg, B, torch.bfloat16,
+                                                     SEED + 1)}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    with torch.enable_grad():
+        start.record()
+        loss = Model(cfg, params={}).loss(p, batch)
+        mid.record()
+        grads = torch.autograd.grad(loss, leaves_)
+        end.record()
+    torch.cuda.synchronize()
+    # the random full-width stack's gradient reaches ~1e20 (PERF.md): the
+    # norm is summed in f64, where the f32 squares overflow
+    finite = math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    sq = sum(float(g.double().pow(2).sum()) for g in grads)
+    return {"batch": B, "tokens": S, "loss": float(loss),
+            "grad_norm": math.sqrt(sq),
+            "grad_max_abs": max(float(g.abs().max()) for g in grads),
+            "finite": finite,
+            "forward_ms": start.elapsed_time(mid),
+            "backward_ms": mid.elapsed_time(end),
+            "peak_gb_above_weights": (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def encdec_rank(rank, device) -> dict:
+    """The encdec phase's process (spawned by ``phase_encdec``):
+    Whisper-medium uncut in bf16 (prefill and decode, the loss forward and
+    backward), in f32 at ``ENCDEC_F32_LAYERS``, then InternVL2-76B cut to
+    ``VLM_LAYERS`` (forward with patches, text prefill and decode), each
+    model freed before the next is drawn; then both smoke configs card
+    against CPU.  ``launches`` sums the kernels' launches of the two bf16
+    prefill and decode runs (the checks' launches not counted)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    with torch.no_grad():
+        cfg = get_config(ENCDEC_ARCH)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        w = {"family": cfg.family, "draw_s": time.perf_counter() - t0,
+             "n_params": model.n_params(),
+             "weight_gb": torch.cuda.memory_allocated() / 1e9}
+        B, S = ENCDEC_PROMPT
+        rng = np.random.default_rng(SEED)
+        w["run"] = family_prompt_run(
+            model.params, cfg, B, S, rng, n_decode=ENCDEC_DECODE,
+            extras={"frames": encdec_frames(cfg, B, torch.bfloat16)})
+        w["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        w["loss"] = whisper_loss(model.params, cfg)
+        del model
+        free_card()
+        fcfg = cfg.with_(n_layers=ENCDEC_F32_LAYERS,
+                         n_enc_layers=ENCDEC_F32_LAYERS)
+        p32 = unflatten((p, t.float()) for p, t in flatten(
+            Model(fcfg, params={}).init(SEED, device="cuda")))
+        B, S = ENCDEC_F32_PROMPT
+        w["f32"] = {"n_layers": fcfg.n_layers,
+                    "n_enc_layers": fcfg.n_enc_layers,
+                    **family_prompt_run(
+                        p32, fcfg, B, S, rng, cache_dtype=torch.float32,
+                        n_decode=ENCDEC_DECODE,
+                        extras={"frames": encdec_frames(fcfg, B,
+                                                        torch.float32)})}
+        del p32
+        free_card()
+        out[ENCDEC_ARCH] = w
+
+        full = get_config(VLM_ARCH)
+        cfg = full.with_(n_layers=VLM_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        v = {"family": cfg.family, "n_layers": VLM_LAYERS,
+             "n_layers_uncut": full.n_layers,
+             "draw_s": time.perf_counter() - t0,
+             "n_params": Model(full, params={}).n_params(),
+             "n_params_run": model.n_params(),
+             "weight_gb": torch.cuda.memory_allocated() / 1e9}
+        Bf, Sf = VLM_FORWARD
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        patches = torch.randn(Bf, cfg.n_patches, tfm.VISION_DIM, generator=g,
+                              device="cuda").to(torch.bfloat16)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (Bf, Sf))
+                                ).cuda()
+        logits = tfm.forward(model.params, toks, cfg, {"patches": patches})
+        v["forward_patches"] = {
+            "shape": list(logits.shape),
+            "finite": bool(torch.isfinite(logits).all()),
+            "logits_max_abs": float(logits.float().abs().max())}
+        del logits
+        B, S = VLM_PROMPT
+        v["run"] = family_prompt_run(model.params, cfg, B, S, rng,
+                                     n_decode=VLM_DECODE)
+        v["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+        free_card()
+        out[VLM_ARCH] = v
+        for arch in (ENCDEC_ARCH, VLM_ARCH):
+            out[arch]["smoke_f32"] = family_smoke(arch)
+    out["launches"] = {k: out[ENCDEC_ARCH]["run"]["launches"][k]
+                       + out[VLM_ARCH]["run"]["launches"][k]
+                       for k in ops.launches}
+    return out
+
+
+def encdec_failures(r) -> list:
+    """What the encdec phase's results fail of its contract (docstring,
+    phase 19)."""
+    failures = []
+    for arch, n_jax in ENCDEC_N_PARAMS.items():
+        if r[arch]["n_params"] != n_jax:
+            failures.append(f"{arch}: {r[arch]['n_params']} parameters, "
+                            f"JAX's {n_jax}")
+        if not r[arch]["smoke_f32"]["close"]:
+            failures.append(f"{arch}: smoke f32 card against CPU "
+                            f"{r[arch]['smoke_f32']['max_rel_diff']}")
+    w, v = r[ENCDEC_ARCH], r[VLM_ARCH]
+    cfg = get_config(ENCDEC_ARCH)
+    F = cfg.n_frames
+    for run, L, dt in ((w["run"], cfg.n_layers, torch.bfloat16),
+                       (w["f32"], ENCDEC_F32_LAYERS, torch.float32),
+                       (v["run"], VLM_LAYERS, torch.bfloat16)):
+        tag = f"{run['cache_dtype']} B{run['batch']} S{run['prompt']}"
+        S = run["prompt"]
+        if not run["finite"]:
+            failures.append(f"{tag}: non-finite logits")
+        if run["cur_len"] != S + run["decode_steps"]:
+            failures.append(f"{tag}: cur_len {run['cur_len']}")
+        hd = get_config(VLM_ARCH).hd if run is v["run"] else cfg.hd
+        route = ops.flash_route(dt, hd)
+        want = ({(True, S, S): L} if run is v["run"] else
+                {(True, S, S): L, (False, F, F): L, (False, S, F): L})
+        got = {(c["causal"], c["Sq"], c["Skv"]): c["calls"]
+               for c in run.get("flash_checks", [])}
+        n = sum(want.values())
+        if got != want or (run["flash_launches"], run["flash_routes"][route]
+                           ) != (n, n):
+            failures.append(f"{tag}: flash calls {got}, launches "
+                            f"{run['flash_launches']} {run['flash_routes']}"
+                            f", want {want} on {route}")
+        for c in run.get("flash_checks", []):
+            if c["bar_share"] > 1:
+                failures.append(f"{tag}: flash {c['Sq']}x{c['Skv']} against "
+                                f"its plain version: {c}")
+    f32 = w["f32"]
+    if not f32["prefill_vs_forward_close"]:
+        failures.append(f"{ENCDEC_ARCH} f32: prefill's last row "
+                        f"{f32['prefill_vs_forward_max_abs']} from forward's,"
+                        f" beyond {FAMILY_PREFILL_BAR}")
+    if f32["top1_agree"] < FAMILY_AGREE:
+        failures.append(f"{ENCDEC_ARCH} f32: decode agrees with forward on "
+                        f"{f32['top1_agree']:.3f} of top-1, below "
+                        f"{FAMILY_AGREE}")
+    if not w["loss"]["finite"]:
+        failures.append(f"{ENCDEC_ARCH}: loss or gradients not finite: "
+                        f"{w['loss']}")
+    fp = v["forward_patches"]
+    Bf, Sf = VLM_FORWARD
+    vcfg = get_config(VLM_ARCH)
+    if fp["shape"] != [Bf, vcfg.n_patches + Sf, vcfg.vocab_size] or not (
+            fp["finite"]):
+        failures.append(f"{VLM_ARCH}: forward with patches {fp}")
+    return failures
+
+
+def phase_encdec(smi) -> dict:
+    """The encoder-decoder family and the VLM stub at full width
+    (docstring, phase 19), in a process of its own.  Returns its
+    launches."""
+    free_card()
+    t0 = time.perf_counter()
+    r, = spawn_ranks(importlib.import_module("chip_smoke").encdec_rank, 1,
+                     backend="gloo", device="cuda",
+                     timeout_s=ENCDEC_TIMEOUT_S)
+    failures = encdec_failures(r)
+    r[ENCDEC_ARCH]["n_params_jax"] = ENCDEC_N_PARAMS[ENCDEC_ARCH]
+    r[VLM_ARCH]["n_params_jax"] = ENCDEC_N_PARAMS[VLM_ARCH]
+    r[VLM_ARCH]["cut"] = (f"{VLM_LAYERS} of {get_config(VLM_ARCH).n_layers} "
+                          f"layers: the uncut bf16 weights do not fit on "
+                          f"the card")
+    out = {"phase": "encdec", "card": smi, "dtype": "bfloat16",
+           "archs": {a: r[a] for a in ENCDEC_N_PARAMS},
+           "launches": r["launches"],
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"encdec phase: {failures}")
+    return r["launches"]
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2987,8 +3315,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     results["mdc_priority"], launches["mdc_priority"] = phase_victims()
     paths = {"prefix": phase_prefix(cfg), "preemption": phase_preemption(cfg)}
-    paths["chunked"], warm = phase_chunked(cfg, mono)
-    paths["async"] = phase_async(cfg, mono, warm)
+    paths["chunked"] = phase_chunked(cfg, mono)
+    paths["async"] = phase_async(cfg, mono)
     paths["recovery"] = phase_recovery(cfg, mono)
     paths["serve"] = phase_serve(cfg, mono, smi)
     paths["mixed"] = phase_mixed(cfg, smi)
@@ -3004,10 +3332,13 @@ def main() -> None:
     paths["train"] = phase_train(smi)
     torch.cuda.empty_cache()
     paths["families"] = phase_families(smi)
+    torch.cuda.empty_cache()
+    paths["encdec"] = phase_encdec(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims, sim" if name == "mdc_priority"
-                  else "engine, moe, families" if name == "flash_attention"
+                  else "engine, moe, families, encdec"
+                  if name == "flash_attention"
                   else "engine, moe" if name in ENGINE_KERNELS
                   else "tp" if name in TP_KERNELS else "none"),
          "launches": launches[name],
@@ -3016,11 +3347,14 @@ def main() -> None:
          **{k: results[name][k] for k in ("max_abs_err", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
-         # the same kernel at the moe phase's heads (H 32 over Kh 4) and at
-         # the families phase's Zamba2 heads (H 32 over Kh 32, D 112)
+         # the same kernel at the moe phase's heads (H 32 over Kh 4), at
+         # the families phase's Zamba2 heads (H 32 over Kh 32, D 112) and
+         # at the encdec phase's shapes (Whisper's encoder and cross
+         # attention, non-causal, D 64; InternVL2's H 64 over Kh 8)
          **{f"at_{model}_heads": {k: results[f"{name}_{model}"][k] for k in (
              "kernel_ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")} for model in ("moe", "zamba2")
+             "library_ms", "shape")} for model in (
+                 "moe", "zamba2", *encdec_flash_shapes())
             if f"{name}_{model}" in results}}
         for name in KERNELS]})
     print(smi, flush=True)

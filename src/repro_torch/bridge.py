@@ -46,7 +46,7 @@ def cache_from_jax(cache) -> dict:
     """A JAX decode cache (``repro.models.transformer.init_cache``'s dict,
     leaves as numpy arrays) → the port's (``transformer.cache_spec``'s):
     the same names and layouts (``k`` / ``v``, ``c`` / ``r``, ``state``,
-    ``conv_x`` / ``conv_bc``, ``cur_len``), each leaf bit-exact on the
-    CPU.  The port's ``decode_step`` writes the cache in place, so each
+    ``conv_x`` / ``conv_bc``, the encoder-decoder's cross attention ``xk``
+    / ``xv``, ``cur_len``), each leaf bit-exact on the CPU.  The port's ``decode_step`` writes the cache in place, so each
     leaf is a fresh copy."""
     return {name: tensor_from_numpy(leaf) for name, leaf in cache.items()}

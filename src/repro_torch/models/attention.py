@@ -5,9 +5,12 @@ own section below).
 ``gqa_prefill``, ``gqa_prefill_cont`` (the tail after a cached prefix) and
 ``gqa_prefill_chunk`` (one chunk of a chunked prefill) run their attention
 through the hand-written flash kernel
-(:func:`repro_torch.kernels.ops.flash_attention`); ``chunked_attention`` is
-the plain online-softmax function the JAX package lowers through XLA, kept
-here for the token oracle (``transformer.greedy_decode``) and for training
+(:func:`repro_torch.kernels.ops.flash_attention`), and so do an
+encoder-decoder prefill's encoder (``gqa_train(..., causal=False,
+kernel=True)``) and cross attention (``gqa_cross(..., kernel=True)``) on
+the kernel's non-causal route; ``chunked_attention`` is the plain
+online-softmax function the JAX package lowers through XLA, kept here for
+the token oracle (``transformer.greedy_decode``) and for training
 (``gqa_train``, differentiated by autograd: the JAX package has no backward
 kernel, and neither has the port).
 
@@ -139,28 +142,31 @@ def _project_qkv(x, p, cfg, positions):
     return q, k, v
 
 
-def gqa_train(x, p, cfg, *, causal=True):
-    """Full-sequence self-attention of training: the plain chunked
-    attention at the config's ``q_block`` / ``kv_block``."""
+def _attend(q, k, v, cfg, *, kernel: bool, mesh=None, q_offset: int = 0,
+            causal: bool = True):
+    """Attention of a prefill's rows (row i at ``q_offset + i``; causal, or
+    every row over every key), through the flash kernel or the plain
+    chunked attention; under a ``mesh`` over the local heads, then
+    gathered across the ranks."""
+    if kernel:
+        out = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                  mesh=mesh)
+    else:
+        out = chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                q_block=cfg.q_block, kv_block=cfg.kv_block)
+    return out if mesh is None else ops.gather_heads(out, mesh)
+
+
+def gqa_train(x, p, cfg, *, causal=True, kernel: bool = False):
+    """Full-sequence self-attention: the plain chunked attention at the
+    config's ``q_block`` / ``kv_block`` (training, the oracle), or with
+    ``kernel`` the flash kernel (the encoder of an encoder-decoder
+    prefill, ``causal=False``)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(x, p, cfg, positions)
-    out = chunked_attention(q, k, v, causal=causal,
-                            q_block=cfg.q_block, kv_block=cfg.kv_block)
+    out = _attend(q, k, v, cfg, kernel=kernel, causal=causal)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])
-
-
-def _attend(q, k, v, cfg, *, kernel: bool, mesh, q_offset: int = 0):
-    """Causal attention of a prefill's rows (row i at ``q_offset + i``),
-    through the flash kernel or the plain chunked attention; under a
-    ``mesh`` over the local heads, then gathered across the ranks."""
-    if kernel:
-        out = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset,
-                                  mesh=mesh)
-    else:
-        out = chunked_attention(q, k, v, causal=True, q_offset=q_offset,
-                                q_block=cfg.q_block, kv_block=cfg.kv_block)
-    return out if mesh is None else ops.gather_heads(out, mesh)
 
 
 def gqa_prefill(x, p, cfg, *, kernel: bool = True, mesh=None):
@@ -258,6 +264,25 @@ def gqa_decode(x, p, cfg, cache_k, cache_v, cur_len):
     cache_v[rows, cur_len] = v[:, 0].to(cache_v.dtype)
     out = decode_attention(q, cache_k, cache_v, cur_len + 1)
     return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def gqa_cross(x, p, enc_kv, cfg, *, kernel: bool = False):
+    """Cross attention of the decoder's rows onto precomputed encoder K/V
+    (:func:`cross_kv`), non-causal; the query has neither rope nor
+    ``q_norm``.  ``kernel`` as in :func:`gqa_prefill` (the flash kernel's
+    non-causal route), else the plain chunked attention."""
+    k, v = enc_kv
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    out = _attend(q, k, v, cfg, kernel=kernel, causal=False)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"])
+
+
+def cross_kv(xe, p):
+    """The encoder-side K/V (B, frames, Kh, hd) of cross attention, without
+    rope or ``k_norm``."""
+    k = torch.einsum("bsd,dke->bske", xe, p["wk"])
+    v = torch.einsum("bsd,dke->bske", xe, p["wv"])
+    return k, v
 
 
 # ------------------------------------------------------------------- MLA --

@@ -77,6 +77,14 @@ class Model(nn.Module):
                                  max_new_tokens, **kw)
 
     # -- the contiguous decode cache ----------------------------------------
+    def prefill(self, params, tokens, max_len, extras=None, **kw):
+        """:func:`transformer.prefill` (the JAX ``Model.prefill``'s
+        signature; ``kw``: ``cache_dtype``, ``true_len``, ``kernel``)."""
+        return tfm.prefill(params, tokens, self.cfg, max_len, extras, **kw)
+
+    def decode_step(self, params, cache, token):
+        return tfm.decode_step(params, cache, token, self.cfg)
+
     def init_cache(self, batch, max_len, dtype=torch.bfloat16):
         """A zeroed decode cache on the parameters' device."""
         return tfm.init_cache(self.cfg, batch, max_len, dtype,
@@ -91,10 +99,16 @@ class Model(nn.Module):
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S), the mean
-        over B·(S-1) positions in f32, for every family.  The JAX
+        over B·(S-1) positions in f32, for every family; the batch's
+        ``"frames"`` / ``"patches"`` go to :func:`transformer.forward` as
+        its extras, and the vision positions' logits are dropped.  The JAX
         ``Model.loss`` adds its MoE aux term as ``+ 0.0`` (the load-balance
         loss, ``moe.aux_load_balance_loss``, is the trainer's to add), so
         this adds none."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        logits = tfm.forward(params, tokens, self.cfg)
+        extras = {k: v for k, v in batch.items() if k in ("frames", "patches")}
+        logits = tfm.forward(params, tokens, cfg, extras or None)
+        if cfg.n_patches and extras:
+            logits = logits[:, cfg.n_patches:]  # drop the vision positions
         return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])

@@ -3,18 +3,25 @@ prefill and the dense-cache decode, one implementation parameterized by
 ``ModelConfig.family``:
 
   dense    — GQA attention + MLP                        (qwen3, granite, yi,
-                                                         nemotron)
+                                                         nemotron, internvl2)
   moe      — GQA attention + top-k MoE (:mod:`.moe`)    (qwen3-moe)
   mla_moe  — DeepSeek MLA + (shared + routed) MoE       (deepseek-v2-lite)
   ssm      — Mamba2 / SSD (:mod:`.ssm`)                 (mamba2-1.3b)
   hybrid   — Mamba2 backbone + a weight-tied shared attention block after
              every ``attn_period`` layers               (zamba2-7b)
+  encdec   — non-causal encoder over precomputed frame embeddings +
+             decoder (causal self + cross attention)    (whisper)
+
+InternVL2's stub vision frontend prepends its precomputed patch embeddings,
+projected by ``vision_proj``, to the text rows (``extras["patches"]``);
+Whisper's encoder reads ``extras["frames"]``.
 
 The paged serving engine runs dense and moe, through the prefill of a whole
 prompt, of the tail after a cached prefix and of one chunk of it; every
 family runs :func:`forward` (training), :func:`prefill`, :func:`decode_step`
 over the contiguous cache of :func:`init_cache` and :func:`greedy_decode`
-(the token oracle).
+(the token oracle).  The VLM's prefill serves text only: the reference's
+prefill with patches builds a cache its decode misreads (:func:`prefill`).
 
 Parameters keep the JAX package's layout (stacked per-layer leaves with a
 leading layers axis; ``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``,
@@ -38,7 +45,8 @@ from . import ssm as ssm_mod
 from .layers import (flatten, norm_spec, rmsnorm, spec, sq_relu_mlp, swiglu,
                      unflatten)
 
-FAMILIES = ("dense", "moe", "mla_moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "mla_moe", "ssm", "hybrid", "encdec")
+VISION_DIM = 1024  # stub vision-frontend embedding width (internvl2)
 
 
 def mlp_specs(cfg, layers):
@@ -53,9 +61,7 @@ def mlp_specs(cfg, layers):
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"the port runs the {', '.join(FAMILIES)} families; "
-            f"{cfg.family!r} comes with ROADMAP item 15")
+        raise ValueError(cfg.family)
 
 
 def model_specs(cfg):
@@ -64,8 +70,20 @@ def model_specs(cfg):
     s = {"embed": spec((V, d), scale=0.02), "final_norm": norm_spec(d)}
     if not cfg.tie_embeddings:
         s["lm_head"] = spec((d, V), scale=1.0 / math.sqrt(d))
+    if cfg.n_patches:
+        s["vision_proj"] = spec((VISION_DIM, d))
     fam = cfg.family
-    if fam in ("dense", "moe", "mla_moe"):
+    if fam == "encdec":
+        Le = cfg.n_enc_layers
+        s["enc_blocks"] = {"ln1": norm_spec(d, Le), "ln2": norm_spec(d, Le),
+                           "attn": att.attn_specs(cfg, Le),
+                           "mlp": mlp_specs(cfg, Le)}
+        s["blocks"] = {"ln1": norm_spec(d, L), "ln2": norm_spec(d, L),
+                       "ln3": norm_spec(d, L),
+                       "attn": att.attn_specs(cfg, L),
+                       "cross": att.attn_specs(cfg, L),
+                       "mlp": mlp_specs(cfg, L)}
+    elif fam in ("dense", "moe", "mla_moe"):
         s["blocks"] = {"ln1": norm_spec(d, L), "ln2": norm_spec(d, L),
                        "attn": (att.mla_specs(cfg, L) if fam == "mla_moe"
                                 else att.attn_specs(cfg, L)),
@@ -98,8 +116,25 @@ def _block_mlp(h, p, cfg):
     return _mlp(h, p, cfg)
 
 
-def _embed(params, tokens):
-    return params["embed"][tokens]
+def _embed(params, tokens, cfg=None, extras=None):
+    """The token embeddings (B, S, d); for the VLM with ``extras["patches"]``
+    (B, n_patches, VISION_DIM) their projection first: (B, n_patches + S,
+    d)."""
+    x = params["embed"][tokens]
+    if (cfg is not None and cfg.n_patches and extras is not None
+            and "patches" in extras):
+        vis = torch.matmul(*att._promote(extras["patches"],
+                                         params["vision_proj"]))
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    return x
+
+
+def _frames(extras, x):
+    """The encoder's input, ``extras["frames"]`` (B, n_frames, d) in the
+    residual stream's dtype."""
+    if extras is None or "frames" not in extras:
+        raise ValueError("encdec: extras must hold the encoder's 'frames'")
+    return extras["frames"].to(x.dtype)
 
 
 def _unembed(params, x, cfg):
@@ -170,6 +205,23 @@ def _shared_attn_block(x, sq, cfg):
     return x + _mlp(rmsnorm(x, sq["ln2"]), sq["mlp"], cfg)
 
 
+def _enc_block(x, lp, cfg, kernel: bool = False):
+    """An encoder layer: non-causal self-attention (the flash kernel with
+    ``kernel``, else the plain chunked attention) and the MLP."""
+    x = x + att.gqa_train(rmsnorm(x, lp["ln1"]), lp["attn"], cfg,
+                          causal=False, kernel=kernel)
+    return x + _mlp(rmsnorm(x, lp["ln2"]), lp["mlp"], cfg)
+
+
+def _dec_block(x, lp, xe, cfg):
+    """A decoder layer of training: causal self-attention, cross attention
+    onto the encoder's output ``xe``, the MLP."""
+    x = x + att.gqa_train(rmsnorm(x, lp["ln1"]), lp["attn"], cfg, causal=True)
+    x = x + att.gqa_cross(rmsnorm(x, lp["ln2"]), lp["cross"],
+                          att.cross_kv(xe, lp["cross"]), cfg)
+    return x + _mlp(rmsnorm(x, lp["ln3"]), lp["mlp"], cfg)
+
+
 def _shared_attn(params, cfg):
     """The hybrid's one layer of ``shared_attn``; None for other families."""
     return layer(params["shared_attn"], 0) if cfg.family == "hybrid" else None
@@ -199,12 +251,23 @@ def _ssm_order(cfg):
 
 
 def forward(params, tokens, cfg, extras=None):
-    """Training/scoring forward: tokens (B, S) -> logits (B, S, V), through
-    autograd when the params require grad.  (``extras`` feeds the VLM and
-    encoder-decoder families only, which the port has not.)"""
+    """Training/scoring forward: tokens (B, S) -> logits (B, S[+patches],
+    V), through autograd when the params require grad.  ``extras``:
+    ``"frames"`` (B, n_frames, d) for the encoder-decoder (required),
+    ``"patches"`` (B, n_patches, VISION_DIM) for the VLM (optional; their
+    rows come first)."""
     _check_family(cfg)
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg, extras)
     layers = unstack_layers(params["blocks"], cfg.n_layers)
+    if cfg.family == "encdec":
+        xe = _frames(extras, x)
+        enc = _maybe_remat(functools.partial(_enc_block, cfg=cfg), cfg)
+        for lp in unstack_layers(params["enc_blocks"], cfg.n_enc_layers):
+            xe = enc(xe, lp)
+        dec = _maybe_remat(functools.partial(_dec_block, cfg=cfg), cfg)
+        for lp in layers:
+            x = dec(x, lp, xe)
+        return _unembed(params, x, cfg)
     if cfg.family in ("dense", "moe", "mla_moe"):
         block = _maybe_remat(functools.partial(_train_block, cfg=cfg), cfg)
         for lp in layers:
@@ -227,15 +290,19 @@ def cache_spec(cfg, batch, max_len, dtype=torch.bfloat16) -> dict:
     mla_moe; for ssm and hybrid the f32 ``state`` (layers, batch, heads,
     head_dim, state) and the conv windows ``conv_x`` / ``conv_bc``
     (layers, batch, CONV_K - 1, ...) in ``dtype``, and for hybrid K / V per
-    group of layers; ``cur_len`` (batch,) int32."""
+    group of layers; for encdec the decoder's K / V and the cross
+    attention's encoder-side ``xk`` / ``xv`` (layers, batch, n_frames, kv
+    heads, hd); ``cur_len`` (batch,) int32."""
     _check_family(cfg)
     L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     di = cfg.ssm_expand * cfg.d_model
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     fam = cfg.family
     out = {}
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "encdec"):
         out["k"] = out["v"] = ((L, batch, max_len, K, hd), dtype)
+        if fam == "encdec":
+            out["xk"] = out["xv"] = ((L, batch, cfg.n_frames, K, hd), dtype)
     elif fam == "mla_moe":
         out["c"] = ((L, batch, max_len, cfg.kv_lora_rank), dtype)
         out["r"] = ((L, batch, max_len, cfg.qk_rope_dim), dtype)
@@ -260,10 +327,18 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device=None):
 
 # --------------------------------------------------------------- prefill
 
-def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
-            true_len=None, kernel: bool = True, mesh=None):
+def prefill(params, tokens, cfg, max_len, extras=None, *,
+            cache_dtype=torch.bfloat16, true_len=None, kernel: bool = True,
+            mesh=None):
     """Run the whole prompt; return (last-position logits, the decode
-    cache of :func:`cache_spec`).
+    cache of :func:`cache_spec`).  ``extras``: the encoder-decoder's
+    ``"frames"``; the encoder runs first, and each decoder layer keeps its
+    cross attention's ``xk`` / ``xv`` in the cache dtype.
+
+    The VLM's ``"patches"`` raise: the reference's prefill measures the
+    cache and ``cur_len`` by the text tokens while it embeds n_patches +
+    S rows, so its decode would write over a text row at a rope position
+    n_patches short.  The text-only prefill is the dense one.
 
     For the attention families ``tokens`` (B, S) may be right-padded to a
     bucket: causal masking makes the pad invisible to positions <
@@ -271,8 +346,9 @@ def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
     families take the unpadded prompt (their recurrent state would absorb
     pad tokens), so for them ``true_len`` must be S or None.  ``kernel``
     selects the flash kernel (the engine; the hybrid's shared attention)
-    or the plain chunked attention (the oracle); MLA attends through the
-    plain chunked attention either way (``attention`` module).  ``mesh``:
+    or the plain chunked attention (the oracle), for the encoder and the
+    cross attention on the kernel's non-causal route; MLA attends through
+    the plain chunked attention either way (``attention`` module).  ``mesh``:
     tensor-parallel serving of dense and moe, the attention parameters and
     the returned K/V being this rank's heads (``attention`` module)."""
     _check_family(cfg)
@@ -283,6 +359,11 @@ def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
                          f"(true_len {true_len}, {S} tokens)")
     if mesh is not None and fam not in ("dense", "moe"):
         raise ValueError(f"{fam}: no tensor-parallel prefill")
+    if cfg.n_patches and extras is not None and "patches" in extras:
+        raise ValueError(
+            f"{cfg.name}: prefill serves text only; with patches the "
+            f"reference's cache holds {S} positions of {cfg.n_patches + S} "
+            f"embedded rows and its decode misplaces them")
     x = _embed(params, tokens)
 
     def pad(t):  # (B, S, ...) -> (B, max_len, ...) in the cache dtype
@@ -295,7 +376,23 @@ def prefill(params, tokens, cfg, max_len, *, cache_dtype=torch.bfloat16,
         for name, t in kw.items():
             cols.setdefault(name, []).append(t)
 
-    if fam in ("dense", "moe", "mla_moe"):
+    if fam == "encdec":
+        xe = _frames(extras, x)
+        for i in range(cfg.n_enc_layers):
+            xe = _enc_block(xe, layer(params["enc_blocks"], i), cfg,
+                            kernel=kernel)
+        for i in range(cfg.n_layers):
+            lp = layer(params["blocks"], i)
+            a, (k, v) = att.gqa_prefill(rmsnorm(x, lp["ln1"]), lp["attn"],
+                                        cfg, kernel=kernel)
+            x = x + a
+            xk, xv = att.cross_kv(xe, lp["cross"])
+            x = x + att.gqa_cross(rmsnorm(x, lp["ln2"]), lp["cross"],
+                                  (xk, xv), cfg, kernel=kernel)
+            x = x + _mlp(rmsnorm(x, lp["ln3"]), lp["mlp"], cfg)
+            keep(k=pad(k), v=pad(v), xk=xk.to(cache_dtype),
+                 xv=xv.to(cache_dtype))
+    elif fam in ("dense", "moe", "mla_moe"):
         for i in range(cfg.n_layers):
             lp = layer(params["blocks"], i)
             h = rmsnorm(x, lp["ln1"])
@@ -429,7 +526,23 @@ def decode_step(params, cache, token, cfg):
     fam = cfg.family
     cur = cache["cur_len"]
     x = _embed(params, token[:, None])
-    if fam in ("dense", "moe", "mla_moe"):
+    if fam == "encdec":
+        B = token.shape[0]
+        for i in range(cfg.n_layers):
+            lp = layer(params["blocks"], i)
+            x = x + att.gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg,
+                                   cache["k"][i], cache["v"][i], cur)
+            # cross attention over the cached (rounded) encoder K/V, every
+            # frame valid
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            q = torch.einsum("bsd,dhe->bshe", rmsnorm(x, lp["ln2"]),
+                             lp["cross"]["wq"])
+            c = att.decode_attention(
+                q, xk, xv, torch.full((B,), xk.shape[1], dtype=torch.int32,
+                                      device=x.device))
+            x = x + torch.einsum("bshe,hed->bsd", c, lp["cross"]["wo"])
+            x = x + _mlp(rmsnorm(x, lp["ln3"]), lp["mlp"], cfg)
+    elif fam in ("dense", "moe", "mla_moe"):
         for i in range(cfg.n_layers):
             lp = layer(params["blocks"], i)
             h = rmsnorm(x, lp["ln1"])
@@ -455,17 +568,18 @@ def decode_step(params, cache, token, cfg):
 
 
 def greedy_decode(params, prompt, cfg, max_new_tokens, *, stop_token=None,
-                  cache_dtype=torch.bfloat16):
+                  extras=None, cache_dtype=torch.bfloat16):
     """Stop-aware dense-cache greedy decode on plain functions: the token
     oracle of the paged engine (which never calls it).
 
     Returns the emitted token list — the prefill's last-position argmax
     first, then one token per :func:`decode_step` — truncated at (and
-    including) the first ``stop_token``, else after ``max_new_tokens``."""
+    including) the first ``stop_token``, else after ``max_new_tokens``.
+    ``extras`` as in :func:`prefill` (a batch of one)."""
     dev = params["embed"].device
     toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
     max_len = len(prompt) + max_new_tokens + 1
-    logits, cache = prefill(params, toks, cfg, max_len,
+    logits, cache = prefill(params, toks, cfg, max_len, extras,
                             cache_dtype=cache_dtype, kernel=False)
     out = [int(torch.argmax(logits[0]))]
     while len(out) < max_new_tokens and (stop_token is None

@@ -38,8 +38,13 @@ def test_config_equals_jax_field_for_field(name, smoke):
 
 
 def test_get_config_rejects_families_outside_the_slice():
-    with pytest.raises(KeyError, match="whisper"):
-        get_config("whisper-medium")
+    """Every arch of the JAX registry is in the slice now: only an unknown
+    arch is refused, with a message that lists all ten."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 10
+    with pytest.raises(KeyError, match="unknown arch 'whisper-large'") as e:
+        get_config("whisper-large")
+    assert all(repr(name) in str(e.value) for name in JAX_ARCHS)
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -1587,3 +1587,80 @@ def test_families_smoke_on_card_match_cpu(dev, arch, kw):
     for a, b in zip(s1, s0):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+# ------------------------------ the encoder-decoder family and the VLM stub
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal", [
+    (2, 1500, 1500, 16, 16, 64, False),   # whisper-medium's encoder
+    (2, 384, 1500, 16, 16, 64, False),    # its cross attention
+    (2, 384, 384, 16, 16, 64, True),      # its decoder's self-attention
+    (1, 1024, 1024, 64, 8, 128, True),    # internvl2-76b's heads (G 8)
+], ids=["whisper_encoder", "whisper_cross", "whisper_self", "vlm"])
+def test_flash_attention_at_the_encdec_and_vlm_shapes(
+        dev, B, Sq, Skv, H, Kh, D, causal, dtype, route):
+    """The non-causal route over a ragged key extent (1,500 = 11 x 128 +
+    92) at D 64 and G 1, and the VLM's G 8 at D 128: one launch on the
+    route of (dtype, D), against the plain version."""
+    _flash_case(dev, B, Sq, Skv, H, Kh, D, causal, dtype, route)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b"],
+                         ids=["encdec", "vlm"])
+def test_encdec_and_vlm_smoke_on_card_match_cpu(dev, arch):
+    """The smoke model at f32 (TF32 off) on the card against the CPU:
+    forward logits with frames or patches, the loss's gradients, then
+    prefill of a 21-token prompt (text only for the VLM) and 6 decode
+    steps, within 1e-4 of the CPU's max-abs.  On the card the prefill
+    launches flash once per decoder layer and, for whisper, once per
+    encoder layer and once per cross attention."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import leaves
+    cfg = get_config(arch).smoke()
+    params = _f32(Model(cfg, params={}).init(0, device="cpu"), "cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 27)).astype(
+        np.int32))
+    if cfg.family == "encdec":
+        extras = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frames, cfg.d_model)).astype(np.float32))}
+    else:
+        extras = {"patches": torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, tfm.VISION_DIM)).astype(np.float32))}
+    serve_extras = extras if cfg.family == "encdec" else None
+    out = {}
+    for device in ("cpu", dev):
+        ex = {k: v.to(device) for k, v in extras.items()}
+        p = _f32(params, device)
+        for t in leaves(p):
+            t.requires_grad_(True)
+        logits = tfm.forward(p, toks.to(device), cfg, ex)
+        loss = Model(cfg, params={}).loss(p, {"tokens": toks.to(device), **ex})
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves(p))]
+        p = _f32(params, device)
+        n0 = ops.launches["flash_attention"]
+        with torch.no_grad():
+            lg, cache = tfm.prefill(
+                p, toks[:, :21].to(device), cfg, 32,
+                None if serve_extras is None else ex,
+                cache_dtype=torch.float32)
+            steps = [lg.cpu()]
+            for t in range(21, 27):
+                lg, cache = tfm.decode_step(p, cache, toks[:, t].to(device),
+                                            cfg)
+                steps.append(lg.cpu())
+        launched = ops.launches["flash_attention"] - n0
+        out[device] = (logits.detach().cpu(), grads, steps, launched)
+    (l0, g0, s0, n_cpu), (l1, g1, s1, n_card) = out["cpu"], out[dev]
+    want = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
+                           if cfg.family == "encdec" else 0)
+    assert (n_cpu, n_card) == (0, want)
+    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-4 * float(l0.abs().max()))
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    for a, b in zip(s1, s0):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
