@@ -320,6 +320,26 @@ Phases, in order; any failure raises and the process exits non-zero:
              Each of the other last eleven phases zeroes the launch
              counters before it and reads them after, and fails unless its
              kernels launched.
+20. dryrun — the dry-run's count (``launch.steps.build_cell`` under
+             ``roofline.op_cost.OpCost``) held against the card, in this
+             process: qwen3-1.7b at full width, bf16, TF32 off, in three
+             cells — train (B 2 x S 1,024, AdamW: the train phase's step),
+             prefill (B 2 x S 1,024 through ``ops.flash_attention``, one
+             launch per layer) and one decode step (B 8 over a 1,024-token
+             cache); and Zamba2-7B's prefill of B 2 x S 1,024 at full width,
+             cut to ``DRYRUN_PAD_LAYERS``, whose flash launches zero-pad its
+             head dim of 112 to 128.  Each cell is built on ``meta`` and on
+             the card and run once under a counter on each: FLOPs by dtype,
+             HBM bytes and kernel charges must be equal, and the flash
+             charges (and Zamba2's ``flash_pad`` charges) equal the launches
+             of the counted run; one flash call at Zamba2's heads holds
+             the pad's scratch to the card's peak on its own.  The card's
+             ``max_memory_allocated`` above its level before the cell was
+             built must lie within ``DRYRUN_PEAK_BAR`` of the count's peak of
+             live bytes.  Reported: the step's median time without the
+             counter (CUDA events, ``DRYRUN_REPS`` after a warm-up) beside
+             ``roofline.report.term_seconds``' bound, the share of the
+             bound it reaches and its model-FLOP share of the bf16 peak.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -352,18 +372,21 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.configs.paper_store import PAPER  # noqa: E402
 from repro_torch.core import analysis, policies  # noqa: E402
 from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref, work  # noqa: E402
 from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks  # noqa: E402
+from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models import attention as att  # noqa: E402
 from repro_torch.models.layers import flatten, rmsnorm, unflatten  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import Tracer  # noqa: E402
+from repro_torch.roofline import report  # noqa: E402
+from repro_torch.roofline.op_cost import OpCost  # noqa: E402
 from repro_torch.serving import PagedServingEngine, recover_engine  # noqa: E402
 from repro_torch.serving import recovery  # noqa: E402
 from repro_torch.serving.engine import shard_model  # noqa: E402
@@ -372,10 +395,6 @@ from _torch_checks import (PAGED_SHA256, DeviceVictimCheck,  # noqa: E402
                            check_paged_close, digest, paged_bar, paged_case)
 from _torch_tp import local_heads  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
-# tensor-core rate, f32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SEED = 0
 
@@ -568,6 +587,20 @@ ENCDEC_TIMEOUT_S = 600
 # (``scripts/family_sensitivity.py whisper-medium`` on the card)
 ENCDEC_F32_LAYERS = 2
 ENCDEC_F32_PROMPT = (1, 384)
+# the dryrun phase: qwen3-1.7b's three cells at full width, bf16
+DRYRUN_ARCH = "qwen3-1.7b"
+DRYRUN_CELLS = (ShapeConfig("train", 1024, 2, "train"),      # the train phase's
+                ShapeConfig("prefill", 1024, 2, "prefill"),  # 28 flash launches
+                ShapeConfig("decode", 1024, 8, "decode"))    # one step, 1,024 keys
+# and a prefill at Zamba2-7B's full width, cut to 12 of 81 layers (two
+# shared-attention launches, each with its head dim of 112 padded to 128)
+DRYRUN_PAD_ARCH, DRYRUN_PAD_LAYERS = "zamba2-7b", 12
+DRYRUN_REPS = 5   # timed steps per cell (median), after one warm-up
+# measured peak (max_memory_allocated above the level before the cell is
+# built) over the count's predicted peak of live bytes: 1.000104-1.000115
+# on an NVIDIA H100 80GB HBM3 (the allocator rounds each block up to 512
+# bytes)
+DRYRUN_PEAK_BAR = (0.99, 1.01)
 
 
 def encdec_flash_shapes() -> dict:
@@ -628,14 +661,6 @@ class Timer:
         ms = [statistics.median(s.elapsed_time(e) for s, e in evs)
               for evs in events]
         return ms[0] if len(fns) == 1 else ms
-
-
-def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
-    """Least time in ms on the card: bytes over the HBM rate or operations
-    over the peak rate of the inputs' type, whichever is larger."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_err(a, b) -> float:
@@ -719,11 +744,10 @@ def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None, Kh=8,
             raise AssertionError(f"paged_attention {dtype} B={B}: output is "
                                  f"not bitwise the earlier kernel's")
     n_tok = int(lens.sum())
-    es = torch.tensor([], dtype=dtype).element_size()
-    es_q = torch.tensor([], dtype=q_dtype).element_size()
-    n_bytes = (2 * n_tok * Kh * D * es + 2 * B * H * D * es_q
-               + 4 * int(((lens + T - 1) // T).sum()) + 4 * B)
-    b_ms, b_by = bound(n_bytes, 4.0 * n_tok * H * D, dtype)
+    b_ms, b_by = report.kernel_bound_ms(work.paged_attention(
+        B=B, H=H, Kh=Kh, D=D, tokens=n_tok,
+        pages=int(((lens + T - 1) // T).sum()), q_dtype=q_dtype,
+        kv_dtype=dtype))
     kernel_ms = timer(lambda: ops.paged_attention(q, k_pool, v_pool, bt, lens))
     return {"q_dtype": str(q_dtype), "max_abs_err": max_err(got, want),
             "bar_share": share, "launches_per_call": per_call, **sha,
@@ -769,10 +793,8 @@ def check_flash_attention(dtype, S, timer, H=16, Kh=8, D=128, *, B=1,
     qh = q.transpose(1, 2).contiguous()
     k_h = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
     v_h = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
-    es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = (2 * B * H * S * D + 2 * B * Kh * Skv * D) * es
-    flops = 4.0 * B * H * D * (S * (S + 1) / 2 if causal else S * Skv)
-    b_ms, b_by = bound(n_bytes, flops, dtype)
+    b_ms, b_by = report.kernel_bound_ms(work.flash_attention(
+        B=B, H=H, Kh=Kh, Sq=S, Skv=Skv, D=D, dtype=dtype, causal=causal))
     kernel_ms, library_ms = timer(
         lambda: ops.flash_attention(q, k, v, causal=causal),
         lambda: F.scaled_dot_product_attention(qh, k_h, v_h,
@@ -822,10 +844,9 @@ def check_flash_offset(dtype, timer, Sq=512, Skv=1024) -> dict:
     k_h = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
     v_h = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
     mask = causal_lower_right(Sq, Skv)
-    es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = (2 * B * H * Sq * D + 2 * B * Kh * Skv * D) * es
-    flops = 4.0 * B * H * D * (Sq * off + Sq * (Sq + 1) / 2)
-    b_ms, b_by = bound(n_bytes, flops, dtype)
+    b_ms, b_by = report.kernel_bound_ms(work.flash_attention(
+        B=B, H=H, Kh=Kh, Sq=Sq, Skv=Skv, D=D, dtype=dtype, causal=True,
+        q_offset=off))
     kernel_ms, library_ms = timer(
         lambda: ops.flash_attention(q, k, v, causal=True, q_offset=off),
         lambda: F.scaled_dot_product_attention(qh, k_h, v_h, attn_mask=mask))
@@ -853,8 +874,8 @@ def check_segment_compact(dtype, E, timer) -> dict:
     want = ref.segment_compact_ref(pool, src)
     if not torch.equal(got, want):
         raise AssertionError(f"segment_compact {dtype} E={E}: copy not exact")
-    n_bytes = 2 * M * E * pool.element_size() + 4 * M
-    b_ms, b_by = bound(n_bytes, 0.0, torch.bfloat16)
+    b_ms, b_by = report.kernel_bound_ms(work.segment_compact(M=M, E=E,
+                                                             dtype=dtype))
     src_l = src.long()
     kernel_ms, library_ms = timer(lambda: ops.segment_compact(pool, src),
                                   lambda: torch.index_select(pool, 0, src_l))
@@ -896,9 +917,8 @@ def check_segment_move(overlap: bool, timer) -> dict:
         for p in (k_pool, v_pool):
             p[:, dst_t] = p[:, src_t]
 
-    rows = L * moves
-    n_bytes = 2 * (2 * rows * E * k_pool.element_size()) + 2 * 4 * rows
-    b_ms, b_by = bound(n_bytes, 0.0, torch.bfloat16)
+    b_ms, b_by = report.kernel_bound_ms(work.segment_move(
+        L=L, moves=moves, E=E, dtype=k_pool.dtype))
     kernel_ms, expression_ms = timer(
         lambda: ops.segment_move((k_pool, v_pool), src, dst), expression)
     return {"form": form, "launches_per_plan": launches, "max_abs_err": 0.0,
@@ -1034,7 +1054,7 @@ def check_victims(N: int, timer) -> dict:
     np.testing.assert_allclose(np.sort(key64[ids.cpu().numpy()]),
                                np.sort(key64[host]), rtol=1e-5)
 
-    b_ms, b_by = bound(12 * N, 10.0 * N, torch.float32)
+    b_ms, b_by = report.kernel_bound_ms(work.mdc_priority(N=N))
     return {"N": N, "S": S, "k": k, "launches": launches,
             "keys": {"empty": int((want == -1).sum()),
                      "full": int(torch.isinf(want).sum()),
@@ -2214,9 +2234,10 @@ def tp_paged(rank, mesh) -> tuple:
     want = ref.paged_attention_ref(ql, kl, vl, bt, lens)
     share = check_paged_close(got, want, paged_bar(ql, kl, vl, bt, lens, want))
     n_tok, Hl, Khl = int(lens.sum()), Kh * G // n, Kh // n
-    n_bytes = (2 * n_tok * Khl * D * 2 + 2 * B * Hl * D * 2
-               + 4 * int(((lens + T - 1) // T).sum()) + 4 * B)
-    b_ms, b_by = bound(n_bytes, 4.0 * n_tok * Hl * D, torch.bfloat16)
+    b_ms, b_by = report.kernel_bound_ms(work.paged_attention(
+        B=B, H=Hl, Kh=Khl, D=D, tokens=n_tok,
+        pages=int(((lens + T - 1) // T).sum()), q_dtype=torch.bfloat16,
+        kv_dtype=torch.bfloat16))
     result = {"rank": rank, "max_abs_err": max_err(got, want),
               "bar_share": share, "bitwise_unsharded_slice": bitwise,
               "gathered_equal_unsharded": gathered,
@@ -2266,9 +2287,9 @@ def tp_flash(rank, mesh, Sq: int, Skv: int = 1024) -> tuple:
     k_h, v_h = (t.transpose(1, 2).repeat_interleave(H // Kh, dim=1)
                 for t in (kl, vl))
     mask = causal_lower_right(Sq, Skv)
-    n_bytes = (2 * B * Hl * Sq * D + 2 * B * Khl * Skv * D) * 2
-    flops = 4.0 * B * Hl * D * (Sq * off + Sq * (Sq + 1) / 2)
-    b_ms, b_by = bound(n_bytes, flops, torch.bfloat16)
+    b_ms, b_by = report.kernel_bound_ms(work.flash_attention(
+        B=B, H=Hl, Kh=Khl, Sq=Sq, Skv=Skv, D=D, dtype=torch.bfloat16,
+        causal=True, q_offset=off))
     result = {"rank": rank, "max_abs_err": max_err(got, want),
               "bitwise_unsharded_slice": bitwise,
               "gathered_equal_unsharded": gathered, "flash_route": "wgmma",
@@ -2639,7 +2660,8 @@ def train_summary(log: dict, n_params: int, cfg) -> dict:
     return {"loss": log["loss"], "step_s": log["step_s"],
             "step_ms_median": step_s * 1e3, "tokens_per_s": B * S / step_s,
             "flops_per_step": flops,
-            "share_of_bf16_peak": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+            "share_of_bf16_peak": (flops / step_s
+                                   / report.PEAK_FLOPS["bfloat16"]),
             "stragglers": log["stragglers"]}
 
 
@@ -3301,6 +3323,176 @@ def phase_encdec(smi) -> dict:
     return r["launches"]
 
 
+# ---------------------------------------------------------- dryrun phase
+
+def dryrun_diff(a: OpCost, b: OpCost) -> dict:
+    """The aten ops whose calls or bytes differ between two counts."""
+    return {k: {"calls": [a.op_counts[k], b.op_counts[k]],
+                "bytes": [a.op_bytes[k], b.op_bytes[k]]}
+            for k in sorted(set(a.op_counts) | set(b.op_counts))
+            if (a.op_counts[k], a.op_bytes[k]) != (b.op_counts[k],
+                                                   b.op_bytes[k])}
+
+
+def dryrun_cell(cfg, shape, n_active: int) -> dict:
+    """One cell of the dryrun phase (docstring, phase 20): counted on
+    ``meta`` and on the card, the card's peak beside the predicted one, the
+    step timed without the counter beside its bound."""
+    fn, args = build_cell(cfg, shape, "meta")
+    with OpCost(inputs=args) as om:
+        fn(*args)
+    del fn, args
+    meta = om.summary()
+
+    free_card()
+    base = torch.cuda.memory_allocated()
+    fn, args = build_cell(cfg, shape, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = dict(ops.launches)
+    with OpCost(inputs=args) as oc:
+        fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: n - n0[k] for k, n in ops.launches.items()}
+    measured = torch.cuda.max_memory_allocated() - base
+    card = oc.summary()
+    keys = ("flops_by_dtype", "hbm_bytes_per_device", "kernel_charges")
+    equal = {k: meta[k] == card[k] for k in keys}
+
+    def step():
+        if shape.kind == "decode":   # the same last position every step
+            args[1]["cur_len"].fill_(shape.seq_len - 1)
+        fn(*args)
+
+    step()
+    events = []
+    for _ in range(DRYRUN_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    del fn, args
+    free_card()
+
+    rec = {"kind": shape.kind, "global_batch": shape.global_batch,
+           "seq_len": shape.seq_len, "n_active_params": n_active,
+           "op_cost": meta, "peak_live_bytes": meta["peak_live_bytes"]}
+    t = report.term_seconds(rec)
+    predicted = meta["peak_live_bytes"]
+    out = {"cell": shape.name, "B": shape.global_batch, "S": shape.seq_len,
+           "counts_equal": equal,
+           "flops_by_dtype": meta["flops_by_dtype"],
+           "hbm_bytes": meta["hbm_bytes_per_device"],
+           "kernel_charges": meta["kernel_charges"], "n_ops": meta["n_ops"],
+           "launches_in_counted_run": launches,
+           "peak_predicted_gb": predicted / 1e9,
+           "peak_card_counted_run_gb": card["peak_live_bytes"] / 1e9,
+           "peak_measured_gb": measured / 1e9,
+           "peak_ratio": measured / predicted,
+           "step_ms_median": step_ms, "bound_ms": t["bound_step_s"] * 1e3,
+           "bound_terms_ms": {k: t[f"{k}_s"] * 1e3 for k in (
+               "compute", "memory", "collective")},
+           "dominant": t["dominant"],
+           "share_of_bound": t["bound_step_s"] * 1e3 / step_ms,
+           "model_flops": t["model_flops_per_dev"],
+           "model_flop_share_of_bf16_peak": (
+               t["model_flops_per_dev"] / (step_ms / 1e3)
+               / report.PEAK_FLOPS["bfloat16"])}
+    if not all(equal.values()):
+        out["op_diff"] = dryrun_diff(om, oc)
+    return out
+
+
+def dryrun_pad_call(cfg) -> dict:
+    """One flash call at ``cfg``'s heads (B 2 x S 1,024, bf16), whose head
+    dim the launch zero-pads: its count on ``meta`` and on the card, and
+    the card's ``max_memory_allocated`` above the inputs beside the count's
+    peak (the output and the pad's scratch), which a whole cell's peak
+    need not reach."""
+    free_card()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((2, 1024, cfg.n_heads, cfg.hd), generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    metas = [torch.empty_like(t, device="meta") for t in (q, k, v)]
+    with OpCost() as om:
+        ops.flash_attention(*metas)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = ops.launches["flash_attention"]
+    with OpCost() as oc:
+        ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    meta, card = om.summary(), oc.summary()
+    out = {"shape": list(q.shape), "launch_dim": ops.flash_launch_dim(
+               torch.bfloat16, cfg.hd),
+           "counts_equal": meta == card,
+           "launches": ops.launches["flash_attention"] - n0,
+           "kernel_charges": card["kernel_charges"],
+           "peak_predicted_bytes": card["peak_live_bytes"],
+           "peak_measured_bytes": measured,
+           "peak_ratio": measured / card["peak_live_bytes"]}
+    del q, k, v
+    free_card()
+    return out
+
+
+def phase_dryrun(smi) -> dict:
+    """The dry-run's count held against the card (docstring, phase 20), in
+    this process.  Returns the phase's launches."""
+    t0 = time.perf_counter()
+    qwen = get_config(DRYRUN_ARCH)
+    zamba = get_config(DRYRUN_PAD_ARCH).with_(n_layers=DRYRUN_PAD_LAYERS)
+    ops.reset_launches()
+    cells, failures = [], []
+    for cfg, shape in [(qwen, s) for s in DRYRUN_CELLS] + [
+            (zamba, DRYRUN_CELLS[1])]:
+        n_active = Model(cfg, params={}).n_active_params()
+        r = dryrun_cell(cfg, shape, n_active)
+        r["arch"], r["n_layers"] = cfg.name, cfg.n_layers
+        cells.append(r)
+        name = f"{cfg.name} {shape.name}"
+        if not all(r["counts_equal"].values()):
+            failures.append(f"{name}: meta and card counts differ "
+                            f"{r['counts_equal']}")
+        charges = r["kernel_charges"]
+        flash = charges.get("flash_attention", {}).get("calls", 0)
+        launched = r["launches_in_counted_run"]["flash_attention"]
+        want = (0 if shape.kind != "prefill" else cfg.n_layers
+                if cfg.family == "dense" else cfg.n_layers // cfg.attn_period)
+        pads = charges.get("flash_pad", {}).get("calls", 0)
+        padded = ops.flash_launch_dim(torch.bfloat16, cfg.hd) != cfg.hd
+        if flash != launched or flash != want or pads != (
+                launched if padded else 0):
+            failures.append(f"{name}: {flash} flash charges, {pads} pad "
+                            f"charges, {launched} launches, {want} wanted")
+        lo, hi = DRYRUN_PEAK_BAR
+        if not lo <= r["peak_ratio"] <= hi:
+            failures.append(f"{name}: measured peak {r['peak_ratio']:.4f}"
+                            f" of the predicted one, outside {DRYRUN_PEAK_BAR}")
+    pad = dryrun_pad_call(zamba)
+    if not (pad["counts_equal"] and pad["launches"] == 1
+            and pad["kernel_charges"]["flash_pad"]["calls"] == 1
+            and lo <= pad["peak_ratio"] <= hi):
+        failures.append(f"padded flash call: {pad}")
+    launches = dict(ops.launches)
+    out = {"phase": "dryrun", "card": smi,
+           "dtype": "bfloat16", "peaks": report.CARD,
+           "peak_bar": DRYRUN_PEAK_BAR, "cells": cells,
+           "padded_flash_call": pad, "launches": launches,
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"dryrun phase: {failures}")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3334,10 +3526,12 @@ def main() -> None:
     paths["families"] = phase_families(smi)
     torch.cuda.empty_cache()
     paths["encdec"] = phase_encdec(smi)
+    free_card()
+    paths["dryrun"] = phase_dryrun(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims, sim" if name == "mdc_priority"
-                  else "engine, moe, families, encdec"
+                  else "engine, moe, families, encdec, dryrun"
                   if name == "flash_attention"
                   else "engine, moe" if name in ENGINE_KERNELS
                   else "tp" if name in TP_KERNELS else "none"),

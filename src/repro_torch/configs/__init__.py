@@ -7,7 +7,7 @@ embeddings) and InternVL2's dense backbone with its stub vision frontend
 from . import (deepseek_v2_lite_16b, granite_3_2b, internvl2_76b, mamba2_1p3b,
                nemotron_4_340b, qwen3_1p7b, qwen3_moe_30b_a3b, whisper_medium,
                yi_34b, zamba2_7b)
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, applicable_shapes, skip_reason
 
 _MODULES = [qwen3_1p7b, granite_3_2b, nemotron_4_340b, yi_34b,
             qwen3_moe_30b_a3b, deepseek_v2_lite_16b, mamba2_1p3b, zamba2_7b,

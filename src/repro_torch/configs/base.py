@@ -1,5 +1,6 @@
-"""Model configuration dataclass (a copy of ``repro.configs.base.ModelConfig``:
-the port keeps its own copy instead of importing the JAX package)."""
+"""Model and shape configuration dataclasses and the dry-run's shape grid
+(copies of ``repro.configs.base``: the port keeps its own instead of
+importing the JAX package)."""
 
 from __future__ import annotations
 
@@ -99,3 +100,40 @@ class ModelConfig:
         serving K/V pools (the plain smoke()'s 2 kv heads would fall back to
         replication)."""
         return self.smoke().with_(n_heads=16, n_kv_heads=8)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def scaled_for_smoke(self) -> "ShapeConfig":
+        return dataclasses.replace(self, seq_len=min(self.seq_len, 128),
+                                   global_batch=min(self.global_batch, 2))
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """long_500k only for sub-quadratic archs (see DESIGN.md §5)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in SUBQUADRATIC_FAMILIES:
+        out.append("long_500k")
+    return out
+
+
+def skip_reason(cfg: ModelConfig, shape: str) -> str | None:
+    if shape == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return ("full-softmax attention at 524k KV is quadratic-regime; "
+                "assignment excludes it for pure full-attention archs")
+    return None

@@ -10,8 +10,9 @@ segment_move     — the engine's compaction move: K and V pools, page to
 mdc_priority     — the paper's §5.1.3 cleaning key over all segments, the
                    device route of victim selection (mdc_select_victims)
 
-Importing this package builds nothing; a kernel is compiled at its first
-launch (:mod:`.build`).
+:mod:`.work` gives each kernel's work per call (its bound's figures) and
+holds the hook a step counter registers in.  Importing this package builds
+nothing; a kernel is compiled at its first launch (:mod:`.build`).
 """
 
 from . import ops, ref

@@ -4,7 +4,13 @@ Layouts and argument order follow ``repro.kernels.ops``: attention tensors
 are (B, S, H, D), pools (num_pages, T, Kh, D), flattened pool payloads
 (N, E), per-segment arrays (N,).  A wrapper takes the plain PyTorch version
 (:mod:`.ref`) for a tensor on the CPU; for a CUDA tensor it launches its
-hand-written kernel on the current stream or raises — it never falls back.
+hand-written kernel on the current stream or raises — it never falls back;
+for ``meta`` tensors (a dry-run) it checks the shapes as the launch would and
+returns a ``meta`` output of the kernel's shape and dtype, running nothing.
+While a counter is registered in :data:`.work.counters` (the dry-run's
+``OpCost``), each call charges it its kernel's own work and what the
+wrapper moves around the launch (:mod:`.work`) once, and the ops of its
+body are not counted: a step counts the same whichever device ran it.
 ``launches`` counts the kernel launches of each wrapper, so a run can show
 which path it took; ``flash_routes`` splits flash attention's launches by
 route, ``flash_offsets`` by whether the query rows start at position 0 (a
@@ -33,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from . import build, ref
+from . import build, ref, work
 
 launches = {"paged_attention": 0, "segment_compact": 0, "flash_attention": 0,
             "mdc_priority": 0, "segment_move": 0,
@@ -61,16 +67,20 @@ def reset_launches() -> None:
         by_stream.clear()
 
 
-def _on_cpu(name: str, *tensors) -> bool:
-    """True when every tensor is on the CPU; False when all sit on one CUDA
-    device; raises for anything else."""
+def _route(name: str, *tensors) -> str:
+    """``"cpu"`` when every tensor is on the CPU (the plain version),
+    ``"meta"`` when every one is a ``meta`` tensor (shapes only), ``"cuda"``
+    when all sit on one CUDA device (the kernel); raises for anything
+    else."""
     devs = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devs):
-        return True
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+    kinds = {d.type for d in devs}
+    if kinds in ({"cpu"}, {"meta"}):
+        return kinds.pop()
+    if len(devs) != 1 or kinds != {"cuda"}:
         raise ValueError(f"{name}: tensors must all be on the CPU or all on "
-                         f"one CUDA device, got {sorted(map(str, devs))}")
-    return False
+                         f"one CUDA device (or all on meta), got "
+                         f"{sorted(map(str, devs))}")
+    return "cuda"
 
 
 def _check_kernel_inputs(name: str, *tensors) -> None:
@@ -102,7 +112,8 @@ def _launch(name: str, device, *args) -> None:
 
 def _operand_strides(name: str, t) -> tuple[int, int, int]:
     """(batch, sequence, head) element strides of one (B, S, heads, D)
-    operand as the kernel reads it; raises for a layout it cannot read."""
+    operand as the kernel reads it; raises for a layout it cannot read (a
+    ``meta`` tensor's base counts as aligned)."""
     shape, stride = t.shape, t.stride()
     if shape[3] > 1 and stride[3] != 1:
         raise ValueError(f"flash_attention: {name} needs a contiguous head "
@@ -203,12 +214,14 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True):
     other stride set.  Its tiles are fixed by each route's design, so unlike
     the Pallas entry there are no block-size arguments."""
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
-    if _on_cpu("flash_attention", q, k, v):
-        flash_layout(qs, ks, vs)
-        return ref.flash_attention_ref(qs, ks, vs, causal=causal).transpose(1, 2)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _flash(qs, ks, vs, out.transpose(1, 2), causal)
-    return out
+    where = _route("flash_attention", q, k, v)
+    args = (where, qs, ks, vs, causal, 0, True)
+    if work.counters:
+        out = work.charged(lambda: _flash_charges(qs, ks, causal, 0),
+                           _flash_call, *args)
+    else:
+        out = _flash_call(*args)
+    return out.transpose(1, 2)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -227,13 +240,51 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
-    if _on_cpu("flash_attention", q, k, v):
+    where = _route("flash_attention", q, k, v)
+    args = (where, q, k, v, causal, q_offset)
+    if work.counters:
+        return work.charged(lambda: _flash_charges(q, k, causal, q_offset),
+                            _flash_call, *args)
+    return _flash_call(*args)
+
+
+def _flash_call(where: str, q, k, v, causal: bool, q_offset: int,
+                bhsd_out: bool = False):
+    """One flash call on its route over (B, S, heads, D)-indexed operands:
+    the plain version (CPU), the launch's checks (``meta``) or the launch
+    (card).  Returns (B, Sq, H, D)-indexed; ``bhsd_out`` lays the output
+    out as (B, H, Sq, D) in memory."""
+    if where == "cpu":
         flash_layout(q, k, v)
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _flash(q, k, v, out, causal, q_offset)
+    B, Sq, H, D = q.shape
+    if bhsd_out:
+        out = torch.empty((B, H, Sq, D), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if where == "meta":
+        flash_layout(q, k, v)
+        _dtype_code("flash_attention", q, k, v)
+        flash_launch_dim(q.dtype, D)
+    else:
+        _flash(q, k, v, out, causal, q_offset)
     return out
+
+
+def _flash_charges(q, k, causal: bool, q_offset: int) -> list:
+    """The kernel's work of one call (q (B, Sq, H, D) and k (B, Skv, Kh, D)
+    in that index order) and, for a head dim the launch zero-pads, the
+    padding's (:func:`.work.flash_pad`)."""
+    B, Sq, H, D = q.shape
+    shape = dict(B=B, H=H, Kh=k.shape[2], Sq=Sq, Skv=k.shape[1],
+                 dtype=q.dtype, causal=causal, q_offset=q_offset)
+    charges = [("flash_attention", work.flash_attention(D=D, **shape))]
+    Dl = flash_launch_dim(q.dtype, D) if D <= 128 else D
+    if Dl != D and k.shape[1]:
+        charges.append(("flash_pad", work.flash_pad(D=D, Dl=Dl, **shape)))
+    return charges
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
@@ -251,9 +302,18 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     if mesh is not None:
         return paged_attention_sharded(q, k_pool, v_pool, block_tables,
                                        seq_lens, mesh=mesh)
+    where = _route("paged_attention", q, k_pool, v_pool, block_tables,
+                   seq_lens)
+    args = (where, q, k_pool, v_pool, block_tables, seq_lens)
+    if work.counters:
+        return work.charged(lambda: _paged_charges(*args), _paged_call, *args)
+    return _paged_call(*args)
+
+
+def _paged_call(where: str, q, k_pool, v_pool, block_tables, seq_lens):
     B, H, D = q.shape
     num_pages, T, Kh, _ = k_pool.shape
-    if _on_cpu("paged_attention", q, k_pool, v_pool, block_tables, seq_lens):
+    if where == "cpu":
         bt = block_tables.clamp(0, num_pages - 1).to(torch.int32)
         return ref.paged_attention_ref(q, k_pool, v_pool, bt, seq_lens)
     if (v_pool.shape != k_pool.shape or k_pool.shape[3] != D or H % Kh
@@ -269,15 +329,47 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
                          f"instantiated (D in 32, 64, 128; G in 1, 2, 4, 8)")
     q_code = _dtype_code("paged_attention", q)
     kv_code = _dtype_code("paged_attention", k_pool, v_pool)
+    out = torch.empty_like(q)
+    if where == "meta":
+        return out
     bt = block_tables.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
     _check_kernel_inputs("paged_attention", q, k_pool, v_pool, bt, lens, out)
     _launch("paged_attention", q.device, q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, Kh, G, D, T, bt.shape[1], num_pages, 1.0 / math.sqrt(D), q_code,
-            kv_code)
+            B, Kh, G, D, T, bt.shape[1], num_pages, 1.0 / math.sqrt(D),
+            q_code, kv_code)
     return out
+
+
+def _paged_charges(where: str, q, k_pool, v_pool, block_tables,
+                   seq_lens) -> list:
+    """The kernel's work of one call: the tokens and table pages the
+    lengths cover (read back to the host), or, on ``meta``, where there are
+    no lengths, every table full; and the copies of tables or lengths that
+    are not contiguous int32."""
+    B, H, D = q.shape
+    T, Kh = k_pool.shape[1], k_pool.shape[2]
+    if where == "meta":
+        pages = B * block_tables.shape[1]
+        tokens = pages * T
+    else:
+        lens = seq_lens.to(torch.int64).cpu()
+        tokens = int(lens.sum())
+        pages = int(((lens + T - 1) // T).sum())
+    return [("paged_attention", work.paged_attention(
+        B=B, H=H, Kh=Kh, D=D, tokens=tokens, pages=pages, q_dtype=q.dtype,
+        kv_dtype=k_pool.dtype))] + _cast_charges(
+            "paged_attention", torch.int32, block_tables, seq_lens)
+
+
+def _cast_charges(name: str, dtype, *tensors) -> list:
+    """A :func:`.work.cast` charge, named ``<name>_cast``, for each tensor
+    the wrapper copies before its launch: one not of ``dtype`` or not
+    contiguous."""
+    return [(f"{name}_cast", work.cast(n=t.numel(), src_dtype=t.dtype,
+                                       dtype=dtype))
+            for t in tensors if t.dtype != dtype or not t.is_contiguous()]
 
 
 def _count_sharded(name: str, *tensors) -> None:
@@ -329,30 +421,49 @@ def gather_heads(o_local, mesh):
     projection.  The ranks exchange the tensors where they lie (on the
     card, also through ``gloo``, which stages them through the host)."""
     _check_mesh("gather_heads", mesh)
-    group = mesh.get_group("model")
+    if work.counters:
+        payload = mesh.size() * o_local.numel() * o_local.element_size()
+        return work.charged(lambda: [("gather_heads", None)], _gather,
+                            o_local, mesh, collective=("all-gather", payload))
+    return _gather(o_local, mesh)
+
+
+def _gather(o_local, mesh):
     o_local = o_local.contiguous()
     parts = [torch.empty_like(o_local) for _ in range(mesh.size())]
-    torch.distributed.all_gather(parts, o_local, group=group)
+    if o_local.device.type != "meta":
+        torch.distributed.all_gather(parts, o_local,
+                                     group=mesh.get_group("model"))
     return torch.cat(parts, dim=-2)
 
 
 def segment_compact(pool, src_idx):
     """pool: (N, E); src_idx: (M,) int32 in [0, N) → (M, E) relocated
     payloads.  An exact byte copy, for any dtype."""
-    if _on_cpu("segment_compact", pool, src_idx):
+    where = _route("segment_compact", pool, src_idx)
+    if work.counters:
+        return work.charged(lambda: [("segment_compact", work.segment_compact(
+            M=src_idx.shape[0], E=pool.shape[-1], dtype=pool.dtype))],
+            _compact_call, where, pool, src_idx)
+    return _compact_call(where, pool, src_idx)
+
+
+def _compact_call(where: str, pool, src_idx):
+    if where == "cpu":
         return ref.segment_compact_ref(pool, src_idx)
     if pool.dim() != 2 or src_idx.dim() != 1 or src_idx.dtype != torch.int32:
-        raise ValueError(f"segment_compact: want pool (N, E) and int32 "
-                         f"src (M,), got {tuple(pool.shape)} "
+        raise ValueError(f"segment_compact: want pool (N, E) and int32 src "
+                         f"(M,), got {tuple(pool.shape)} "
                          f"{tuple(src_idx.shape)} {src_idx.dtype}")
     N, E = pool.shape
     out = torch.empty((src_idx.shape[0], E), dtype=pool.dtype,
                       device=pool.device)
     if not pool.is_contiguous() or not src_idx.is_contiguous():
         raise ValueError("segment_compact: kernel inputs must be contiguous")
-    _launch("segment_compact", pool.device, pool.data_ptr(),
-            src_idx.data_ptr(), out.data_ptr(), N, src_idx.shape[0],
-            E * pool.element_size())
+    if where == "cuda":
+        _launch("segment_compact", pool.device, pool.data_ptr(),
+                src_idx.data_ptr(), out.data_ptr(), N, src_idx.shape[0],
+                E * pool.element_size())
     return out
 
 
@@ -389,11 +500,31 @@ def segment_move(pools, src, dst) -> None:
         raise ValueError("segment_move: destinations must be distinct")
     staged = bool(np.isin(dst, src).any())
     move_plans["staged" if staged else "direct"] += 1
-    if _on_cpu("segment_move", kp, vp):
-        ref.segment_move_ref(pools, src, dst)
-        return
-    if not (kp.is_contiguous() and vp.is_contiguous()):
+    where = _route("segment_move", kp, vp)
+    args = (where, kp, vp, src, dst, staged)
+    if work.counters:
+        shape = dict(L=L, moves=src.size, E=math.prod(kp.shape[2:]),
+                     dtype=kp.dtype)
+        charges = [("segment_move", work.segment_move(**shape))]
+        if staged:
+            charges.append(("segment_move_stage",
+                            work.segment_move_stage(**shape)))
+        work.charged(lambda: charges, _move_call, *args)
+    else:
+        _move_call(*args)
+
+
+def _move_call(where: str, kp, vp, src, dst, staged: bool) -> None:
+    if where == "cpu":
+        ref.segment_move_ref((kp, vp), src, dst)
+    elif not (kp.is_contiguous() and vp.is_contiguous()):
         raise ValueError("segment_move: kernel pools must be contiguous")
+    elif where == "cuda":
+        _segment_move_launch(kp, vp, src, dst, staged)
+
+
+def _segment_move_launch(kp, vp, src, dst, staged: bool) -> None:
+    L, n_pages = kp.shape[:2]
     M, E = src.size, math.prod(kp.shape[2:])
     row_bytes = E * kp.element_size()
     src32, dst32 = src.astype(np.int32), dst.astype(np.int32)
@@ -423,17 +554,29 @@ def mdc_priority(live, up2, u_now, *, S: int):
     counts, up2 (N,) penultimate-update clocks, u_now scalar → (N,) f32.
     Exactly N keys: no padding, so no eligibility mask either (full segments
     key +inf by themselves)."""
-    if _on_cpu("mdc_priority", live, up2):
+    where = _route("mdc_priority", live, up2)
+    args = (where, live, up2, u_now, S)
+    if work.counters:
+        return work.charged(lambda: [
+            ("mdc_priority", work.mdc_priority(N=live.numel()))]
+            + _cast_charges("mdc_priority", torch.float32, live, up2),
+            _mdc_call, *args)
+    return _mdc_call(*args)
+
+
+def _mdc_call(where: str, live, up2, u_now, S: int):
+    if where == "cpu":
         return ref.mdc_priority_ref(live, up2, u_now, S)
     if live.dim() != 1 or up2.shape != live.shape:
-        raise ValueError(f"mdc_priority: want live and up2 of one shape (N,), "
-                         f"got {tuple(live.shape)} {tuple(up2.shape)}")
-    livef = live.to(torch.float32).contiguous()
-    up2f = up2.to(torch.float32).contiguous()
-    out = torch.empty_like(livef)
-    if out.numel():
-        _launch("mdc_priority", live.device, livef.data_ptr(), up2f.data_ptr(),
-                out.data_ptr(), out.numel(), float(u_now), int(S))
+        raise ValueError(f"mdc_priority: want live and up2 of one shape "
+                         f"(N,), got {tuple(live.shape)} {tuple(up2.shape)}")
+    out = torch.empty(live.shape, dtype=torch.float32, device=live.device)
+    if where == "cuda" and out.numel():
+        livef = live.to(torch.float32).contiguous()
+        up2f = up2.to(torch.float32).contiguous()
+        _launch("mdc_priority", live.device, livef.data_ptr(),
+                up2f.data_ptr(), out.data_ptr(), out.numel(), float(u_now),
+                int(S))
     return out
 
 

@@ -1,2 +1,2 @@
-from .model import Model  # noqa: F401
+from .model import Model, input_specs  # noqa: F401
 from . import attention, layers, transformer  # noqa: F401

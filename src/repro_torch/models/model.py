@@ -1,5 +1,6 @@
 """The model as an ``nn.Module`` holding its parameters at the JAX package's
-layout, and the training loss."""
+layout, the training loss, and the dry-run's ``meta`` stand-ins for the
+parameters (:meth:`Model.abstract`) and the inputs (:func:`input_specs`)."""
 
 from __future__ import annotations
 
@@ -8,10 +9,11 @@ import math
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import transformer as tfm
-from .layers import flatten, init_params, softmax_cross_entropy, unflatten
+from .layers import (abstract_params, flatten, init_params,
+                     softmax_cross_entropy, unflatten)
 
 
 class Model(nn.Module):
@@ -52,6 +54,11 @@ class Model(nn.Module):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return init_params(tfm.model_specs(self.cfg), gen, device=dev)
+
+    def abstract(self) -> dict:
+        """The configuration's parameter tree as ``meta`` tensors (shapes
+        and dtypes, no storage), whatever the module holds."""
+        return abstract_params(tfm.model_specs(self.cfg))
 
     def n_params(self) -> int:
         """Parameters of the configuration, counted from its spec tree (a
@@ -112,3 +119,33 @@ class Model(nn.Module):
         if cfg.n_patches and extras:
             logits = logits[:, cfg.n_patches:]  # drop the vision positions
         return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+
+# ------------------------------------------------------------- input specs
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """``meta`` stand-ins and logical axes for every model input, as the JAX
+    ``input_specs``: train / prefill take the token batch (int32), the
+    encoder-decoder's frames and the VLM's patch embeddings (bf16); decode
+    takes the current token (its cache comes from :meth:`Model.cache_spec`)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    specs, axes = {}, {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = sds((B, S), torch.int32)
+        axes["tokens"] = ("batch", "seq")
+        if cfg.family == "encdec":
+            specs["frames"] = sds((B, cfg.n_frames, cfg.d_model),
+                                  torch.bfloat16)
+            axes["frames"] = ("batch", None, "embed")
+        if cfg.n_patches:
+            specs["patches"] = sds((B, cfg.n_patches, tfm.VISION_DIM),
+                                   torch.bfloat16)
+            axes["patches"] = ("batch", None, None)
+    else:  # decode
+        specs["token"] = sds((B,), torch.int32)
+        axes["token"] = ("batch",)
+    return specs, axes

@@ -41,6 +41,16 @@ def moe_specs(cfg, layers):
     return s
 
 
+def _count(idx, n: int):
+    """``torch.bincount(idx, minlength=n)`` for ``idx`` in ``[0, n)``: the
+    int64 count of each value, as a scatter-add into ``n`` zeros, so its
+    length is ``n`` by construction (``bincount``'s depends on the data, and
+    it has no ``meta`` kernel).  Integer sums, so the order of the adds
+    changes nothing."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def _dispatch_group(xt, top_e, top_p, E, k, capacity):
     """Dispatch of every group at once.  xt: (G, T, d); top_e / top_p:
     (G, T, k).  Returns (gathered (G, E, capacity, d), combine metadata
@@ -55,10 +65,9 @@ def _dispatch_group(xt, top_e, top_p, E, k, capacity):
     se = torch.gather(flat_e, 1, order)
     st_tok = torch.gather(flat_t, 1, order)
     sw = torch.gather(flat_w, 1, order)
-    # per-group bincount, as one bincount over (group, expert)
+    # per-group bincount, as one count over (group, expert) of fixed length
     g_off = torch.arange(G, device=dev)[:, None] * E
-    counts = torch.bincount((se + g_off).reshape(-1),
-                            minlength=G * E).reshape(G, E)
+    counts = _count((se + g_off).reshape(-1), G * E).reshape(G, E)
     starts = torch.cumsum(counts, 1) - counts
     pos = torch.arange(T * k, device=dev) - torch.gather(starts, 1, se)
     keep = pos < capacity
@@ -153,7 +162,7 @@ def aux_load_balance_loss(x, p, cfg):
     probs = torch.softmax(logits, dim=-1)
     top_e = torch.topk(probs, cfg.top_k, dim=-1).indices
     E = cfg.n_experts
-    frac_tokens = (torch.bincount(top_e.reshape(-1), minlength=E).float()
+    frac_tokens = (_count(top_e.reshape(-1), E).float()
                    / (B * S * cfg.top_k))
     frac_probs = probs.mean(dim=0)
     return E * torch.sum(frac_tokens * frac_probs)

@@ -49,6 +49,15 @@ class AdamW:
         return AdamWState(torch.zeros((), dtype=torch.int32),
                           tree_map(zeros, params), tree_map(zeros, params))
 
+    def abstract_state(self, abstract_params) -> AdamWState:
+        """The state of :meth:`init` for a tree of ``meta`` parameters:
+        ``meta`` f32 moments, and the step on the host as always."""
+        f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                    device="meta")
+        return AdamWState(torch.zeros((), dtype=torch.int32),
+                          tree_map(f32, abstract_params),
+                          tree_map(f32, abstract_params))
+
     @torch.no_grad()
     def update(self, params, grads, state: AdamWState):
         """One step: writes the params and the moments in place and returns

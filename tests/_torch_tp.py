@@ -157,6 +157,18 @@ def wrapper_outputs(rank, device, mesh, case: dict,
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
+def wrapper_costs(rank, device, case: dict) -> dict:
+    """``wrapper_outputs`` of ``case`` under an ``OpCost``: its summary, and
+    the bytes of the three gathered outputs."""
+    from repro_torch.roofline.op_cost import OpCost
+    mesh = make_serving_mesh(torch.distributed.get_world_size(), device.type)
+    with OpCost() as oc:
+        out = wrapper_outputs(rank, device, mesh, case)
+    return {"summary": oc.summary(),
+            "gathered_bytes": sum(v.nbytes for k, v in out.items()
+                                  if k.endswith("_gathered"))}
+
+
 def fail_on_rank(rank, device, bad: int) -> int:
     """Rank function that raises on rank ``bad``."""
     if rank == bad:

@@ -1664,3 +1664,73 @@ def test_encdec_and_vlm_smoke_on_card_match_cpu(dev, arch):
     for a, b in zip(s1, s0):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+# ------------------------------------------------------------- the dry-run
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-7b",
+                                  "whisper-medium"])
+def test_prefill_cell_counts_alike_on_meta_and_card(dev, arch):
+    """The prefill cell at smoke width, counted on ``meta`` and on the
+    card: equal FLOPs by dtype, HBM bytes, kernel charges and peak of live
+    bytes, and on the card one flash launch per charge."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline.op_cost import OpCost
+    cfg = get_config(arch).smoke()
+    shape = SHAPES["prefill_32k"].scaled_for_smoke()
+    counts = {}
+    for where in ("meta", dev):
+        fn, args = build_cell(cfg, shape, where)
+        n0 = ops.launches["flash_attention"]
+        with OpCost(inputs=args) as oc:
+            fn(*args)
+        torch.cuda.synchronize()
+        counts[str(where)] = (oc.summary(), ops.launches["flash_attention"] - n0)
+    (meta, meta_launches), (card, card_launches) = counts.values()
+    for key in ("flops_by_dtype", "hbm_bytes_per_device", "kernel_charges",
+                "peak_live_bytes"):
+        assert meta[key] == card[key], key
+    assert meta_launches == 0
+    assert card_launches == card["kernel_charges"]["flash_attention"]["calls"]
+    assert card_launches > 0
+
+
+def test_padded_flash_peak_and_charges_on_card(dev):
+    """Zamba2's head dim of 112, zero-padded to a launch at 128: the pad is
+    charged alike on ``meta`` and on the card, and the count's peak (the
+    output and the pad's scratch) is the card's ``max_memory_allocated``
+    within 1%."""
+    from repro_torch.roofline.op_cost import OpCost
+    rng = np.random.default_rng(0)
+    q, k, v = (_randn(rng, (2, 1024, 32, 112), torch.bfloat16, dev)
+               for _ in range(3))
+    metas = [torch.empty_like(t, device="meta") for t in (q, k, v)]
+    with OpCost() as om:
+        ops.flash_attention(*metas)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = ops.launches["flash_attention"]
+    with OpCost() as oc:
+        ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    meta, card = om.summary(), oc.summary()
+    assert meta == card
+    assert ops.launches["flash_attention"] - n0 == 1
+    assert card["kernel_charges"]["flash_pad"]["calls"] == 1
+    assert 0.99 <= measured / card["peak_live_bytes"] <= 1.01
+
+
+def test_flash_attention_on_meta_neither_launches_nor_raises(dev):
+    q = torch.empty(2, 64, 16, 128, dtype=torch.bfloat16, device="meta")
+    kv = torch.empty(2, 64, 8, 128, dtype=torch.bfloat16, device="meta")
+    before = dict(ops.launches), dict(ops.flash_routes)
+    out = ops.flash_attention(q, kv, kv, causal=True)
+    out_bhsd = ops.flash_attention_bhsd(q.transpose(1, 2), kv.transpose(1, 2),
+                                        kv.transpose(1, 2), causal=False)
+    assert (dict(ops.launches), dict(ops.flash_routes)) == before
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert out.dtype == torch.bfloat16
+    assert out_bhsd.shape == (2, 16, 64, 128)
