@@ -340,6 +340,35 @@ Phases, in order; any failure raises and the process exits non-zero:
              counter (CUDA events, ``DRYRUN_REPS`` after a warm-up) beside
              ``roofline.report.term_seconds``' bound, the share of the
              bound it reaches and its model-FLOP share of the bf16 peak.
+21. mesh   — training on the JAX package's data x model mesh
+             (``launch.steps.make_train_fn(..., mesh=)``: each rank holds its
+             shard of the params and moments under ``DEFAULT_RULES``,
+             gathers them for its batch slice, all-reduces the gradients),
+             qwen3-1.7b at full width, bf16, TF32 off, deterministic
+             kernels, AdamW (``MESH_OPT``), ``MESH_STEPS`` steps of B 2 x
+             S 1,024.  (b) Two ``gloo`` ranks sharing the card on a (2, 1)
+             mesh (a spawn), B 1 each: losses within ``MESH_BARS`` of (a)'s,
+             params apart from (a)'s in at most ``MESH_BARS``' share of
+             elements and each within one unit in the last place plus 2 lr
+             per step (the bars from ``scripts/rehearse_mesh.py``);
+             reported: each rank's peak ``max_memory_allocated``, step ms
+             and the host ms inside its all-gathers and all-reduces (the
+             card synchronised around each).  (a) One ``nccl`` rank at
+             world size 1, in this process: the one-device steps, then the
+             same on a (1, 1) mesh, whose losses and params must be bitwise
+             the one-device ones.  (c) Elastic, cut to
+             ``MESH_ELASTIC_LAYERS``: the seed's params saved from the (2,
+             1) mesh (in (b)'s spawn), restored onto one rank (its (2, 1)
+             slices bitwise the saving ranks' shards), then onto (2, 1)
+             again (bitwise) and a step taken from fresh moments (finite
+             loss), as ``tests/test_elastic.py`` does (a second spawn).
+             (d) The (2, 1) mesh's train and prefill cells (B 2 x 1,024),
+             counted on ``meta`` at the mesh's sizes and on each rank on
+             the card (the train cell is (b)'s first step, the same step on
+             the same arguments): FLOPs by dtype, HBM bytes, kernel charges
+             and collective bytes equal; the prefill's flash charges = its
+             launches = 28 per rank; the peak within ``DRYRUN_PEAK_BAR`` of
+             the count's.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -378,8 +407,16 @@ from repro_torch.core import analysis, policies  # noqa: E402
 from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import build, ops, ref, work  # noqa: E402
-from repro_torch.launch.mesh import make_serving_mesh, spawn_ranks  # noqa: E402
-from repro_torch.launch.steps import build_cell  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.distributed.sharding import (shard_spec,  # noqa: E402
+                                              shard_view, tree_specs)
+from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
+                                     make_serving_mesh, spawn_ranks)
+from repro_torch.launch.steps import (build_cell, make_train_fn,  # noqa: E402
+                                      shard_batch)
+from repro_torch.launch.train import TOKENS_AXES  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_path, tree_map  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models import attention as att  # noqa: E402
 from repro_torch.models.layers import flatten, rmsnorm, unflatten  # noqa: E402
@@ -393,6 +430,7 @@ from repro_torch.serving.engine import shard_model  # noqa: E402
 from repro_torch.serving.scheduler import DEFAULT_CLEAN_BUDGET  # noqa: E402
 from _torch_checks import (PAGED_SHA256, DeviceVictimCheck,  # noqa: E402
                            check_paged_close, digest, paged_bar, paged_case)
+from _torch_mesh import deterministic  # noqa: E402
 from _torch_tp import local_heads  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -601,6 +639,33 @@ DRYRUN_REPS = 5   # timed steps per cell (median), after one warm-up
 # on an NVIDIA H100 80GB HBM3 (the allocator rounds each block up to 512
 # bytes)
 DRYRUN_PEAK_BAR = (0.99, 1.01)
+
+
+# the mesh phase: qwen3-1.7b trained on the JAX package's data x model mesh
+MESH_ARCH = "qwen3-1.7b"
+MESH_SHAPE = ShapeConfig("train", 1024, 2, "train")   # the train phase's
+MESH_STEPS = 3
+MESH_OPT = dict(lr=1e-4, weight_decay=0.1, clip_norm=1.0)   # build_cell's
+MESH_PAIR = (2, 1)   # (data, model): two gloo ranks sharing the one card
+# (c)'s cut: at 4 of 28 layers the saved params are 1.04 GB (the
+# vocabulary's table 0.62 GB of it); the uncut ones' 4.06 GB would take
+# ~4x as long to gather through the host and write
+MESH_ELASTIC_LAYERS = 4
+MESH_CKPT = dict(seg_bytes=64 << 20, chunk_bytes=4 << 20)  # the train phase's
+MESH_PREFILL = DRYRUN_CELLS[1]   # (d)'s prefill cell, B 2 x 1,024
+MESH_TIMEOUT_S = 300
+# (b)'s bars against (a), set between sound readings and a planted fault's.
+# ``scripts/rehearse_mesh.py --fault`` (the same functions at smoke width,
+# bf16, two CPU ranks, seeds 0-2): sound, losses 6.5e-6-4.1e-5 relative
+# and 1.22-1.29% of the param elements apart; with the gradients' all-reduce
+# taken out, losses 5.2e-4-6.5e-4 relative and 27.0-27.4% apart.  On the
+# card (NVIDIA H100 80GB HBM3, 700.00 W, full width) the sound step read
+# 1.27e-5 and 3.32%.  Each bar sits near the geometric mean of the largest
+# sound reading and the least fault one: ~3.5x from each for the losses,
+# ~3x for the share.  The cap (one unit in the last place plus 2 lr per
+# step) only bounds an update's size: sound 0.34-0.85 of it, the fault
+# 1.108.
+MESH_BARS = {"loss_rtol": 1.5e-4, "param_share_differ": 0.10}
 
 
 def encdec_flash_shapes() -> dict:
@@ -2670,10 +2735,7 @@ def train_rank(rank, device) -> dict:
     kernels, then qwen3-1.7b at full width through ``launch.train.train``,
     a clean run and a faulty one that resumes from its checkpoint, then the
     smoke config at f32 on the card and on the CPU."""
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    deterministic()
     from repro_torch.launch.train import train
     cfg = get_config(TRAIN_ARCH)
     n_params = Model(cfg, params={}).n_params()
@@ -3493,6 +3555,445 @@ def phase_dryrun(smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------- mesh phase
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_note(what: str, t0: float) -> None:
+    """Progress on stderr: a timeout shows where a rank was."""
+    print(f"mesh: {what} at {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def collective_timer(device):
+    """Host ms inside ``torch.distributed``'s all_gather and all_reduce
+    while active, by name, the card synchronised before and after each
+    call (so it times the collective and not the work queued before it)."""
+    import torch.distributed as dist
+    box = {"all_gather": 0.0, "all_reduce": 0.0, "calls": 0}
+    saved = {n: getattr(dist, n) for n in ("all_gather", "all_reduce")}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync(device)
+            box[name] += (time.perf_counter() - t0) * 1e3
+            box["calls"] += 1
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(dist, n, timed(n, fn))
+    try:
+        yield box
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def mesh_batches(cfg, device, seed: int = SEED) -> list:
+    """The mesh phase's global batches: ``MESH_STEPS`` of B x S tokens."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    B, S = MESH_SHAPE.global_batch, MESH_SHAPE.seq_len
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=device, dtype=torch.int32)}
+            for _ in range(MESH_STEPS)]
+
+
+def mesh_params(cfg, device, mesh=None, seed: int = SEED) -> dict:
+    """The seed's params, whole or this rank's shards of ``mesh``."""
+    model = Model(cfg, params={})
+    params = model.init(seed, device=device)
+    if mesh is not None:
+        it = iter(tree_specs(model.axes(), params, mesh))
+        params = tree_map(lambda t: shard_spec(t, next(it), mesh), params)
+    return params
+
+
+def mesh_train(cfg, device, mesh=None, seed: int = SEED,
+               count: bool = False) -> dict:
+    """``MESH_STEPS`` AdamW steps of the phase's batches from the seed's
+    params, on one device (``mesh`` None) or as this rank of ``mesh`` (its
+    shards, its batch slices): losses, params (this rank's), each step's ms
+    up to its loss on the host, and its collectives' ms.  ``count``: the
+    first step runs under a counter (``launch.steps.build_cell``'s train
+    cell, the same step on the same arguments), with the card's peak above
+    its level before the params were drawn."""
+    model = Model(cfg, params={})
+    base = torch.cuda.memory_allocated() if count else 0
+    params = mesh_params(cfg, device, mesh, seed)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    opt = AdamW(**MESH_OPT)
+    state = opt.init(params)
+    step = (make_train_fn(model, opt) if mesh is None else make_train_fn(
+        model, opt, mesh, global_batch=MESH_SHAPE.global_batch))
+    out = {"loss": [], "step_ms": [], "all_gather_ms": [],
+           "all_reduce_ms": [], "collective_calls": []}
+    for i, b in enumerate(mesh_batches(cfg, device, seed)):
+        if mesh is not None:
+            b = shard_batch(b, TOKENS_AXES, mesh)
+        counter = contextlib.nullcontext()
+        if count and i == 0:
+            sync(device)
+            torch.cuda.reset_peak_memory_stats()
+            n0 = dict(ops.launches)
+            counter = OpCost(inputs=(params, state, b))
+        with collective_timer(device) as ct, counter:
+            sync(device)
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, b)
+            out["loss"].append(float(loss))
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if count and i == 0:
+            out["count"] = {
+                "card": counter.summary(),
+                "measured_peak": torch.cuda.max_memory_allocated() - base,
+                "launches": {k: n - n0[k] for k, n in ops.launches.items()}}
+        out["all_gather_ms"].append(ct["all_gather"])
+        out["all_reduce_ms"].append(ct["all_reduce"])
+        out["collective_calls"].append(ct["calls"])
+    out["params"] = params
+    return out
+
+
+def mesh_cell(cfg, shape, sizes: dict, count: dict) -> dict:
+    """(d): a cell's count on the card (``count``: ``card``, the measured
+    peak, the launches) beside ``build_cell``'s on ``meta`` at the mesh's
+    ``sizes``."""
+    fn, args = build_cell(cfg, shape, "meta", mesh=sizes)
+    with OpCost(inputs=args) as om:
+        fn(*args)
+    del fn, args
+    meta, card = om.summary(), count["card"]
+    keys = ("flops_by_dtype", "hbm_bytes_per_device", "kernel_charges",
+            "collective_bytes_per_device")
+    return {"cell": shape.name, "B": shape.global_batch, "S": shape.seq_len,
+            "counts_equal": {k: meta[k] == card[k] for k in keys},
+            "flops_by_dtype": meta["flops_by_dtype"],
+            "hbm_bytes": meta["hbm_bytes_per_device"],
+            "collective_bytes": meta["collective_bytes_per_device"],
+            "collective_counts": meta["collective_counts"],
+            "kernel_charges": meta["kernel_charges"],
+            "launches_in_counted_run": count["launches"],
+            "peak_predicted_gb": meta["peak_live_bytes"] / 1e9,
+            "peak_measured_gb": count["measured_peak"] / 1e9,
+            "peak_ratio": count["measured_peak"] / meta["peak_live_bytes"]}
+
+
+def tree_digests(tree) -> dict:
+    return {"/".join(path): digest(t.detach().reshape(-1))
+            for path, t in leaves_with_path(tree)}
+
+
+def mesh_manager(root) -> CheckpointManager:
+    return CheckpointManager(os.path.join(root, "ckpt"), keep_last=1,
+                             **MESH_CKPT)
+
+
+def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
+                   seed: int = SEED) -> dict:
+    """(b), on each of the two ranks of a (2, 1) mesh: the steps, the
+    rank's param shards written to ``root`` for (a) to hold against; with
+    ``card``, the first step counted as (d)'s train cell, then (c)'s save:
+    the params at ``MESH_ELASTIC_LAYERS``, saved from the mesh, each
+    shard's digest."""
+    t0 = time.perf_counter()
+    deterministic()
+    ops.reset_launches()
+    cfg = get_config(MESH_ARCH)
+    cfg = cfg.smoke() if smoke else cfg
+    mesh = make_debug_mesh(*MESH_PAIR, device.type)
+    mesh_note("mesh made", t0)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    r = mesh_train(cfg, device, mesh, seed, count=card)
+    mesh_note("steps done", t0)
+    out = {k: r[k] for k in ("loss", "step_ms", "all_gather_ms",
+                             "all_reduce_ms", "collective_calls")}
+    torch.save({"/".join(p): t.detach().cpu()
+                for p, t in leaves_with_path(r["params"])},
+               os.path.join(root, f"pair_{rank}.pt"))
+    if card:
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["train_cell"] = mesh_cell(cfg, MESH_SHAPE,
+                                      dict(zip(("data", "model"), MESH_PAIR)),
+                                      r["count"])
+        mesh_note("train cell counted", t0)
+    del r
+    free_card()
+    if card:
+        cut = cfg.with_(n_layers=MESH_ELASTIC_LAYERS)
+        params = mesh_params(cut, device, mesh, seed)
+        specs = tree_specs(Model(cut, params={}).axes(),
+                           Model(cut, params={}).abstract(), mesh)
+        t1 = time.perf_counter()
+        mesh_manager(root).save(1, params, mesh=mesh, specs=specs)
+        out["elastic"] = {"save_s": time.perf_counter() - t1,
+                          "digests": tree_digests(params)}
+        del params
+        free_card()
+        mesh_note("elastic save done", t0)
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def mesh_gap(one_params, root, device) -> dict:
+    """(b) against (a): each rank's param shards against the same slices of
+    the one-device params, as the share of elements that differ and the
+    largest |difference| over its cap, one unit in the last place of the
+    one-device value (in the leaf's type) plus 2 lr per step."""
+    sizes = dict(zip(("data", "model"), MESH_PAIR))
+    axes = Model(get_config(MESH_ARCH), params={}).axes()
+    specs = tree_specs(axes, one_params, sizes)
+    worst, differ, total = 0.0, 0, 0
+    for r in range(MESH_PAIR[0]):
+        shards = torch.load(os.path.join(root, f"pair_{r}.pt"))
+        coords = {"data": r, "model": 0}
+        for (path, a), sp in zip(leaves_with_path(one_params), specs):
+            want = shard_view(a.detach(), sp, sizes, coords).float()
+            got = shards.pop("/".join(path)).to(device).float()
+            ulp = torch.finfo(a.dtype).eps * torch.exp2(
+                torch.frexp(want).exponent.float() - 1)
+            cap = ulp + 2 * MESH_OPT["lr"] * MESH_STEPS
+            d = (got - want).abs()
+            worst = max(worst, float((d / cap).max()))
+            differ += int((d > 0).sum())
+            total += d.numel()
+    return {"share_differ": differ / total, "worst_over_cap": worst,
+            "elements": total}
+
+
+def mesh_restore(root, cfg, device, mesh) -> tuple[dict, float]:
+    """(c)'s params, restored onto ``mesh`` (None: whole, on ``device``):
+    this rank's shards, seconds."""
+    model = Model(cfg, params={})
+    t0 = time.perf_counter()
+    got = mesh_manager(root).restore(model.abstract(), 1, device=device,
+                                     mesh=mesh, axes=model.axes())
+    return got, time.perf_counter() - t0
+
+
+def mesh_one(root) -> dict:
+    """(a) in this process, one ``nccl`` rank at world size 1 (the tp
+    phase's way), deterministic kernels while it runs: the one-device
+    steps, (b)'s shards held against them, then the same steps on a (1, 1)
+    mesh."""
+    t0 = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(MESH_ARCH)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    store = torch.distributed.FileStore(os.path.join(root, "nccl_store"), 1)
+    torch.distributed.init_process_group("nccl", store=store, rank=0,
+                                         world_size=1)
+    try:
+        one = mesh_train(cfg, device)
+        out = {"one": {"loss": one["loss"], "step_ms": one["step_ms"],
+                       "digests": tree_digests(one["params"])}}
+        out["gap"] = mesh_gap(one["params"], root, device)
+        del one
+        free_card()
+        mesh_note("one-device steps and gap done", t0)
+        m = mesh_train(cfg, device, make_debug_mesh(1, 1, device.type))
+        out["mesh11"] = {"loss": m["loss"], "step_ms": m["step_ms"],
+                         "digests": tree_digests(m["params"])}
+        del m
+        free_card()
+        mesh_note("(1, 1) steps done", t0)
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    return out
+
+
+def mesh_regrow_rank(rank, device, root, saved: list) -> dict:
+    """(c) restored: first onto one rank (rank 0 alone, no mesh: the whole
+    params, each leaf's (2, 1) slices digested against the saving ranks'
+    shards), then onto the (2, 1) mesh again (this rank's shards against
+    the saving rank's), and one step taken from fresh moments (as
+    ``tests/test_elastic.py``); then (d)'s prefill cell (B 2 x 1,024),
+    counted on the card and on ``meta``."""
+    t0 = time.perf_counter()
+    deterministic()
+    ops.reset_launches()
+    cfg = get_config(MESH_ARCH)
+    cut = cfg.with_(n_layers=MESH_ELASTIC_LAYERS)
+    model = Model(cut, params={})
+    mesh = make_debug_mesh(*MESH_PAIR, device.type)
+    mesh_note("mesh made", t0)
+    out = {}
+    if rank == 0:
+        got, out["restore_one_rank_s"] = mesh_restore(root, cut, device,
+                                                      None)
+        sizes = dict(zip(("data", "model"), MESH_PAIR))
+        specs = tree_specs(model.axes(), got, sizes)
+        out["restored_one_rank_bitwise"] = all(
+            digest(shard_view(t, sp, sizes, {"data": r, "model": 0})
+                   .reshape(-1)) == saved[r]["/".join(path)]
+            for (path, t), sp in zip(leaves_with_path(got), specs)
+            for r in range(MESH_PAIR[0]))
+        del got
+        free_card()
+    torch.distributed.barrier()
+    mesh_note("restore onto one rank done", t0)
+    params, out["restore_s"] = mesh_restore(root, cut, device, mesh)
+    out["restored_bitwise"] = tree_digests(params) == saved[rank]
+    mesh_note("restore onto (2, 1) done", t0)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    opt = AdamW(**MESH_OPT)
+    step = make_train_fn(model, opt, mesh,
+                         global_batch=MESH_SHAPE.global_batch)
+    b = shard_batch(mesh_batches(cut, device)[0], TOKENS_AXES, mesh)
+    _, _, loss = step(params, opt.init(params), b)
+    out["loss_after_regrow"] = float(loss)
+    del params
+    free_card()
+    mesh_note("regrow step done", t0)
+    ops.reset_launches()
+    base = torch.cuda.memory_allocated()
+    fn, args = build_cell(cfg, MESH_PREFILL, device, mesh=mesh, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCost(inputs=args) as oc:
+        fn(*args)
+    torch.cuda.synchronize()
+    count = {"card": oc.summary(), "launches": dict(ops.launches),
+             "measured_peak": torch.cuda.max_memory_allocated() - base}
+    del fn, args
+    free_card()
+    out["prefill_cell"] = mesh_cell(cfg, MESH_PREFILL, dict(zip(
+        ("data", "model"), MESH_PAIR)), count)
+    out["launches"] = dict(ops.launches)
+    mesh_note("prefill cell counted", t0)
+    return out
+
+
+def phase_mesh(smi) -> dict:
+    """Training on the JAX package's data x model mesh (docstring, phase
+    21): two spawns of two ranks, and (a) in this process between them.
+    Returns the phase's launches, summed over its ranks."""
+    free_card()
+    t0 = time.perf_counter()
+    chip = importlib.import_module("chip_smoke")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    failures, spawn_s = [], {}
+    try:
+        pair = spawn_ranks(chip.mesh_pair_rank, 2, False, root, True,
+                           backend="gloo", device="cuda",
+                           timeout_s=MESH_TIMEOUT_S)
+        spawn_s["pair"] = time.perf_counter() - t0
+        saved = [r["elastic"]["digests"] for r in pair]
+        one = mesh_one(root)
+        spawn_s["one"] = time.perf_counter() - t0 - spawn_s["pair"]
+        regrow = spawn_ranks(chip.mesh_regrow_rank, 2, root, saved,
+                             backend="gloo", device="cuda",
+                             timeout_s=MESH_TIMEOUT_S)
+        spawn_s["regrow"] = (time.perf_counter() - t0 - spawn_s["pair"]
+                             - spawn_s["one"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # (a) the (1, 1) nccl mesh is the one-device step, bit for bit
+    a_bitwise = (one["mesh11"]["loss"] == one["one"]["loss"]
+                 and one["mesh11"]["digests"] == one["one"]["digests"])
+    if not a_bitwise:
+        failures.append("(1, 1) mesh steps differ from the one-device "
+                        "steps")
+    # (b) the two gloo ranks within their bars of (a)
+    losses = np.array(pair[0]["loss"])
+    want = np.array(one["one"]["loss"])
+    loss_gap = float(np.abs(losses / want - 1).max())
+    if any(r["loss"] != pair[0]["loss"] for r in pair):
+        failures.append("the ranks read different losses")
+    if loss_gap > MESH_BARS["loss_rtol"]:
+        failures.append(f"(2, 1) losses {losses.tolist()} against "
+                        f"{want.tolist()}: {loss_gap:.3g} relative")
+    gap = one["gap"]
+    if (gap["share_differ"] > MESH_BARS["param_share_differ"]
+            or gap["worst_over_cap"] > 1.0):
+        failures.append(f"(2, 1) params against (a): {gap}")
+    # (c) elastic
+    if not regrow[0]["restored_one_rank_bitwise"]:
+        failures.append("restore onto one rank is not the saved leaves")
+    for r in regrow:
+        if not r["restored_bitwise"]:
+            failures.append("restore onto (2, 1) is not the saved leaves")
+        if not np.isfinite(r["loss_after_regrow"]):
+            failures.append(f"loss after the regrow {r['loss_after_regrow']}")
+    # (d) meta and card counts, flash launches = charges, the peak
+    lo, hi = DRYRUN_PEAK_BAR
+    cells = [[p["train_cell"], g["prefill_cell"]]
+             for p, g in zip(pair, regrow)]
+    for rank, rank_cells in enumerate(cells):
+        for c in rank_cells:
+            name = f"rank {rank} {c['cell']}"
+            if not all(c["counts_equal"].values()):
+                failures.append(f"{name}: meta and card counts differ "
+                                f"{c['counts_equal']}")
+            flash = c["kernel_charges"].get("flash_attention", {}).get(
+                "calls", 0)
+            launched = c["launches_in_counted_run"]["flash_attention"]
+            want_flash = get_config(MESH_ARCH).n_layers if (
+                c["cell"] == "prefill") else 0
+            if not flash == launched == want_flash:
+                failures.append(f"{name}: {flash} flash charges, {launched}"
+                                f" launches, {want_flash} wanted")
+            if c["cell"] == "train" and not c["collective_bytes"].get(
+                    "all-reduce"):
+                failures.append(f"{name}: no gradient all-reduce counted")
+            if not lo <= c["peak_ratio"] <= hi:
+                failures.append(f"{name}: measured peak {c['peak_ratio']:.4f}"
+                                f" of the predicted one, outside "
+                                f"{DRYRUN_PEAK_BAR}")
+    launches = {k: sum(r["launches"][k] for r in pair + regrow)
+                for k in ops.launches}
+    out = {"phase": "mesh", "card": smi, "model": MESH_ARCH,
+           "dtype": "bfloat16", "deterministic": True,
+           "shape": [MESH_SHAPE.global_batch, MESH_SHAPE.seq_len],
+           "steps": MESH_STEPS, "opt": MESH_OPT, "bars": MESH_BARS,
+           "a_one_device": {k: one["one"][k] for k in ("loss", "step_ms")},
+           "a_nccl_mesh_1x1": {"loss": one["mesh11"]["loss"],
+                               "step_ms": one["mesh11"]["step_ms"],
+                               "bitwise_equal": a_bitwise},
+           "b_gloo_mesh_2x1": {
+               "ranks": [{k: r[k] for k in (
+                   "loss", "step_ms", "all_gather_ms", "all_reduce_ms",
+                   "collective_calls", "max_memory_allocated_gb")}
+                   for r in pair],
+               "loss_max_rel_gap": loss_gap, "params": gap},
+           "c_elastic": {
+               "what": "params", "n_layers": MESH_ELASTIC_LAYERS,
+               "cut": f"{MESH_ELASTIC_LAYERS} of "
+                      f"{get_config(MESH_ARCH).n_layers} layers",
+               "save_s": [r["elastic"]["save_s"] for r in pair],
+               "restore_one_rank_s": regrow[0]["restore_one_rank_s"],
+               "restored_one_rank_bitwise": regrow[0][
+                   "restored_one_rank_bitwise"],
+               "restore_2x1_s": [r["restore_s"] for r in regrow],
+               "restored_2x1_bitwise": [r["restored_bitwise"]
+                                        for r in regrow],
+               "loss_after_regrow": [r["loss_after_regrow"]
+                                     for r in regrow]},
+           "d_counts": cells, "spawn_s": spawn_s, "launches": launches,
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"mesh phase: {failures}")
+    return launches
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3528,10 +4029,12 @@ def main() -> None:
     paths["encdec"] = phase_encdec(smi)
     free_card()
     paths["dryrun"] = phase_dryrun(smi)
+    free_card()
+    paths["mesh"] = phase_mesh(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims, sim" if name == "mdc_priority"
-                  else "engine, moe, families, encdec, dryrun"
+                  else "engine, moe, families, encdec, dryrun, mesh"
                   if name == "flash_attention"
                   else "engine, moe" if name in ENGINE_KERNELS
                   else "tp" if name in TP_KERNELS else "none"),

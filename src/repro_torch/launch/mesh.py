@@ -1,9 +1,17 @@
-"""The serving mesh and the ranks that run on it.
+"""The meshes and the ranks that run on them.
 
 Tensor-parallel serving runs one process per rank (SPMD): every rank runs
 the same host planner over the same requests and holds its slice of the kv
 heads, and the ranks meet only in the all-gathers of the per-head context
 (``kernels.ops.gather_heads``) and the engine's agreement check.
+
+Training runs one process per rank on a ``("data", "model")`` mesh
+(:func:`make_debug_mesh`, :func:`make_host_mesh`): each rank holds its
+shard of every parameter and moment (``distributed.sharding.DEFAULT_RULES``)
+and runs the step of ``launch.steps.make_train_fn(..., mesh=)``.  The JAX
+package's production meshes, 16 x 16 and 2 x 16 x 16 TPU chips, are given
+as sizes (:func:`make_production_mesh`): the dry-run counts rank 0's step
+on them without spawning a rank.
 
 The backend is the caller's choice and nothing switches it on its own:
 ``nccl`` for one rank per card, ``gloo`` for ranks on the CPU and for
@@ -27,14 +35,47 @@ def make_serving_mesh(n: int, device_type: str = "cuda"):
     ``device_type`` is the ranks' devices' type (``"cpu"`` for ranks on
     the CPU).  Raises unless the group holds exactly ``n`` ranks."""
     from torch.distributed.device_mesh import init_device_mesh
+    _need_group("make_serving_mesh", n)
+    return init_device_mesh(device_type, (n,), mesh_dim_names=("model",))
+
+
+def _need_group(what: str, n: int):
     if not dist.is_initialized():
-        raise RuntimeError("make_serving_mesh needs an initialised process "
-                           "group: run the ranks through spawn_ranks")
+        raise RuntimeError(f"{what} needs an initialised process group: run "
+                           f"the ranks through spawn_ranks")
     world = dist.get_world_size()
     if n != world:
-        raise ValueError(f"serving mesh wants {n} ranks but the process "
-                         f"group holds {world}")
-    return init_device_mesh(device_type, (n,), mesh_dim_names=("model",))
+        raise ValueError(f"{what} wants {n} ranks but the process group "
+                         f"holds {world}")
+
+
+def make_debug_mesh(n_data: int = 1, n_model: int = 1,
+                    device_type: str = "cuda"):
+    """A ``("data", "model")`` ``DeviceMesh`` of ``n_data`` x ``n_model``
+    ranks (rank r at data r // n_model, model r % n_model) over the
+    initialised default process group, which must hold exactly that many
+    (``spawn_ranks`` starts them).  ``device_type``: the ranks' devices'
+    type (``"cpu"`` for ranks on the CPU)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    _need_group("make_debug_mesh", n_data * n_model)
+    return init_device_mesh(device_type, (n_data, n_model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_host_mesh(device_type: str = "cuda"):
+    """Every rank of the process group on "data" (the JAX trainer's
+    ``make_host_mesh``: ``(n, 1)`` over ``("data", "model")``)."""
+    return make_debug_mesh(dist.get_world_size() if dist.is_initialized()
+                           else 1, 1, device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> dict[str, int]:
+    """The JAX package's production meshes as axis sizes: 16 x 16 chips
+    (one pod), or 2 pods of them.  A mesh given as sizes runs no rank: the
+    dry-run counts rank 0's step on it (``distributed.collectives``)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
 
 
 def rank_device(rank: int, device) -> torch.device:

@@ -37,14 +37,17 @@ NEG_INF = -1e30
 def attn_specs(cfg, layers):
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": spec((layers, d, H, hd)),
-        "wk": spec((layers, d, K, hd)),
-        "wv": spec((layers, d, K, hd)),
-        "wo": spec((layers, H, hd, d), scale=1.0 / math.sqrt(H * hd)),
+        "wq": spec((layers, d, H, hd), ("layers", "embed", "heads", "head_dim")),
+        "wk": spec((layers, d, K, hd), ("layers", "embed", "kv", "head_dim")),
+        "wv": spec((layers, d, K, hd), ("layers", "embed", "kv", "head_dim")),
+        "wo": spec((layers, H, hd, d), ("layers", "heads", "head_dim", "embed"),
+                   scale=1.0 / math.sqrt(H * hd)),
     }
     if cfg.qk_norm:
-        s["q_norm"] = spec((layers, hd), scale=-1.0, dtype=torch.float32)
-        s["k_norm"] = spec((layers, hd), scale=-1.0, dtype=torch.float32)
+        s["q_norm"] = spec((layers, hd), ("layers", "head_dim"), scale=-1.0,
+                           dtype=torch.float32)
+        s["k_norm"] = spec((layers, hd), ("layers", "head_dim"), scale=-1.0,
+                           dtype=torch.float32)
     return s
 
 
@@ -310,13 +313,16 @@ def mla_specs(cfg, layers):
     r = cfg.kv_lora_rank
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "wq": spec((layers, d, H, nd + rd)),
-        "w_dkv": spec((layers, d, r)),
-        "kv_norm": spec((layers, r), scale=-1.0, dtype=torch.float32),
-        "w_kr": spec((layers, d, rd)),
-        "w_uk": spec((layers, r, H, nd)),
-        "w_uv": spec((layers, r, H, vd)),
-        "wo": spec((layers, H, vd, d), scale=1.0 / math.sqrt(H * vd)),
+        "wq": spec((layers, d, H, nd + rd),
+                   ("layers", "embed", "heads", "head_dim")),
+        "w_dkv": spec((layers, d, r), ("layers", "embed", "lora")),
+        "kv_norm": spec((layers, r), ("layers", "lora"), scale=-1.0,
+                        dtype=torch.float32),
+        "w_kr": spec((layers, d, rd), ("layers", "embed", "head_dim")),
+        "w_uk": spec((layers, r, H, nd), ("layers", "lora", "heads", "head_dim")),
+        "w_uv": spec((layers, r, H, vd), ("layers", "lora", "heads", "head_dim")),
+        "wo": spec((layers, H, vd, d), ("layers", "heads", "head_dim", "embed"),
+                   scale=1.0 / math.sqrt(H * vd)),
     }
 
 

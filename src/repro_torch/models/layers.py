@@ -1,11 +1,14 @@
 """Primitive layers and the parameter-spec machinery.
 
-Parameters are declared as ``Spec`` leaves (shape, dtype, init scale) in the
-same nested-dict layout as the JAX package (``repro.models.layers``), so a
-JAX parameter tree maps onto the port's leaf by leaf (see
-:mod:`repro_torch.bridge`).  The primitives keep the JAX package's dtype
-casts: norms, rotary embedding and the gate nonlinearity run in float32 and
-cast back to the activation dtype.
+Parameters are declared as ``Spec`` leaves (shape, dtype, logical axes,
+init scale) in the same nested-dict layout as the JAX package
+(``repro.models.layers``), so a JAX parameter tree maps onto the port's
+leaf by leaf (see :mod:`repro_torch.bridge`).  The logical axes (one name
+per dim: "embed", "vocab", "heads", "kv", "head_dim", "ff", "experts",
+"layers", "lora", or None) are the JAX call sites' own, and
+:mod:`repro_torch.distributed.sharding` resolves them to mesh axes.  The
+primitives keep the JAX package's dtype casts: norms, rotary embedding and
+the gate nonlinearity run in float32 and cast back to the activation dtype.
 """
 
 from __future__ import annotations
@@ -22,18 +25,23 @@ from ..device import resolve_device
 class Spec(NamedTuple):
     shape: tuple
     dtype: Any
+    axes: tuple   # logical axis names, len == len(shape)
     scale: float  # stddev for normal init; 0 ⇒ zeros; -1 ⇒ ones
 
 
-def spec(shape, scale=None, dtype=torch.bfloat16):
+def spec(shape, axes=None, scale=None, dtype=torch.bfloat16):
+    """A leaf's spec; ``axes`` None names no dim (every dim replicates)."""
+    axes = (None,) * len(shape) if axes is None else tuple(axes)
+    assert len(shape) == len(axes), (shape, axes)
     if scale is None:
         scale = 1.0 / math.sqrt(shape[-1] if len(shape) else 1)
-    return Spec(tuple(int(s) for s in shape), dtype, float(scale))
+    return Spec(tuple(int(s) for s in shape), dtype, axes, float(scale))
 
 
 def norm_spec(dim, layers=None):
     shape = (layers, dim) if layers else (dim,)
-    return Spec(shape, torch.float32, -1.0)
+    axes = ("layers", "embed") if layers else ("embed",)
+    return Spec(shape, torch.float32, axes, -1.0)
 
 
 def flatten(tree, prefix=()):
@@ -97,6 +105,11 @@ def abstract_params(specs):
     checkpoint restore's template)."""
     return unflatten((path, torch.empty(s.shape, dtype=s.dtype, device="meta"))
                      for path, s in flatten(specs))
+
+
+def logical_axes(specs):
+    """The spec tree's logical axes: a tuple of names per leaf."""
+    return unflatten((path, s.axes) for path, s in flatten(specs))
 
 
 # ---------------------------------------------------------------- primitives

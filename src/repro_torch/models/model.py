@@ -12,7 +12,7 @@ from torch import nn
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import transformer as tfm
-from .layers import (abstract_params, flatten, init_params,
+from .layers import (abstract_params, flatten, init_params, logical_axes,
                      softmax_cross_entropy, unflatten)
 
 
@@ -60,6 +60,11 @@ class Model(nn.Module):
         and dtypes, no storage), whatever the module holds."""
         return abstract_params(tfm.model_specs(self.cfg))
 
+    def axes(self) -> dict:
+        """The logical axes of every parameter (the JAX ``Model.axes()``):
+        a tuple of names per leaf, in the parameter tree's layout."""
+        return logical_axes(tfm.model_specs(self.cfg))
+
     def n_params(self) -> int:
         """Parameters of the configuration, counted from its spec tree (a
         rank's sharded model counts them whole, as the JAX ``Model``)."""
@@ -99,6 +104,10 @@ class Model(nn.Module):
 
     def cache_spec(self, batch, max_len, dtype=torch.bfloat16):
         return tfm.cache_spec(self.cfg, batch, max_len, dtype)
+
+    def cache_axes(self) -> dict:
+        """The logical axes of :meth:`cache_spec`'s leaves."""
+        return tfm.cache_axes(self.cfg)
 
     # -- training ----------------------------------------------------------
     def forward(self, params, tokens, extras=None):

@@ -28,16 +28,17 @@ from .layers import spec, swiglu
 def moe_specs(cfg, layers):
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     s = {
-        "router": spec((layers, d, E), dtype=torch.float32),
-        "w_gate": spec((layers, E, d, ff)),
-        "w_up": spec((layers, E, d, ff)),
-        "w_down": spec((layers, E, ff, d)),
+        "router": spec((layers, d, E), ("layers", "embed", "experts"),
+                       dtype=torch.float32),
+        "w_gate": spec((layers, E, d, ff), ("layers", "experts", "embed", "ff")),
+        "w_up": spec((layers, E, d, ff), ("layers", "experts", "embed", "ff")),
+        "w_down": spec((layers, E, ff, d), ("layers", "experts", "ff", "embed")),
     }
     if cfg.n_shared_experts:
         sff = ff * cfg.n_shared_experts
-        s["shared_gate"] = spec((layers, d, sff))
-        s["shared_up"] = spec((layers, d, sff))
-        s["shared_down"] = spec((layers, sff, d))
+        s["shared_gate"] = spec((layers, d, sff), ("layers", "embed", "ff"))
+        s["shared_up"] = spec((layers, d, sff), ("layers", "embed", "ff"))
+        s["shared_down"] = spec((layers, sff, d), ("layers", "ff", "embed"))
     return s
 
 

@@ -32,17 +32,23 @@ def ssm_specs(cfg, layers):
     N = cfg.ssm_state
     # one projection per stream (z, x, BC, dt), the JAX package's layout
     return {
-        "in_z": spec((layers, d, di)),
-        "in_x": spec((layers, d, di)),
-        "in_bc": spec((layers, d, 2 * N)),
-        "in_dt": spec((layers, d, H)),
-        "conv_x": spec((layers, CONV_K, di), scale=0.5),
-        "conv_bc": spec((layers, CONV_K, 2 * N), scale=0.5),
-        "A_log": spec((layers, H), scale=0.0, dtype=torch.float32),
-        "dt_bias": spec((layers, H), scale=0.0, dtype=torch.float32),
-        "D": spec((layers, H), scale=-1.0, dtype=torch.float32),
-        "gate_norm": spec((layers, di), scale=-1.0, dtype=torch.float32),
-        "out_proj": spec((layers, di, d)),
+        "in_z": spec((layers, d, di), ("layers", "embed", "ff")),
+        "in_x": spec((layers, d, di), ("layers", "embed", "ff")),
+        "in_bc": spec((layers, d, 2 * N), ("layers", "embed", "ff")),
+        "in_dt": spec((layers, d, H), ("layers", "embed", "heads")),
+        "conv_x": spec((layers, CONV_K, di), ("layers", None, "ff"),
+                       scale=0.5),
+        "conv_bc": spec((layers, CONV_K, 2 * N), ("layers", None, "ff"),
+                        scale=0.5),
+        "A_log": spec((layers, H), ("layers", "heads"), scale=0.0,
+                      dtype=torch.float32),
+        "dt_bias": spec((layers, H), ("layers", "heads"), scale=0.0,
+                        dtype=torch.float32),
+        "D": spec((layers, H), ("layers", "heads"), scale=-1.0,
+                  dtype=torch.float32),
+        "gate_norm": spec((layers, di), ("layers", "ff"), scale=-1.0,
+                          dtype=torch.float32),
+        "out_proj": spec((layers, di, d), ("layers", "ff", "embed")),
     }
 
 

@@ -52,11 +52,11 @@ VISION_DIM = 1024  # stub vision-frontend embedding width (internvl2)
 def mlp_specs(cfg, layers):
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.mlp_act == "sq_relu":
-        return {"w_up": spec((layers, d, ff)),
-                "w_down": spec((layers, ff, d))}
-    return {"w_gate": spec((layers, d, ff)),
-            "w_up": spec((layers, d, ff)),
-            "w_down": spec((layers, ff, d))}
+        return {"w_up": spec((layers, d, ff), ("layers", "embed", "ff")),
+                "w_down": spec((layers, ff, d), ("layers", "ff", "embed"))}
+    return {"w_gate": spec((layers, d, ff), ("layers", "embed", "ff")),
+            "w_up": spec((layers, d, ff), ("layers", "embed", "ff")),
+            "w_down": spec((layers, ff, d), ("layers", "ff", "embed"))}
 
 
 def _check_family(cfg) -> None:
@@ -67,11 +67,13 @@ def _check_family(cfg) -> None:
 def model_specs(cfg):
     _check_family(cfg)
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
-    s = {"embed": spec((V, d), scale=0.02), "final_norm": norm_spec(d)}
+    s = {"embed": spec((V, d), ("vocab", "embed"), scale=0.02),
+         "final_norm": norm_spec(d)}
     if not cfg.tie_embeddings:
-        s["lm_head"] = spec((d, V), scale=1.0 / math.sqrt(d))
+        s["lm_head"] = spec((d, V), ("embed", "vocab"),
+                            scale=1.0 / math.sqrt(d))
     if cfg.n_patches:
-        s["vision_proj"] = spec((VISION_DIM, d))
+        s["vision_proj"] = spec((VISION_DIM, d), (None, "embed"))
     fam = cfg.family
     if fam == "encdec":
         Le = cfg.n_enc_layers
@@ -314,6 +316,32 @@ def cache_spec(cfg, batch, max_len, dtype=torch.bfloat16) -> dict:
             n_groups = _hybrid_split(cfg)[0]
             out["k"] = out["v"] = ((n_groups, batch, max_len, K, hd), dtype)
     out["cur_len"] = ((batch,), torch.int32)
+    return out
+
+
+def cache_axes(cfg) -> dict:
+    """The logical axes of each leaf of :func:`cache_spec` (the JAX
+    ``cache_spec``'s second result): K / V and the cross attention's
+    ``xk`` / ``xv`` ("layers", "batch", "seq_kv", "kv", "head_dim"), MLA's
+    latent over "lora", the SSM state over "heads", the conv windows over
+    "ff", ``cur_len`` over "batch"."""
+    _check_family(cfg)
+    kv = ("layers", "batch", "seq_kv", "kv", "head_dim")
+    fam = cfg.family
+    out = {}
+    if fam in ("dense", "moe", "encdec"):
+        out["k"] = out["v"] = kv
+        if fam == "encdec":
+            out["xk"] = out["xv"] = kv
+    elif fam == "mla_moe":
+        out["c"] = ("layers", "batch", "seq_kv", "lora")
+        out["r"] = ("layers", "batch", "seq_kv", None)
+    else:
+        out["state"] = ("layers", "batch", "heads", None, None)
+        out["conv_x"] = out["conv_bc"] = ("layers", "batch", None, "ff")
+        if fam == "hybrid":
+            out["k"] = out["v"] = kv
+    out["cur_len"] = ("batch",)
     return out
 
 

@@ -59,15 +59,23 @@ class AdamW:
                           tree_map(f32, abstract_params))
 
     @torch.no_grad()
-    def update(self, params, grads, state: AdamWState):
+    def update(self, params, grads, state: AdamWState, *, gnorm=None):
         """One step: writes the params and the moments in place and returns
-        ``(params, AdamWState(step + 1, mu, nu))``."""
+        ``(params, AdamWState(step + 1, mu, nu))``.
+
+        On a mesh, ``params``, ``grads`` and the moments are this rank's
+        shards of each leaf and ``gnorm`` is the global norm of the whole
+        gradient (:func:`global_norm` over the whole leaves), so the clip
+        scale is the one-device step's and the update of each shard is the
+        same slice of the one-device update.  Without ``gnorm`` the norm is
+        that of ``grads``."""
         step = int(state.step) + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
         gs = leaves(grads)
         scale = None
         if self.clip_norm:
-            gnorm = global_norm(gs)
+            if gnorm is None:
+                gnorm = global_norm(gs)
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
 
         b1, b2 = self.b1, self.b2

@@ -28,9 +28,11 @@ storage: a full-width cell is counted without a card and without memory.
   (the plain version on the CPU, the pads and copies around a launch on
   the card) are not counted.  So a step counts the same whether the CUDA
   kernel, the plain version or the ``meta`` route ran it.
-* **Collectives**, by kind: ``ops.gather_heads`` charges its all-gather's
-  payload (the gathered bytes; ``HloCost`` also adds twice the payload to
-  the HBM bytes, and so does this).
+* **Collectives**, by kind: ``ops.gather_heads`` and the training mesh's
+  ``distributed.collectives`` charge each call's payload (an all-gather's
+  gathered bytes, an all-reduce's tensor), counted as ``HloCost`` counts
+  them: an all-reduce twice (the ring's send and receive), every other
+  kind once, and twice the payload added to the HBM bytes.
 * **The peak of live bytes.**  The tracked inputs' storages, plus every
   storage an op allocates, each dropped when Python frees it (autograd's
   saved tensors stay live, as on the card), plus a kernel call's scratch
@@ -257,7 +259,7 @@ class OpCost(TorchDispatchMode):
                     self.product_flops_by_dtype[w.dtype] += w.flops
         if collective is not None:
             kind, payload = collective
-            self.coll_bytes[kind] += payload
+            self.coll_bytes[kind] += (2 if kind == "all-reduce" else 1) * payload
             self.coll_counts[kind] += 1
             self.hbm_bytes += 2 * payload
         if isinstance(out, torch.Tensor):

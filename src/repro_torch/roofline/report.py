@@ -5,7 +5,11 @@ roofline fraction, the peak of live bytes and whether it fits one card).
 Hardware model: one H100 SXM at its data-sheet peaks (NVIDIA H100 80GB
 HBM3, 700.00 W): 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s f32
 outside them (TF32 stays off), 3.35 TB/s HBM, 450 GB/s per direction of
-NVLink, 80 GB of HBM.  The compute term sums the products' FLOPs of each
+NVLink, 80 GB of HBM.  On the JAX meshes (``single``, 16 x 16, and
+``multi``, 2 x 16 x 16: 256 and 512 cards, 32 and 64 nodes of 8) a mesh
+axis of 16 ranks spans two nodes, so the collective term takes the
+inter-node rate of a card, ``POD_LINK_BYTES_PER_S``, where the ``one``
+cells have no collective.  The compute term sums the products' FLOPs of each
 dtype over that dtype's peak (a type without a tensor-core rate, f32 or
 an integer, at the f32 rate) and every other FLOP over the f32 rate
 outside the tensor cores: PyTorch's elementwise and reduction kernels
@@ -17,18 +21,24 @@ The JAX package's report is the counterpart on a TPU v5e.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
     PYTHONPATH=src python -m repro_torch.roofline.report
     PYTHONPATH=src python -m repro_torch.roofline.report --tag mytag
+    PYTHONPATH=src python -m repro_torch.roofline.report --mesh multi
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 
 CARD = "H100 SXM data sheet, NVIDIA H100 80GB HBM3, 700.00 W"
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 NVLINK_BYTES_PER_S = 450e9   # per direction
+# a card's link out of its node in a DGX H100 SuperPOD: one 400 Gb/s NDR
+# InfiniBand port (ConnectX-7) per H100 (NVIDIA DGX H100 data sheet), per
+# direction
+POD_LINK_BYTES_PER_S = 400e9 / 8
 HBM_CAPACITY_BYTES = 80e9
 
 DRYRUN_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
@@ -57,14 +67,20 @@ def term_seconds(rec: dict) -> dict:
             + (oc["flops_per_device"] - sum(products.values()))
             / PEAK_FLOPS["float32"])
     mem = oc["hbm_bytes_per_device"] / HBM_BYTES_PER_S
-    coll = oc["total_collective_bytes"] / NVLINK_BYTES_PER_S
+    coll = oc["total_collective_bytes"] / (
+        POD_LINK_BYTES_PER_S if rec.get("mesh") in ("single", "multi")
+        else NVLINK_BYTES_PER_S)
     dom = max(("compute", comp), ("memory", mem), ("collective", coll),
               key=lambda t: t[1])[0]
     step = max(comp, mem, coll)
-    # useful model FLOPs: 6·N_active·tokens (train) / 2·N_active·tokens (fwd)
+    # useful model FLOPs: 6·N_active·tokens (train) / 2·N_active·tokens
+    # (fwd), per device of the cell's mesh as the JAX report shares them (a
+    # rank of the port's mesh replicates its compute over "model", so its
+    # useful share of what it counts is below one)
     tokens = rec["global_batch"] * (rec["seq_len"] if rec["kind"] != "decode"
                                     else 1)
     mf = (6 if rec["kind"] == "train" else 2) * rec["n_active_params"] * tokens
+    mf /= math.prod(rec.get("mesh_shape", {}).values())
     return {
         "compute_s": comp, "memory_s": mem, "collective_s": coll,
         "dominant": dom, "bound_step_s": step,
@@ -96,7 +112,7 @@ def fmt_engineering(x: float) -> str:
     return f"{x:.3g}"
 
 
-def markdown_table(cells: list[dict], mesh: str = "single") -> str:
+def markdown_table(cells: list[dict], mesh: str = "one") -> str:
     rows = []
     hdr = ("| arch | shape | comp (ms) | mem (ms) | coll (ms) | dominant | "
            "useful/counted | roofline frac | peak GiB | fits one card |")
@@ -128,7 +144,8 @@ def markdown_table(cells: list[dict], mesh: str = "single") -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--mesh", default="single", choices=["single"])
+    ap.add_argument("--mesh", default="one",
+                    choices=["one", "single", "multi"])
     ap.add_argument("--dir", type=pathlib.Path, default=None,
                     help="e.g. experiments/dryrun_torch_baseline")
     args = ap.parse_args()
@@ -140,7 +157,7 @@ def main() -> None:
         worst = min(ok, key=lambda c: term_seconds(c)["roofline_frac"])
         print(f"\nworst roofline fraction: {worst['arch']}/{worst['shape']}")
         coll = [c for c in ok if term_seconds(c)["collective_s"]]
-        if coll:   # the single mesh has no collectives
+        if coll:
             most = max(coll, key=lambda c: term_seconds(c)["collective_s"]
                        / term_seconds(c)["bound_step_s"])
             print(f"most collective-bound:   {most['arch']}/{most['shape']}")

@@ -1,0 +1,230 @@
+"""Rank functions of the port's training-mesh checks, shared by
+``tests/test_torch_elastic.py`` (ranks on the CPU),
+``tests/test_torch_cuda.py`` (ranks on the card) and ``chip_smoke.py``.
+
+``launch.mesh.spawn_ranks`` starts each rank in a fresh process that
+imports its function by name, so they live here and not in a test module
+(which imports JAX).  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (mesh_axes, resolve_spec,
+                                              shard_spec, spec_shards,
+                                              tree_bytes_per_device,
+                                              tree_specs)
+from repro_torch.launch.mesh import make_debug_mesh, make_host_mesh
+from repro_torch.launch.steps import make_train_fn, shard_batch
+from repro_torch.launch.train import TOKENS_AXES, _opt_axes, train
+from repro_torch.models import Model
+from repro_torch.optim import AdamW
+from repro_torch.tree import leaves, tree_map
+
+ARCH = "qwen3-1.7b"
+CKPT = dict(keep_last=2, async_save=False, seg_bytes=1 << 20,
+            chunk_bytes=64 << 10)
+
+
+def _shards(tree, axes, mesh):
+    """This rank's shard of each leaf of a whole tree."""
+    it = iter(tree_specs(axes, tree, mesh))
+    return tree_map(lambda t: shard_spec(t, next(it), mesh), tree)
+
+
+def _whole(tree, axes, template, mesh):
+    """Each leaf of a tree of this rank's shards gathered whole."""
+    it = iter(tree_specs(axes, template, mesh))
+    return tree_map(lambda t: collectives.gather(t.detach(), next(it), mesh),
+                    tree)
+
+
+def sharded_steps(rank, device, shape, params, batches, opt_kw,
+                  ckpt_root) -> dict:
+    """``len(batches)`` sharded train steps on a ``shape`` (data, model)
+    mesh from the whole ``params`` (every rank gets the same), each batch
+    the global one; then a save of params and moments from the mesh into
+    ``ckpt_root`` (None: no save).  Returns the losses, rank 0's gathered
+    params, and the bytes this rank holds beside
+    ``tree_bytes_per_device``."""
+    mesh = make_debug_mesh(*shape, device.type)
+    model = Model(get_config(ARCH).smoke(), params={})
+    opt = AdamW(**opt_kw)
+    axes = model.axes()
+    # a copy: the spawned ranks share the storage of `params`
+    p = _shards(tree_map(lambda t: t.to(device, copy=True), params), axes,
+                mesh)
+    for t in leaves(p):
+        t.requires_grad_(True)
+    state = opt.init(p)
+    step = make_train_fn(model, opt, mesh,
+                         global_batch=batches[0]["tokens"].shape[0])
+    losses = []
+    for b in batches:
+        b = shard_batch({k: v.to(device) for k, v in b.items()},
+                        TOKENS_AXES, mesh)
+        p, state, loss = step(p, state, b)
+        losses.append(float(loss))
+    held = sum(t.numel() * t.element_size() for t in leaves(p))
+    whole = _whole(p, axes, params, mesh)
+    out = {"losses": losses, "held_bytes": held,
+           "per_device_bytes": tree_bytes_per_device(axes, params, mesh)}
+    if ckpt_root is not None:
+        mgr = CheckpointManager(ckpt_root, **CKPT)
+        tree = {"params": p, "opt_state": state}
+        mgr.save(1, tree, mesh=mesh, specs=tree_specs(
+            {"params": axes, "opt_state": _opt_axes(model)},
+            {"params": params, "opt_state": opt.abstract_state(params)},
+            mesh))
+    if rank == 0:
+        out["params"] = tree_map(lambda t: t.cpu(), whole)
+    return out
+
+
+def restore_onto(rank, device, shape, ckpt_root, want, step_batch,
+                 opt_kw) -> dict:
+    """Restore the params of ``ckpt_root`` onto a ``shape`` mesh (or
+    ``"host"``: the trainer's ``make_host_mesh``, every rank on "data"):
+    each leaf held against this rank's slice of ``want`` (the saved whole
+    params) bit for bit, the bytes this rank holds against its shards' per
+    ``tree_bytes_per_device``; then, given ``step_batch``, restore params
+    and moments and take a train step."""
+    mesh = (make_host_mesh(device.type) if shape == "host"
+            else make_debug_mesh(*shape, device.type))
+    model = Model(get_config(ARCH).smoke(), params={})
+    axes = model.axes()
+    template = tree_map(lambda t: torch.empty_like(t, device="meta"), want)
+    mgr = CheckpointManager(ckpt_root, **CKPT)
+    got = mgr.restore({"params": template}, 1, device=device, mesh=mesh,
+                      axes={"params": axes})["params"]
+    specs = tree_specs(axes, template, mesh)
+    bitwise = all(torch.equal(g.cpu(), shard_spec(w, sp, mesh))
+                  for g, w, sp in zip(leaves(got), leaves(want), specs))
+    out = {"bitwise": bitwise, "mesh": mesh_axes(mesh),
+           "held_bytes": sum(t.numel() * t.element_size()
+                             for t in leaves(got)),
+           "per_device_bytes": tree_bytes_per_device(axes, template, mesh),
+           "cut_leaves": sum(spec_shards(sp, mesh) > 1 for sp in specs)}
+    if step_batch is not None:
+        opt = AdamW(**opt_kw)
+        full = {"params": template,
+                "opt_state": opt.abstract_state(template)}
+        st = mgr.restore(full, 1, device=device, mesh=mesh, axes={
+            "params": axes, "opt_state": _opt_axes(model)})
+        p, state = st["params"], st["opt_state"]
+        state = state._replace(step=state.step.cpu())
+        for t in leaves(p):
+            t.requires_grad_(True)
+        step = make_train_fn(model, opt, mesh, global_batch=step_batch[
+            "tokens"].shape[0])
+        b = shard_batch({k: v.to(device) for k, v in step_batch.items()},
+                        TOKENS_AXES, mesh)
+        _, _, loss = step(p, state, b)
+        out["loss"] = float(loss)
+    return out
+
+
+def restart_runs(rank, device, shape, kw, ckpt_root) -> dict:
+    """``train`` on a ``shape`` mesh twice: clean, and with ``kw``'s
+    failure, checkpointing into ``ckpt_root``; both logs' losses."""
+    mesh = make_debug_mesh(*shape, device.type)
+    clean = train(device=device, mesh=mesh, verbose=False,
+                  **{k: v for k, v in kw.items() if k != "fail_at"})
+    faulty = train(device=device, mesh=mesh, verbose=False,
+                   ckpt_dir=ckpt_root, **kw)
+    return {"clean": clean["loss"], "faulty": faulty["loss"],
+            "restarts": faulty["restarts"],
+            "resumed_from": faulty["resumed_from"]}
+
+
+def joint_axis_round_trip(rank, device) -> dict:
+    """On a (pod 2, data 2, model 1) mesh: a tensor cut over the joint
+    ("pod", "data") axis gathers back whole, each rank holding rows
+    ``pod * 2 + data``; an all-reduce over it is the mean of the four
+    ranks' values."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh(device.type, (2, 2, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    whole = torch.arange(8 * 3, dtype=torch.float32, device=device).reshape(
+        8, 3)
+    spec = resolve_spec((8, 3), ("batch", None), mesh, {
+        "batch": [("pod", "data"), ("data",)]})
+    mine = shard_spec(whole, spec, mesh)
+    back = collectives.gather(mine, spec, mesh)
+    x = torch.full((2,), float(dist.get_rank()), device=device)
+    collectives.all_reduce_mean(x, spec[0], mesh)
+    return {"spec": spec, "rows": mine[:, 0].tolist(),
+            "round_trip": torch.equal(back, whole),
+            "mean": x.tolist()}
+
+
+def grow_back_and_restart(rank, device, ckpt_root, want, step_batch, opt_kw,
+                          train_kw, restart_root) -> dict:
+    """One spawn of 2 x 2 ranks: :func:`restore_onto` with a step,
+    :func:`restart_runs`, then :func:`joint_axis_round_trip` on the same
+    four ranks."""
+    return {"grown": restore_onto(rank, device, (2, 2), ckpt_root, want,
+                                  step_batch, opt_kw),
+            "restart": restart_runs(rank, device, (2, 2), train_kw,
+                                    restart_root),
+            "joint": joint_axis_round_trip(rank, device)}
+
+
+def deterministic() -> None:
+    """Deterministic kernels and no TF32, before a rank's first cuBLAS call
+    (``chip_smoke.py``'s train phase's settings)."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def one_by_one_against_one_device(rank, device, params, batches,
+                                  opt_kw) -> dict:
+    """The same steps from the same params on one device and on a (1, 1)
+    mesh (a one-rank process group): each run's losses and whole params."""
+    deterministic()
+    model = Model(get_config(ARCH).smoke(), params={})
+    out = {}
+    for name, mesh in (("one", None), ("mesh", make_debug_mesh(
+            1, 1, device.type))):
+        p = tree_map(lambda t: t.to(device, copy=True).requires_grad_(True),
+                     params)
+        opt = AdamW(**opt_kw)
+        state = opt.init(p)
+        step = (make_train_fn(model, opt) if mesh is None else
+                make_train_fn(model, opt, mesh,
+                              global_batch=batches[0]["tokens"].shape[0]))
+        losses = []
+        for b in batches:
+            p, state, loss = step(p, state, {k: v.to(device)
+                                             for k, v in b.items()})
+            losses.append(float(loss))
+        out[name] = {"losses": losses,
+                     "params": tree_map(lambda t: t.detach().cpu(), p)}
+    return out
+
+
+def round_trip(rank, device, whole) -> dict:
+    """On a (2, 1) mesh: this rank's shard of each leaf of ``whole``
+    gathered back (bitwise the leaf?), and the mean of the ranks' numbers
+    over "data"."""
+    mesh = make_debug_mesh(2, 1, device.type)
+    model = Model(get_config(ARCH).smoke(), params={})
+    specs = tree_specs(model.axes(), whole, mesh)
+    equal = []
+    for t, sp in zip(leaves(whole), specs):
+        t = t.to(device)
+        mine = shard_spec(t, sp, mesh)
+        equal.append(torch.equal(collectives.gather(mine, sp, mesh), t))
+    x = torch.full((3,), float(rank), device=device)
+    collectives.all_reduce_mean(x, "data", mesh)
+    return {"gathered_equal": equal, "cut": sum(
+        spec_shards(sp, mesh) > 1 for sp in specs), "mean": x.tolist()}

@@ -1337,6 +1337,47 @@ def test_nccl_world_size_one_is_the_unsharded_engine(dev, tmp_path):
     assert got["metrics"] == base["metrics"]
 
 
+# ------------------------------------------------- training on a mesh
+
+def _smoke_train_case():
+    """The smoke qwen3's f32 params (one CPU draw) and three batches."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    params = _cast(Model(cfg, device="cpu", seed=0).params, "cpu",
+                   torch.float32)
+    rng = np.random.default_rng(5)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))} for _ in range(3)]
+    return params, batches
+
+
+def test_nccl_one_by_one_mesh_step_is_the_one_device_step(dev):
+    """One nccl rank (a process of its own, deterministic kernels): three
+    sharded steps on the (1, 1) mesh give the one-device steps' losses and
+    params bit for bit."""
+    import _torch_mesh as tm
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.tree import leaves
+    params, batches = _smoke_train_case()
+    r, = spawn_ranks(tm.one_by_one_against_one_device, 1, params, batches,
+                     dict(lr=3e-3, weight_decay=0.1, clip_norm=1.0),
+                     backend="nccl", device="cuda")
+    assert r["mesh"]["losses"] == r["one"]["losses"]
+    for a, b in zip(leaves(r["mesh"]["params"]), leaves(r["one"]["params"])):
+        assert torch.equal(a, b)
+
+
+def test_gather_and_shard_round_trip_on_the_card(dev):
+    """Two gloo ranks sharing the card on a (2, 1) mesh: each leaf's shard
+    gathers back to the whole leaf bit for bit; the mean over "data"."""
+    import _torch_mesh as tm
+    from repro_torch.launch.mesh import spawn_ranks
+    params, _ = _smoke_train_case()
+    for r in spawn_ranks(tm.round_trip, 2, params, backend="gloo",
+                         device="cuda"):
+        assert r["cut"] > 0 and all(r["gathered_equal"])
+        assert r["mean"] == [0.5] * 3
+
+
 # ------------------------------------------------------ the MoE family
 
 MOE = "qwen3-moe-30b-a3b"

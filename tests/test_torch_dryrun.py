@@ -7,8 +7,10 @@ same count on ``meta`` and on CPU tensors, and the port's FLOPs of a smoke
 dense forward beside ``HloCost``'s of the JAX forward.  The JAX side runs on
 the CPU (``JAX_PLATFORMS=cpu``)."""
 
+import dataclasses
 import json
 import pkgutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -233,6 +235,80 @@ def test_report_renders_ok_skipped_and_error_rows(tmp_path):
     assert t["memory_s"] == (rec["op_cost"]["hbm_bytes_per_device"]
                              / report.HBM_BYTES_PER_S)
     assert report.fmt_engineering(2.5e12) == "2.5T"
+
+
+# the twin of tests/test_sharding.py::test_multidevice_dryrun_smoke: its
+# archs and cells (train B 4 x 32, decode B 4 over 64) at a 2 x 2 x 2 mesh,
+# here given as sizes (rank 0 counted on meta, no rank spawned)
+MESH_2X2X2 = {"pod": 2, "data": 2, "model": 2}
+MESH_CELLS = [(arch, name, B, S) for arch in ("qwen3-1.7b",
+                                              "qwen3-moe-30b-a3b",
+                                              "mamba2-1.3b")
+              for name, B, S in (("train_4k", 4, 32), ("decode_32k", 4, 64))]
+
+
+@pytest.mark.parametrize("arch,shape_name,B,S", MESH_CELLS,
+                         ids=[f"{a}-{n}" for a, n, _, _ in MESH_CELLS])
+def test_smoke_cells_at_a_2x2x2_mesh(arch, shape_name, B, S):
+    """Each cell builds and counts (FLOPs > 0, the train cell's gradient
+    all-reduce and parameter gathers as collective bytes > 0), and its
+    per-device bytes are JAX's ``tree_bytes_per_device`` on the same
+    mesh."""
+    cfg, jm = get_config(arch).smoke(), JModel(j_get_config(arch).smoke())
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=B,
+                                seq_len=S)
+    fn, args = build_cell(cfg, shape, mesh=MESH_2X2X2)
+    with OpCost(inputs=args) as oc:
+        fn(*args)
+    s = oc.summary()
+    assert s["flops_per_device"] > 0 and s["hbm_bytes_per_device"] > 0
+    assert s["collective_counts"]["all-gather"] > 0
+    if shape.kind == "train":
+        assert s["collective_bytes_per_device"]["all-reduce"] > 0
+    fake = types.SimpleNamespace(axis_names=tuple(MESH_2X2X2),
+                                 shape=MESH_2X2X2)
+    got = dryrun.bytes_per_device(Model(cfg, params={}), shape, MESH_2X2X2)
+    assert got["param_bytes_per_device"] == tree_bytes_per_device(
+        jm.axes(), jm.abstract(), fake)
+    if shape.kind == "train":
+        assert got["opt_bytes_per_device"] == 2 * tree_bytes_per_device(
+            jm.axes(), JAdamW().abstract_state(jm.abstract()).mu, fake)
+    else:
+        c_abs, c_axes = jm.cache_spec(B, S)
+        assert got["cache_bytes_per_device"] == tree_bytes_per_device(
+            c_axes, c_abs, fake)
+
+
+def test_run_cell_records_the_jax_meshes(tmp_path):
+    """A cell at ``single`` and ``multi`` carries the JAX record's
+    ``mesh_shape`` and per-device keys; ``one`` is one card."""
+    recs = {m: dryrun.run_cell("qwen3-1.7b", "train_4k", tmp_path,
+                               smoke=True, mesh=m)
+            for m in ("one", "single", "multi")}
+    assert recs["one"]["mesh_shape"] == {"data": 1, "model": 1}
+    assert recs["single"]["mesh_shape"] == {"data": 16, "model": 16}
+    assert recs["multi"]["mesh_shape"] == {"pod": 2, "data": 16,
+                                           "model": 16}
+    for m, rec in recs.items():
+        assert rec["status"] == "ok" and rec["mesh"] == m
+        coll = rec["op_cost"]["total_collective_bytes"]
+        assert (coll > 0) == (m != "one")
+        assert rec["opt_bytes_per_device"] > 0
+
+
+def test_run_cell_counts_again_a_record_of_another_mesh(tmp_path):
+    """A record under the cell's name whose ``mesh_shape`` is not the
+    mesh's (a one-card record once named ``single``) is not read back: the
+    cell is counted again at its mesh, and that record is read back."""
+    cid = dryrun.cell_id("qwen3-1.7b", "train_4k", "single", "smoke")
+    (tmp_path / f"{cid}.json").write_text(json.dumps(
+        {"status": "ok", "mesh": "single", "mesh_shape": dryrun.ONE}))
+    rec = dryrun.run_cell("qwen3-1.7b", "train_4k", tmp_path, smoke=True,
+                          mesh="single")
+    assert rec["mesh_shape"] == {"data": 16, "model": 16}
+    assert rec["op_cost"]["total_collective_bytes"] > 0
+    assert dryrun.run_cell("qwen3-1.7b", "train_4k", tmp_path, smoke=True,
+                           mesh="single") == rec
 
 
 def test_the_module_walk_holds_the_dry_run():
