@@ -36,8 +36,11 @@ Phases, in order; any failure raises and the process exits non-zero:
              causal) mask.  Paged attention and flash also run at the
              moe phase's heads (Qwen3-30B-A3B: G 8 over Kh 4; H 32 / Kh 4
              at S 1,024), and flash at the families phase's Zamba2-7B heads
-             (H 32 / Kh 32, D 112, zero-padded to a D 128 launch on the
-             tensor-core route; its bound counts D 112's work) and at the
+             (H 32 / Kh 32, D 112, launched at D on the tensor-core route:
+             TMA zero-fills the tile's columns past 112, nothing is
+             padded), at Nemotron-4-340B's heads (H 96 / Kh 8, D 192, S
+             1,024) in bf16 (tensor cores, 64-row kv tiles) and f32 (CUDA
+             cores), and at the
              encdec phase's shapes: Whisper-medium's encoder (B 2, H 16 /
              Kh 16, D 64, 1,500 x 1,500 frames) and cross attention (384
              rows over 1,500 frame keys), both non-causal (SDPA without a
@@ -327,13 +330,13 @@ Phases, in order; any failure raises and the process exits non-zero:
              prefill (B 2 x S 1,024 through ``ops.flash_attention``, one
              launch per layer) and one decode step (B 8 over a 1,024-token
              cache); and Zamba2-7B's prefill of B 2 x S 1,024 at full width,
-             cut to ``DRYRUN_PAD_LAYERS``, whose flash launches zero-pad its
-             head dim of 112 to 128.  Each cell is built on ``meta`` and on
+             cut to ``DRYRUN_ZAMBA_LAYERS``, whose flash launches run at its
+             head dim of 112.  Each cell is built on ``meta`` and on
              the card and run once under a counter on each: FLOPs by dtype,
              HBM bytes and kernel charges must be equal, and the flash
-             charges (and Zamba2's ``flash_pad`` charges) equal the launches
-             of the counted run; one flash call at Zamba2's heads holds
-             the pad's scratch to the card's peak on its own.  The card's
+             charges equal the launches of the counted run; one flash call
+             at Zamba2's heads charges the kernel alone and holds its
+             count's peak (the output) to the card's on its own.  The card's
              ``max_memory_allocated`` above its level before the cell was
              built must lie within ``DRYRUN_PEAK_BAR`` of the count's peak of
              live bytes.  Reported: the step's median time without the
@@ -582,6 +585,8 @@ FAMILY_ARCHS = {"deepseek-v2-lite-16b": (16210324992, 2663247360),
                 "zamba2-7b": (6750539856, 6750539856),
                 "mamba2-1.3b": (1446505472, 1446505472)}
 ZAMBA_ARCH = "zamba2-7b"
+# the kernels phase's flash lines at head dim 192 (its prefill's heads)
+NEMOTRON_ARCH = "nemotron-4-340b"
 FAMILY_PROMPTS = ((2, 1024), (1, 1000))   # (batch, prompt tokens)
 FAMILY_DECODE = 32
 FAMILY_AGREE = 0.85                       # tests/test_models.py:97
@@ -631,8 +636,8 @@ DRYRUN_CELLS = (ShapeConfig("train", 1024, 2, "train"),      # the train phase's
                 ShapeConfig("prefill", 1024, 2, "prefill"),  # 28 flash launches
                 ShapeConfig("decode", 1024, 8, "decode"))    # one step, 1,024 keys
 # and a prefill at Zamba2-7B's full width, cut to 12 of 81 layers (two
-# shared-attention launches, each with its head dim of 112 padded to 128)
-DRYRUN_PAD_ARCH, DRYRUN_PAD_LAYERS = "zamba2-7b", 12
+# shared-attention launches at its head dim of 112)
+DRYRUN_ZAMBA_ARCH, DRYRUN_ZAMBA_LAYERS = "zamba2-7b", 12
 DRYRUN_REPS = 5   # timed steps per cell (median), after one warm-up
 # measured peak (max_memory_allocated above the level before the cell is
 # built) over the count's predicted peak of live bytes: 1.000104-1.000115
@@ -871,7 +876,7 @@ def check_flash_attention(dtype, S, timer, H=16, Kh=8, D=128, *, B=1,
             "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"B": B, "H": H, "Kh": Kh, "S": S, "D": D,
                       **({} if Skv == S else {"Skv": Skv}),
-                      "launch_D": ops.flash_launch_dim(dtype, D),
+                      "launch_D": D,
                       "causal": causal}}
 
 
@@ -1016,11 +1021,14 @@ def phase_kernels() -> dict:
     for dtype, S in [(torch.bfloat16, S) for S in FLASH_BUCKETS] + [(torch.float32, 1024)]:
         r = check_flash_attention(dtype, S, timer)
         emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})
-        if dtype == torch.bfloat16 and S == max(FLASH_BUCKETS):
-            main["flash_attention"] = r
+        if S == max(FLASH_BUCKETS):
+            main["flash_attention" if dtype == torch.bfloat16
+                 else "flash_attention_f32"] = r
     for dtype in (torch.bfloat16, torch.float32):
         r = check_flash_offset(dtype, timer)
         emit({"phase": "kernel", "name": "flash_attention", "dtype": str(dtype), **r})
+        if dtype == torch.float32:
+            main["flash_attention_f32_hit"] = r
     # a chunked prefill's last chunk of a 1,024-token prompt
     r = check_flash_offset(torch.bfloat16, timer, Sq=PREFILL_CHUNK)
     emit({"phase": "kernel", "name": "flash_attention", "dtype": "torch.bfloat16", **r})
@@ -1039,7 +1047,7 @@ def phase_kernels() -> dict:
           "dtype": "torch.bfloat16", **r})
     main["flash_attention_moe"] = r
     # the families phase's shared attention (Zamba2-7B: 32 q over 32 kv
-    # heads of D 112, zero-padded to the D 128 launch)
+    # heads of D 112, launched at D)
     zamba = get_config(ZAMBA_ARCH)
     r = check_flash_attention(torch.bfloat16, max(FLASH_BUCKETS), timer,
                               H=zamba.n_heads, Kh=zamba.n_kv_heads,
@@ -1047,6 +1055,17 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", "name": "flash_attention", "model": ZAMBA_ARCH,
           "dtype": "torch.bfloat16", **r})
     main["flash_attention_zamba2"] = r
+    # Nemotron-4-340B's heads (96 q over 8 kv heads of D 192), whose
+    # prefill the dry-run counts on the kernel, in bf16 and f32
+    nemo = get_config(NEMOTRON_ARCH)
+    for dtype, key in ((torch.bfloat16, "nemotron"),
+                       (torch.float32, "nemotron_f32")):
+        r = check_flash_attention(dtype, max(FLASH_BUCKETS), timer,
+                                  H=nemo.n_heads, Kh=nemo.n_kv_heads,
+                                  D=nemo.hd)
+        emit({"phase": "kernel", "name": "flash_attention",
+              "model": NEMOTRON_ARCH, "dtype": str(dtype), **r})
+        main[f"flash_attention_{key}"] = r
     # the encdec phase's shapes: Whisper-medium's encoder (non-causal, 1,500
     # frames over 1,500) and cross attention (the prompt's 384 rows over
     # 1,500 frame keys), H 16 / Kh 16, D 64, B 2; InternVL2-76B's heads (H
@@ -2919,7 +2938,6 @@ def flash_check(q, k, v, kw) -> dict:
     return {"shape": list(q.shape), "kv_shape": list(k.shape),
             "dtype": str(q.dtype).removeprefix("torch."),
             "route": ops.flash_route(q.dtype, q.shape[-1]),
-            "launch_dim": ops.flash_launch_dim(q.dtype, q.shape[-1]),
             "v_max_abs": v_max, "max_abs_err": max_err(got, want),
             "bar_share": float(((got - want).abs()
                                 / (tol * v_max + tol * want.abs())).max()),
@@ -3469,12 +3487,12 @@ def dryrun_cell(cfg, shape, n_active: int) -> dict:
     return out
 
 
-def dryrun_pad_call(cfg) -> dict:
-    """One flash call at ``cfg``'s heads (B 2 x S 1,024, bf16), whose head
-    dim the launch zero-pads: its count on ``meta`` and on the card, and
-    the card's ``max_memory_allocated`` above the inputs beside the count's
-    peak (the output and the pad's scratch), which a whole cell's peak
-    need not reach."""
+def dryrun_flash_call(cfg) -> dict:
+    """One flash call at ``cfg``'s heads (B 2 x S 1,024, bf16), launched at
+    its head dim (Zamba2's 112, which was zero-padded to 128 before the
+    kernel had an instance of it): its count on ``meta`` and on the card,
+    and the card's ``max_memory_allocated`` above the inputs beside the
+    count's peak (the output alone: no scratch)."""
     free_card()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = (torch.randn((2, 1024, cfg.n_heads, cfg.hd), generator=gen,
@@ -3492,8 +3510,8 @@ def dryrun_pad_call(cfg) -> dict:
     torch.cuda.synchronize()
     measured = torch.cuda.max_memory_allocated() - base
     meta, card = om.summary(), oc.summary()
-    out = {"shape": list(q.shape), "launch_dim": ops.flash_launch_dim(
-               torch.bfloat16, cfg.hd),
+    out = {"shape": list(q.shape), "route": ops.flash_route(torch.bfloat16,
+                                                          cfg.hd),
            "counts_equal": meta == card,
            "launches": ops.launches["flash_attention"] - n0,
            "kernel_charges": card["kernel_charges"],
@@ -3510,7 +3528,7 @@ def phase_dryrun(smi) -> dict:
     this process.  Returns the phase's launches."""
     t0 = time.perf_counter()
     qwen = get_config(DRYRUN_ARCH)
-    zamba = get_config(DRYRUN_PAD_ARCH).with_(n_layers=DRYRUN_PAD_LAYERS)
+    zamba = get_config(DRYRUN_ZAMBA_ARCH).with_(n_layers=DRYRUN_ZAMBA_LAYERS)
     ops.reset_launches()
     cells, failures = [], []
     for cfg, shape in [(qwen, s) for s in DRYRUN_CELLS] + [
@@ -3528,26 +3546,23 @@ def phase_dryrun(smi) -> dict:
         launched = r["launches_in_counted_run"]["flash_attention"]
         want = (0 if shape.kind != "prefill" else cfg.n_layers
                 if cfg.family == "dense" else cfg.n_layers // cfg.attn_period)
-        pads = charges.get("flash_pad", {}).get("calls", 0)
-        padded = ops.flash_launch_dim(torch.bfloat16, cfg.hd) != cfg.hd
-        if flash != launched or flash != want or pads != (
-                launched if padded else 0):
-            failures.append(f"{name}: {flash} flash charges, {pads} pad "
-                            f"charges, {launched} launches, {want} wanted")
+        if flash != launched or flash != want:
+            failures.append(f"{name}: {flash} flash charges, {launched} "
+                            f"launches, {want} wanted")
         lo, hi = DRYRUN_PEAK_BAR
         if not lo <= r["peak_ratio"] <= hi:
             failures.append(f"{name}: measured peak {r['peak_ratio']:.4f}"
                             f" of the predicted one, outside {DRYRUN_PEAK_BAR}")
-    pad = dryrun_pad_call(zamba)
-    if not (pad["counts_equal"] and pad["launches"] == 1
-            and pad["kernel_charges"]["flash_pad"]["calls"] == 1
-            and lo <= pad["peak_ratio"] <= hi):
-        failures.append(f"padded flash call: {pad}")
+    call = dryrun_flash_call(zamba)
+    if not (call["counts_equal"] and call["launches"] == 1
+            and set(call["kernel_charges"]) == {"flash_attention"}
+            and lo <= call["peak_ratio"] <= hi):
+        failures.append(f"flash call at D {zamba.hd}: {call}")
     launches = dict(ops.launches)
     out = {"phase": "dryrun", "card": smi,
            "dtype": "bfloat16", "peaks": report.CARD,
            "peak_bar": DRYRUN_PEAK_BAR, "cells": cells,
-           "padded_flash_call": pad, "launches": launches,
+           "flash_call_d112": call, "launches": launches,
            "phase_seconds": time.perf_counter() - t0, "failures": failures}
     emit(out)
     if failures:
@@ -4045,13 +4060,17 @@ def main() -> None:
                                           "bound_ms", "bound_by",
                                           "library_ms")},
          # the same kernel at the moe phase's heads (H 32 over Kh 4), at
-         # the families phase's Zamba2 heads (H 32 over Kh 32, D 112) and
-         # at the encdec phase's shapes (Whisper's encoder and cross
-         # attention, non-causal, D 64; InternVL2's H 64 over Kh 8)
+         # the families phase's Zamba2 heads (H 32 over Kh 32, D 112), at
+         # Nemotron-4's (H 96 over Kh 8, D 192; bf16 and f32), at the
+         # encdec phase's shapes (Whisper's encoder and cross attention,
+         # non-causal, D 64; InternVL2's H 64 over Kh 8), and in f32 on
+         # the CUDA cores at qwen3's heads (S 1,024 and the prefix hit)
          **{f"at_{model}_heads": {k: results[f"{name}_{model}"][k] for k in (
              "kernel_ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")} for model in (
-                 "moe", "zamba2", *encdec_flash_shapes())
+             "library_ms", "shape", "flash_route")
+             if k in results[f"{name}_{model}"]} for model in (
+                 "moe", "zamba2", "nemotron", "nemotron_f32",
+                 *encdec_flash_shapes(), "f32", "f32_hit")
             if f"{name}_{model}" in results}}
         for name in KERNELS]})
     print(smi, flush=True)

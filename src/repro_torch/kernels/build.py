@@ -23,9 +23,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # no --use_fast_math: mdc_priority's parity with the JAX key rests on IEEE f32
-# division
+# division.  --split-compile optimises a source's kernels on several threads:
+# the build's time is its largest source's (paged attention's 48 instances),
+# and it counts against chip_smoke.py's time limit; the code is the same
+# (the card tests' sha256 digests of paged and flash attention hold)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=4",
+              "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PLL = ctypes.POINTER(ctypes.c_longlong)

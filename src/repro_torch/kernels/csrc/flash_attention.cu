@@ -7,15 +7,18 @@
 // Bound on the H100: arithmetic.  A causal prefill of S tokens does
 // 4 * B * H * D * S(S+1)/2 flops on 2 * (B*H + B*Kh) * S * D elements, so at
 // S = 1024 it sits far above the ~295 flops/byte ridge: the least time is the
-// flops over the tensor-core peak (989 TFLOP/s bf16).
+// flops over the tensor-core peak (989 TFLOP/s bf16), or, in f32, over the
+// CUDA cores' (67 TFLOP/s).
 //
 // Two routes, chosen by the wrapper from (dtype, D) and passed in `route`:
 //
-// * tensor cores (route 1: bf16, D in {64, 128}) — the prefill's route.  A CTA
+// * tensor cores (route 1: bf16, D a multiple of 16 from 64 to 128, or 192)
+//   — the prefill's route.  A CTA
 //   owns 128 query rows of one (b, h): two consumer warpgroups of 64 rows and
 //   one producer warpgroup.  One producer thread keeps Q and a two-stage ring
-//   of 128-row K and V tiles in flight with TMA (128-byte swizzle, completion
-//   on mbarriers), while the consumers run S = Q.K^T as wgmma m64n128k16 with
+//   of K and V tiles (128 rows; 64 at D 192, for shared memory) in flight
+//   with TMA (128-byte swizzle, completion
+//   on mbarriers), while the consumers run S = Q.K^T as wgmma m64nBNk16 with
 //   both operands in shared memory (K-major), the online softmax in registers
 //   on the accumulator's layout (a row lives in a quad of lanes: two
 //   shuffles), and O += P.V as wgmma with P converted to bf16 in registers
@@ -25,24 +28,29 @@
 //   producer gives up its registers with setmaxnreg.  Causal kv tiles wholly
 //   above the diagonal are never loaded, only tiles that cross it (or the
 //   ragged end of Skv) are masked, and CTAs take q tiles heaviest first.
-//   Ragged Sq and Skv come from TMA's zero fill and clipping, not padding.
+//   Ragged Sq and Skv come from TMA's zero fill and clipping, not padding;
+//   so does a head dim between 64 and 128: the tensor maps are built at D,
+//   the tile is D rounded up to 64 columns, TMA zero-fills the columns past
+//   D, Q.K^T runs D/16 k-steps, P.V runs at the tile's width, and the store
+//   clips the columns past D (D 112 is bit for bit the D 128 launch over
+//   zero-padded copies at the same scale).
 //   The output is staged in the warpgroup's own Q rows and written by a TMA
 //   store.  Operands are read through 4-D tensor maps built from element
 //   strides, so (B, S, H, D) and (B, H, S, D) inputs need no copies.
-// * CUDA cores (route 0: f32, and bf16 at a head dim the first route does not
-//   instantiate).  One block of 128 threads per (32 query rows, head,
-//   batch); each step loads a 32-row K and V tile with 16-byte loads, widened
-//   to f32 (rows padded by 4 floats so the float4 reads below are bank-
-//   conflict free).  Four threads share a query row: each computes 8 of the
-//   32 logits, the row max and sum come from two warp shuffles, p goes through
-//   shared memory, and each thread keeps D/4 output columns in f32
-//   registers.  f32 stays here: TF32 tensor cores would break the 2e-5 parity
-//   bar.
+// * CUDA cores (route 0: f32 at every multiple of 16 up to 128 and at 192,
+//   bf16 below 64), register-tiled as a SIMT SGEMM: 256 threads own 64 query
+//   rows; per 64-row kv tile each thread computes a 4 x 4 tile of S and a
+//   4 x D/16 tile of O, reading Q, K, P and V from shared memory as float4,
+//   so each float read feeds 4 FMAs or more.  K/V tiles arrive by cp.async,
+//   V's while S is computed and the next K's while O accumulates.  f32 stays
+//   IEEE: plain FMAs in d order and expf; TF32 tensor cores would break the
+//   2e-5 parity bar.
 //
 // Both: query row i sits at absolute position q_offset + i and, when causal,
 // attends keys 0 .. q_offset + i (a continuation prefill after a cached
 // prefix of q_offset tokens; q_offset = 0 is a whole prompt).  The kv tiles
-// and their ascending order depend only on Skv, and a tile fully masked for
+// and their ascending order depend only on Skv (and the route's tile for
+// D), and a tile fully masked for
 // a row adds exactly nothing to it (alpha = 1, p = 0), so a row's result
 // depends, bit for bit, only on its absolute position, its query and the
 // keys: not on which other rows share its call or its tile.  Query head h
@@ -72,30 +80,87 @@ struct Layout {
   Strides q, k, v, o;
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // ---------------------------------------------------------------- CUDA cores
 
 namespace simt {
 
-constexpr int kThreads = 128;
-constexpr int BQ = 32;  // query rows per block (4 threads per row)
-constexpr int BK = 32;  // kv rows per step (8 logits per thread)
+constexpr int kThreads = 256;
+constexpr int TPR = 16;                  // threads per row group (lanes of one warp)
+constexpr int RS = kThreads / TPR;       // row groups; a thread's rows are RS apart
+constexpr int NI = 4;                    // query rows per thread
+constexpr int BQ = RS * NI;              // 64 query rows per block
+constexpr int BK = 64;                   // kv rows per tile
+constexpr int NJ = BK / TPR;             // logits per row and thread
+constexpr int PP = BK + 16;              // padded row of P: the two row groups
+                                         // of a warp write 16 banks apart
 
-template <typename T> struct VecT;
-template <> struct VecT<float> { static constexpr int N = 4; };
-template <> struct VecT<__nv_bfloat16> { static constexpr int N = 8; };
+template <int D>
+struct Geom {
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  // Q and K rows padded by 4 floats: D + 4 is an odd multiple of 4 modulo
+  // 32, so the 16 K rows (and the 2 Q rows) a warp reads at one d cover the
+  // banks in the fewest passes
+  static constexpr int DP = D + 4;
+  static constexpr int CPT = D / TPR;  // output columns per thread
+  static constexpr int VW = CPT % 4 == 0 ? 4 : CPT % 2 == 0 ? 2 : 1;
+  static constexpr int NV = CPT / VW;  // vectors of V (and O) per row
+  static constexpr size_t smem =
+      sizeof(float) * ((size_t)(BQ + BK) * DP + (size_t)BK * D + (size_t)BQ * PP);
+};
 
-__device__ __forceinline__ void load_vec(const float* p, float (&o)[4]) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
+// 16 bytes from global to shared memory, asynchronously; zeros when !in
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&o)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+// rows [r0, r0 + ROWS) of an (S, D) operand whose rows are `stride`
+// elements apart, into f32 rows `ld` floats apart; rows at or past S are
+// zero (they are masked or never written back).  f32 goes by cp.async and
+// completes at cp_async_wait_all(); bf16 is widened through registers
+// (a 16-bit shift, exact) and is in place on return.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(const float* __restrict__ base, int r0,
+                                          int S, long long stride, float* dst,
+                                          int ld) {
+  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += kThreads) {
+    const int rr = idx / CPR, c = idx % CPR;
+    const bool in = r0 + rr < S;
+    cp_async16(dst + rr * ld + 4 * c, in ? base + (r0 + rr) * stride + 4 * c : base, in);
+  }
+}
+
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ base,
+                                          int r0, int S, long long stride,
+                                          float* dst, int ld) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += kThreads) {
+    const int rr = idx / CPR, c = idx % CPR;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (r0 + rr < S)
+      u = *reinterpret_cast<const uint4*>(base + (r0 + rr) * stride + 8 * c);
+    const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+    float f[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is a 16-bit shift, exact
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+    float4* d = reinterpret_cast<float4*>(dst + rr * ld + 8 * c);
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
   }
 }
 
@@ -104,146 +169,192 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// rows [r0, r0 + 32) of an (S, D) matrix whose rows are `stride` elements
-// apart, into a padded f32 tile; rows at or past S are zero (they are masked
-// or never written back)
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base, int r0,
-                                          int S, long long stride,
-                                          float* __restrict__ dst) {
-  constexpr int VEC = VecT<T>::N;
-  constexpr int VPR = D / VEC;  // 16-byte vectors per row
-  constexpr int DP = D + 4;
-  for (int idx = threadIdx.x; idx < 32 * VPR; idx += kThreads) {
-    const int rr = idx / VPR, cv = idx % VPR;
-    float f[VEC];
-    if (r0 + rr < S) {
-      load_vec(base + (r0 + rr) * stride + cv * VEC, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-    }
-    float* d = dst + rr * DP + cv * VEC;
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4)
-      *reinterpret_cast<float4*>(d + e) = make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+template <int VW>
+__device__ __forceinline__ void load_row(const float* p, float (&o)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
+  } else if constexpr (VW == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    o[0] = u.x; o[1] = u.y;
+  } else {
+    o[0] = *p;
   }
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 4) + (size_t)BQ * (BK + 1));
+__device__ __forceinline__ float lane(const float4& x, int c) {
+  return c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
 }
 
+// A block of 256 threads owns 64 query rows of one (b, h); 16 row groups
+// of 16 lanes, each group 4 rows 16 apart.  Per 64-row kv tile a thread
+// computes a 4 x 4 tile of S (kv columns tx + 16 j) from float4 reads of
+// Q and K along d, the online softmax of its rows (max and sum across the
+// group by shuffles), writes its p to shared memory, and accumulates a
+// 4 x D/16 tile of O from float4 reads of P (4 kv rows at once) and V.
+// Each K or V tile is read from L2 once per 64 rows.  There is one K and
+// one V buffer: V's tile loads while S is computed from K, and the next K
+// tile while O accumulates from V.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, Layout L, int H,
-          int Kh, int Sq, int Skv, float scale, int causal, int q_offset) {
-  constexpr int DP = D + 4;
-  constexpr int NV = D / 16;  // float4 column chunks per thread
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
+          const T* __restrict__ v, T* __restrict__ out, Layout L, int B,
+          int H, int Kh, int Sq, int Skv, float scale, int causal,
+          int q_offset) {
+  using G = Geom<D>;
+  constexpr int DP = G::DP, VW = G::VW, NV = G::NV;
 
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][DP]
   float* sK = sQ + BQ * DP;                     // [BK][DP]
-  float* sV = sK + BK * DP;                     // [BK][DP]
-  float* sP = sV + BK * DP;                     // [BQ][BK + 1]
+  float* sV = sK + BK * DP;                     // [BK][D]
+  float* sP = sV + BK * D;                      // [BQ][PP]
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int qt = n_qt - 1 - blockIdx.x / (B * H);  // heaviest q tiles first
+  const int h = bh % H, b = bh / H;
   const int kvh = h / (H / Kh);
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // query row within the tile
-  const int t4 = tid & 3;  // quarter of the row this thread owns
-  const int row = q0 + r;
+  const int q0 = qt * BQ;
+  const int rg = threadIdx.x / TPR, tx = threadIdx.x % TPR;
 
   const T* qb = q + b * L.q.b + h * L.q.h;
   const T* kb = k + b * L.k.b + kvh * L.k.h;
   const T* vb = v + b * L.v.b + kvh * L.v.h;
-  load_tile<T, D>(qb, q0, Sq, L.q.s, sQ);
-
-  float m = -INFINITY, l = 0.f;
-  float acc[NV * 4];
-#pragma unroll
-  for (int j = 0; j < NV * 4; ++j) acc[j] = 0.f;
 
   int n_kt = (Skv + BK - 1) / BK;
   if (causal)  // skip tiles above the diagonal of the block's last row
     n_kt = min(n_kt, (q_offset + q0 + BQ - 1) / BK + 1);
 
+  load_tile<D, BQ>(qb, q0, Sq, L.q.s, sQ, DP);
+  load_tile<D, BK>(kb, 0, Skv, L.k.s, sK, DP);
+  cp_async_commit();
+
+  float o[NI][NV * VW];
+  float m[NI], l[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV * VW; ++c) o[i][c] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed (and sQ is loaded)
-    load_tile<T, D>(kb, k0, Skv, L.k.s, sK);
-    load_tile<T, D>(vb, k0, Skv, L.v.s, sV);
-    __syncthreads();
+    load_tile<D, BK>(vb, k0, Skv, L.v.s, sV, D);  // lands while S is computed
+    cp_async_commit();
 
-    float s[BK / 4];
+    // S = Q . K^T: d in ascending order for every (row, column)
+    float s[NI][NJ];
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) s[i] = 0.f;
-#pragma unroll 4
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 8
     for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(sQ + r * DP + d);
+      float4 qv[NI], kv[NJ];
 #pragma unroll
-      for (int i = 0; i < BK / 4; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(sK + (t4 + 4 * i) * DP + d);
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
-      }
+      for (int i = 0; i < NI; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(sQ + (rg + RS * i) * DP + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(sK + (tx + TPR * j) * DP + d);
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
     }
 
-    float mx = -INFINITY;
+    // only a tile that crosses the block's first row's diagonal or the end
+    // of Skv has masked entries
+    const bool crosses = k0 + BK > Skv || (causal && k0 + BK - 1 > q_offset + q0);
 #pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      const int col = k0 + t4 + 4 * i;
-      const bool ok = col < Skv && (!causal || col <= q_offset + row);
-      s[i] = ok ? s[i] * scale : -INFINITY;
-      mx = fmaxf(mx, s[i]);
+    for (int i = 0; i < NI; ++i) {
+      const int row = q_offset + q0 + rg + RS * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = k0 + tx + TPR * j;
+        const bool ok = !crosses || (col < Skv && (!causal || col <= row));
+        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = m_new == -INFINITY ? 0.f : expf(s[i][j] - m_new);
+        sP[(rg + RS * i) * PP + tx + TPR * j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off *= 2)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * alpha + rs;
+#pragma unroll
+      for (int c = 0; c < NV * VW; ++c) o[i][c] *= alpha;
+      m[i] = m_new;
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      const float p = m_new == -INFINITY ? 0.f : expf(s[i] - m_new);
-      sP[r * (BK + 1) + t4 + 4 * i] = p;
-      rs += p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * alpha + rs;
-#pragma unroll
-    for (int j = 0; j < NV * 4; ++j) acc[j] *= alpha;
-    __syncwarp();  // the row's p values come from the 4 lanes of this warp
+    cp_async_wait_all();
+    __syncthreads();  // V and P in place; every thread is done with K
 
-    for (int c = 0; c < BK; ++c) {
-      const float p = sP[r * (BK + 1) + c];
+    if (kt + 1 < n_kt) {  // the next K tile lands while O accumulates
+      load_tile<D, BK>(kb, k0 + BK, Skv, L.k.s, sK, DP);
+      cp_async_commit();
+    }
+
+    // O += P . V: kv rows in ascending order
+#pragma unroll 2
+    for (int c = 0; c < BK; c += 4) {
+      float4 pv[NI];
 #pragma unroll
-      for (int jj = 0; jj < NV; ++jj) {
-        const float4 vv = *reinterpret_cast<const float4*>(sV + c * DP + t4 * 4 + 16 * jj);
-        acc[jj * 4 + 0] = fmaf(p, vv.x, acc[jj * 4 + 0]);
-        acc[jj * 4 + 1] = fmaf(p, vv.y, acc[jj * 4 + 1]);
-        acc[jj * 4 + 2] = fmaf(p, vv.z, acc[jj * 4 + 2]);
-        acc[jj * 4 + 3] = fmaf(p, vv.w, acc[jj * 4 + 3]);
+      for (int i = 0; i < NI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(sP + (rg + RS * i) * PP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float* vr = sV + (c + cc) * D + tx * VW;
+#pragma unroll
+        for (int jj = 0; jj < NV; ++jj) {
+          float vv[VW];
+          load_row<VW>(vr + TPR * VW * jj, vv);
+#pragma unroll
+          for (int i = 0; i < NI; ++i) {
+            const float p = lane(pv[i], cc);
+#pragma unroll
+            for (int e = 0; e < VW; ++e)
+              o[i][jj * VW + e] = fmaf(p, vv[e], o[i][jj * VW + e]);
+          }
+        }
       }
     }
-    m = m_new;
+    cp_async_wait_all();
+    __syncthreads();  // the next K in place; every thread is done with V, P
   }
 
-  if (row < Sq) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* ob = out + b * L.o.b + h * L.o.h + row * L.o.s;
+  T* ob = out + b * L.o.b + h * L.o.h;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int row = q0 + rg + RS * i;
+    if (row >= Sq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* orow = ob + row * L.o.s + tx * VW;
 #pragma unroll
     for (int jj = 0; jj < NV; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store(ob + t4 * 4 + 16 * jj + e, acc[jj * 4 + e] / denom);
+      for (int e = 0; e < VW; ++e)
+        store(orow + TPR * VW * jj + e, o[i][jj * VW + e] / denom);
   }
 }
 
@@ -251,30 +362,52 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const Layout& L, int B, int H, int Kh, int Sq, int Skv,
                    float scale, int causal, int q_offset, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Geom<D>::smem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
+  const long long grid = (long long)((Sq + BQ - 1) / BQ) * B * H;
+  if (grid > 2147483647LL) return cudaErrorInvalidValue;
+  flash_fwd<T, D><<<(unsigned)grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), L, H, Kh, Sq, Skv,
+      static_cast<const T*>(v), static_cast<T*>(out), L, B, H, Kh, Sq, Skv,
       scale, causal, q_offset);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_d(int D, const void* q, const void* k, const void* v, void* out,
-                 const Layout& L, int B, int H, int Kh, int Sq, int Skv,
-                 float scale, int causal, int q_offset, cudaStream_t st) {
+#define FLASH_SIMT_CASE(T, DD)                                              \
+  case DD:                                                                  \
+    return launch<T, DD>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, \
+                         q_offset, st);
+
+// f32 at every multiple of 16 up to 128 and at 192; bf16 below 64 (the
+// tensor cores take it from 64)
+cudaError_t by_d_f32(int D, const void* q, const void* k, const void* v,
+                     void* out, const Layout& L, int B, int H, int Kh, int Sq,
+                     int Skv, float scale, int causal, int q_offset,
+                     cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
-    case 32: return launch<T, 32>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
-    case 64: return launch<T, 64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
-    case 128: return launch<T, 128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    FLASH_SIMT_CASE(float, 16) FLASH_SIMT_CASE(float, 32)
+    FLASH_SIMT_CASE(float, 48) FLASH_SIMT_CASE(float, 64)
+    FLASH_SIMT_CASE(float, 80) FLASH_SIMT_CASE(float, 96)
+    FLASH_SIMT_CASE(float, 112) FLASH_SIMT_CASE(float, 128)
+    FLASH_SIMT_CASE(float, 192)
     default: return cudaErrorInvalidValue;
   }
 }
+
+cudaError_t by_d_bf16(int D, const void* q, const void* k, const void* v,
+                      void* out, const Layout& L, int B, int H, int Kh, int Sq,
+                      int Skv, float scale, int causal, int q_offset,
+                      cudaStream_t st) {
+  switch (D) {
+    FLASH_SIMT_CASE(__nv_bfloat16, 16) FLASH_SIMT_CASE(__nv_bfloat16, 32)
+    FLASH_SIMT_CASE(__nv_bfloat16, 48)
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#undef FLASH_SIMT_CASE
 
 }  // namespace simt
 
@@ -283,26 +416,37 @@ cudaError_t by_d(int D, const void* q, const void* k, const void* v, void* out,
 namespace tc {
 
 constexpr int BM = 128;         // query rows per CTA
-constexpr int BN = 128;         // kv rows per tile
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kConsumers = 2;   // warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
-// Every tile is D/64 blocks of [rows][64] bf16: 128-byte rows in TMA's
+// The tiling of one head dim D (a multiple of 16 from 64 to 128, or 192).
+// A tile is NDB blocks of [rows][64] bf16; columns D .. DP - 1 of the last
+// block are TMA's zero fill on loads and clipped on the store, so a head
+// dim between the instances is read and written at D with no copies.  At
+// D 192, BN 128 would need 240 KB of shared memory for Q and two stages of
+// K and V, over the 227 KB a block may have: the kv tile is 64 rows there.
+template <int D>
+struct Geom {
+  static_assert(D % 16 == 0 && ((D >= 64 && D <= 128) || D == 192),
+                "tensor-core head dims: multiples of 16 from 64 to 128, and 192");
+  static constexpr int NDB = (D + 63) / 64;    // 64-column blocks of a tile
+  static constexpr int DP = NDB * 64;          // the tile's width in columns
+  static constexpr int BN = D > 128 ? 64 : 128;  // kv rows per tile
+};
+
+// Every tile is NDB blocks of [rows][64] bf16: 128-byte rows in TMA's
 // 128-byte swizzle, each block 1024-byte aligned.  q doubles as the output
 // staging of each warpgroup's own 64 rows.
 template <int D>
 struct alignas(1024) Smem {
-  __nv_bfloat16 q[D / 64][BM * 64];
-  __nv_bfloat16 k[kStages][D / 64][BN * 64];
-  __nv_bfloat16 v[kStages][D / 64][BN * 64];
+  static constexpr int NDB = Geom<D>::NDB, BN = Geom<D>::BN;
+  __nv_bfloat16 q[NDB][BM * 64];
+  __nv_bfloat16 k[kStages][NDB][BN * 64];
+  __nv_bfloat16 v[kStages][NDB][BN * 64];
   uint64_t q_full, k_full[kStages], v_full[kStages], kv_empty[kStages];
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
@@ -419,6 +563,21 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16, smem) . B (16 x 64, smem); A and B K-major
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
                                                   uint64_t db) {
@@ -453,18 +612,44 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_m64n128k16(o, a, db);
+// D (64 x 192, f32) += A (64 x 16, bf16 registers) . B (16 x 192, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_m64n64k16(o, a, db);
+
+// S (64 x BN) (+)= Q . K^T, one k-step
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (BN == 128) wgmma_ss_m64n128k16(d, da, db, accumulate);
+  else wgmma_ss_m64n64k16(d, da, db, accumulate);
+}
+
+// O (64 x DP) += P . V, one k-step
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 192) wgmma_rs_m64n192k16(o, a, db);
+  else if constexpr (DP == 128) wgmma_rs_m64n128k16(o, a, db);
+  else wgmma_rs_m64n64k16(o, a, db);
 }
 
 template <int D>
@@ -474,9 +659,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap to, int B, int H, int Kh,
              int Sq, int Skv, float scale_log2, int causal, int q_offset) {
-  constexpr int NDB = D / 64;                  // 64-column blocks of a tile
-  constexpr uint32_t kTileBytes = BN * D * 2;  // one K or V tile; Q is as large
-  static_assert(BM == BN, "one tile size for the Q and kv boxes");
+  constexpr int NDB = Geom<D>::NDB, DP = Geom<D>::DP, BN = Geom<D>::BN;
+  // bytes of one Q and of one K or V tile, the zero-filled columns included
+  constexpr uint32_t kQBytes = BM * DP * 2, kKVBytes = BN * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -508,18 +693,18 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(&sm.q_full, kTileBytes);
+      mbar_expect_tx(&sm.q_full, kQBytes);
 #pragma unroll
       for (int db = 0; db < NDB; ++db)
         tma_load(sm.q[db], &tq, &sm.q_full, db * 64, q0, h, b);
       for (int t = 0; t < n_kt; ++t) {
         const int s = t % kStages, u = t / kStages;
         if (u > 0) mbar_wait(&sm.kv_empty[s], (u - 1) & 1);
-        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+        mbar_expect_tx(&sm.k_full[s], kKVBytes);
 #pragma unroll
         for (int db = 0; db < NDB; ++db)
           tma_load(sm.k[s][db], &tk, &sm.k_full[s], db * 64, t * BN, kvh, b);
-        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+        mbar_expect_tx(&sm.v_full[s], kKVBytes);
 #pragma unroll
         for (int db = 0; db < NDB; ++db)
           tma_load(sm.v[s][db], &tv, &sm.v_full[s], db * 64, t * BN, kvh, b);
@@ -536,10 +721,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     const int col_off = 2 * (lane % 4);
     const char* q_rows = reinterpret_cast<const char*>(sm.q[0]) + wg * 64 * 128;
 
-    float o[D / 2];  // 64 x D accumulator: o[4j + {0,1}] row0, o[4j + {2,3}] row1
+    // 64 x DP accumulator: o[4j + {0,1}] row0, o[4j + {2,3}] row1; the
+    // columns from D on stay zero and are never stored
+    float o[DP / 2];
     float sc[BN / 2];  // 64 x BN scores, same layout over kv columns
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
@@ -551,7 +738,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       const uint32_t par = (t / kStages) & 1;
       const int k0 = t * BN;
 
-      // S = Q . K^T: 64 x 128, D/16 k-steps of 32 bytes along the swizzled rows
+      // S = Q . K^T: 64 x BN, D/16 k-steps of 32 bytes along the swizzled
+      // rows (none over the zero-filled columns)
       mbar_wait(&sm.k_full[s], par);
       fence_regs(sc);
       wgmma_fence();
@@ -561,7 +749,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
         const uint64_t da = sw128_desc(q_rows + db * BM * 128 + kb, 0, 1024);
         const uint64_t dk = sw128_desc(
             reinterpret_cast<const char*>(sm.k[s][db]) + kb, 0, 1024);
-        wgmma_ss_m64n128k16(sc, da, dk, kk > 0);
+        wgmma_qk<BN>(sc, da, dk, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -634,7 +822,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       }
 
       // O += P . V: V MN-major (D contiguous); a k-step is 16 kv rows (2048
-      // bytes), the 64-column blocks of D are BN * 128 bytes apart
+      // bytes), the 64-column blocks of DP are BN * 128 bytes apart
       mbar_wait(&sm.v_full[s], par);
       fence_regs(o);
       fence_regs(pa);
@@ -643,7 +831,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t dv = sw128_desc(
             reinterpret_cast<const char*>(sm.v[s][0]) + kk * 16 * 128, BN * 128, 1024);
-        wgmma_pv<D>(o, pa[kk], dv);
+        wgmma_pv<DP>(o, pa[kk], dv);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -654,6 +842,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
     // epilogue: normalise, stage in this warpgroup's own Q rows in the
     // swizzled layout of the output map, one TMA store per column block
+    // (clipped at D)
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -732,6 +921,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float scale, int causal, int q_offset, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  constexpr int BN = Geom<D>::BN;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(enc, &tq, q, B, Sq, H, D, L.q, BM)
       || !make_map(enc, &tk, k, B, Skv, Kh, D, L.k, BN)
@@ -757,8 +947,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // q/out (B, Sq, H, D), k/v (B, Skv, Kh, D) as element strides: `strides`
 // holds (batch, sequence, head) for q, k, v and out in that order; D is
 // contiguous, every other stride a multiple of 16 bytes, every base 16-byte
-// aligned.  dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores,
-// 1 = tensor cores (bf16, D in {64, 128}).  H % Kh == 0, Skv > 0.  q_offset
+// aligned.  dtype: 0 = float32, 1 = bfloat16.  route: 0 = CUDA cores (f32 at
+// D in {16, 32, ..., 128, 192}, bf16 at D in {16, 32, 48}), 1 = tensor cores
+// (bf16, D in {64, 80, 96, 112, 128, 192}).  H % Kh == 0, Skv > 0.  q_offset
 // >= 0 is the absolute position of query row 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int B,
@@ -775,14 +966,20 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                     {strides[9], strides[10], strides[11]}};
   if (route == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (D == 128) return (int)tc::launch<128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
-    if (D == 64) return (int)tc::launch<64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
-    return (int)cudaErrorInvalidValue;
+    switch (D) {
+      case 64: return (int)tc::launch<64>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+      case 80: return (int)tc::launch<80>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+      case 96: return (int)tc::launch<96>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+      case 112: return (int)tc::launch<112>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+      case 128: return (int)tc::launch<128>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+      case 192: return (int)tc::launch<192>(q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)simt::by_d<float>(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    return (int)simt::by_d_f32(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
   if (dtype == 1)
-    return (int)simt::by_d<__nv_bfloat16>(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
+    return (int)simt::by_d_bf16(D, q, k, v, out, L, B, H, Kh, Sq, Skv, scale, causal, q_offset, st);
   return (int)cudaErrorInvalidValue;
 }

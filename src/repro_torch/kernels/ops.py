@@ -44,8 +44,8 @@ from . import build, ref, work
 launches = {"paged_attention": 0, "segment_compact": 0, "flash_attention": 0,
             "mdc_priority": 0, "segment_move": 0,
             "paged_attention_sharded": 0, "flash_attention_sharded": 0}
-# flash_attention launches by route: tensor cores (bf16 at a launch dim of
-# 64 / 128) or CUDA cores (f32, bf16 at 16 / 32)
+# flash_attention launches by route: tensor cores (bf16 at D 64 to 128 and
+# 192) or CUDA cores (f32, bf16 below 64)
 flash_routes = {"wgmma": 0, "simt": 0}
 # flash_attention launches by q_offset: 0, or > 0 (a prefix-hit tail)
 flash_offsets = {"zero": 0, "nonzero": 0}
@@ -150,40 +150,32 @@ def flash_layout(q, k, v) -> list[tuple[int, int, int]]:
             _operand_strides("v", v)]
 
 
-# the head dims each flash route has an instance of
-FLASH_DIMS = {"wgmma": (64, 128), "simt": (16, 32, 64, 128)}
-
-
-def flash_launch_dim(dtype, D: int) -> int:
-    """The head dim a flash launch runs at: D itself where a route has an
-    instance of it, else D zero-padded up to the next instance (bf16 on the
-    tensor-core route's, f32 on the CUDA-core route's), e.g. Zamba2's 112
-    to 128.  Zero columns add nothing to q·k and give zero output columns,
-    which are cut off; the scale stays 1/sqrt(D).  Raises above 128."""
-    if D in FLASH_DIMS["simt"]:
-        return D
-    dims = FLASH_DIMS["wgmma" if dtype == torch.bfloat16 else "simt"]
-    for d in dims:
-        if d >= D:
-            return d
-    raise ValueError(f"flash_attention: head dim {D} above 128")
+# the head dims each flash route has an instance of; bf16 takes the CUDA
+# cores' only below the tensor cores' least
+FLASH_DIMS = {"wgmma": (64, 80, 96, 112, 128, 192),
+              "simt": (16, 32, 48, 64, 80, 96, 112, 128, 192)}
 
 
 def flash_route(dtype, D: int) -> str:
-    """The kernel route of a launch: tensor cores (``"wgmma"``) for bf16 at
-    a launch dim (:func:`flash_launch_dim`) of 64 or 128, CUDA cores
-    (``"simt"``) otherwise.  Dispatch, not fallback: a failure on either
-    route raises."""
-    return ("wgmma" if dtype == torch.bfloat16
-            and flash_launch_dim(dtype, D) in FLASH_DIMS["wgmma"] else "simt")
+    """The kernel route of a launch at head dim D: tensor cores
+    (``"wgmma"``) for bf16 at one of their dims, CUDA cores (``"simt"``)
+    for f32 at one of theirs and for bf16 below 64.  Every launch runs at D
+    itself: no head dim is padded.  Raises ``ValueError`` for a D no route
+    takes.  Dispatch, not fallback: a failure on either route raises."""
+    if dtype == torch.bfloat16 and D in FLASH_DIMS["wgmma"]:
+        return "wgmma"
+    if D in FLASH_DIMS["simt"] and (dtype != torch.bfloat16
+                                    or D < min(FLASH_DIMS["wgmma"])):
+        return "simt"
+    raise ValueError(f"flash_attention: no route takes head dim {D}: the "
+                     f"kernel takes {FLASH_DIMS['simt']} (bf16 from 64 up "
+                     f"on the tensor cores)")
 
 
 def _flash(q, k, v, out, causal: bool, q_offset: int = 0) -> None:
     """Launch over (B, S, heads, D)-indexed views, any strides that
     :func:`flash_layout` takes, writing ``out`` (same index order as q);
-    query row i at absolute position ``q_offset + i``.  A head dim without
-    an instance is zero-padded to :func:`flash_launch_dim` around the
-    launch."""
+    query row i at absolute position ``q_offset + i``."""
     layout = flash_layout(q, k, v) + [_operand_strides("out", out)]
     B, Sq, H, D = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
@@ -192,18 +184,11 @@ def _flash(q, k, v, out, causal: bool, q_offset: int = 0) -> None:
     if Skv == 0:  # softmax over nothing: the plain version's zeros
         out.zero_()
         return
-    Dl = flash_launch_dim(q.dtype, D)
-    if Dl != D:
-        q, k, v = (torch.nn.functional.pad(t, (0, Dl - D)) for t in (q, k, v))
-        wide = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        layout = flash_layout(q, k, v) + [_operand_strides("out", wide)]
     strides = (ctypes.c_longlong * 12)(*(x for st in layout for x in st))
     _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), (out if Dl == D else wide).data_ptr(), strides, B,
-            H, Kh, Sq, Skv, Dl, 1.0 / math.sqrt(D), int(causal),
-            int(q_offset), code, _FLASH_ROUTE[route])
-    if Dl != D:
-        out.copy_(wide[..., :D])
+            v.data_ptr(), out.data_ptr(), strides, B, H, Kh, Sq, Skv, D,
+            1.0 / math.sqrt(D), int(causal), int(q_offset), code,
+            _FLASH_ROUTE[route])
     flash_routes[route] += 1
     flash_offsets["nonzero" if q_offset else "zero"] += 1
 
@@ -267,7 +252,7 @@ def _flash_call(where: str, q, k, v, causal: bool, q_offset: int,
     if where == "meta":
         flash_layout(q, k, v)
         _dtype_code("flash_attention", q, k, v)
-        flash_launch_dim(q.dtype, D)
+        flash_route(q.dtype, D)
     else:
         _flash(q, k, v, out, causal, q_offset)
     return out
@@ -275,16 +260,11 @@ def _flash_call(where: str, q, k, v, causal: bool, q_offset: int,
 
 def _flash_charges(q, k, causal: bool, q_offset: int) -> list:
     """The kernel's work of one call (q (B, Sq, H, D) and k (B, Skv, Kh, D)
-    in that index order) and, for a head dim the launch zero-pads, the
-    padding's (:func:`.work.flash_pad`)."""
+    in that index order), at D itself."""
     B, Sq, H, D = q.shape
-    shape = dict(B=B, H=H, Kh=k.shape[2], Sq=Sq, Skv=k.shape[1],
-                 dtype=q.dtype, causal=causal, q_offset=q_offset)
-    charges = [("flash_attention", work.flash_attention(D=D, **shape))]
-    Dl = flash_launch_dim(q.dtype, D) if D <= 128 else D
-    if Dl != D and k.shape[1]:
-        charges.append(("flash_pad", work.flash_pad(D=D, Dl=Dl, **shape)))
-    return charges
+    return [("flash_attention", work.flash_attention(
+        B=B, H=H, Kh=k.shape[2], Sq=Sq, Skv=k.shape[1], D=D, dtype=q.dtype,
+        causal=causal, q_offset=q_offset))]
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,

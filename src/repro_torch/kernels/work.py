@@ -8,9 +8,8 @@ time beside the bound :func:`repro_torch.roofline.report.kernel_bound_ms`
 makes of the same figures.  Where the work depends on the data (paged
 attention reads each sequence's own pages), the caller passes what the
 call's data needs.  Beside the kernels' own work, a wrapper of :mod:`.ops`
-charges what it moves around a launch: the zero-padding of a head dim with
-no flash instance, a staged move's pass through its buffer, a conversion
-to the type a kernel takes.
+charges what it moves around a launch: a staged move's pass through its
+buffer, a conversion to the type a kernel takes.
 
 ``counters`` is the hook.  A counter (the dry-run's
 :class:`repro_torch.roofline.op_cost.OpCost`) puts itself in the list
@@ -85,8 +84,7 @@ def flash_attention(*, B: int, H: int, Kh: int, Sq: int, Skv: int, D: int,
                     dtype, causal: bool, q_offset: int = 0) -> KernelWork:
     """q and the output (B, Sq, H, D), K and V (B, Skv, Kh, D); two
     multiply-adds per scored (query, key) pair, query head and head-dim
-    element, at D itself (a head dim the wrapper zero-pads to its launch
-    charges the rest as :func:`flash_pad`).  Every row scores every key,
+    element, at D itself (every launch runs at D).  Every row scores every key,
     or, causal, row i (at position ``q_offset + i``) the keys up to its
     position."""
     es = _itemsize(dtype)
@@ -97,24 +95,6 @@ def flash_attention(*, B: int, H: int, Kh: int, Sq: int, Skv: int, D: int,
     else:
         pairs = Sq * Skv
     return KernelWork(n_bytes, 4.0 * B * H * D * pairs, dtype_name(dtype))
-
-
-def flash_pad(*, B: int, H: int, Kh: int, Sq: int, Skv: int, D: int,
-              Dl: int, dtype, causal: bool, q_offset: int = 0) -> KernelWork:
-    """The wrapper's zero-padding around a flash launch at a head dim D
-    with no instance, up to the launch dim Dl (Zamba2's 112 to 128): q, k
-    and v read at D and written at Dl; the kernel's work at Dl beyond its
-    work at D (the zero columns); the wide output read at D into the
-    output.  The padded q, k, v and the wide output are scratch."""
-    shape = dict(B=B, H=H, Kh=Kh, Sq=Sq, Skv=Skv, dtype=dtype, causal=causal,
-                 q_offset=q_offset)
-    narrow, wide = flash_attention(D=D, **shape), flash_attention(D=Dl, **shape)
-    es = _itemsize(dtype)
-    qkv_rows = B * Sq * H + 2 * B * Skv * Kh
-    n_bytes = (qkv_rows * (D + Dl) * es + wide.bytes - narrow.bytes
-               + 2 * B * Sq * H * D * es)
-    return KernelWork(n_bytes, wide.flops - narrow.flops, dtype_name(dtype),
-                      scratch=(qkv_rows + B * Sq * H) * Dl * es)
 
 
 def segment_compact(*, M: int, E: int, dtype) -> KernelWork:

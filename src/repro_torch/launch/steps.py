@@ -173,14 +173,16 @@ def make_prefill_fn(model: Model, max_len: int, mesh=None, *,
     """``prefill_step(params, batch) -> (argmax tokens (B,) int32, cache)``:
     :meth:`Model.prefill` of ``batch["tokens"]`` into a cache of
     ``max_len`` positions, the batch's other entries as its extras, the
-    attention through the flash kernel wherever it has an instance of the
-    config's head dim (up to 128), else through the plain chunked
-    attention, as MLA's prefill (Nemotron-4's head dim is 192).
+    attention through the flash kernel wherever a route of it takes the
+    config's head dim (Nemotron-4's 192 included), else through the plain
+    chunked attention (MLA's prefill attends through it in any case).
 
     On ``mesh`` the params are this rank's shards and ``batch`` its slice
     of ``global_batch`` rows; it prefills its rows whole (flash on each
     rank, as on one device) and keeps its shard of the cache."""
-    kernel = model.cfg.hd <= max(ops.FLASH_DIMS["simt"])
+    # every head dim a flash route takes is one of the CUDA cores' (bf16
+    # from 64 up goes to the tensor cores' instance of it)
+    kernel = model.cfg.hd in ops.FLASH_DIMS["simt"]
     if mesh is not None:
         gather_all = _gather_params(model, mesh)
         layout = _cache_layout(model, global_batch, max_len, mesh)

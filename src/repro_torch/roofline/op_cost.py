@@ -23,10 +23,9 @@ storage: a full-width cell is counted without a card and without memory.
 * **Hand-written kernels.**  A wrapper of :mod:`repro_torch.kernels.ops`
   charges its kernel's own work (:mod:`repro_torch.kernels.work`) once per
   call, by name, and what it moves around the launch under names of its
-  own (``flash_pad``: a head dim without an instance zero-padded to its
-  launch; ``segment_move_stage``; ``<kernel>_cast``); the ops its body runs
-  (the plain version on the CPU, the pads and copies around a launch on
-  the card) are not counted.  So a step counts the same whether the CUDA
+  own (``segment_move_stage``; ``<kernel>_cast``); the ops its body runs
+  (the plain version on the CPU, the copies around a launch on the card)
+  are not counted.  So a step counts the same whether the CUDA
   kernel, the plain version or the ``meta`` route ran it.
 * **Collectives**, by kind: ``ops.gather_heads`` and the training mesh's
   ``distributed.collectives`` charge each call's payload (an all-gather's
@@ -36,7 +35,7 @@ storage: a full-width cell is counted without a card and without memory.
 * **The peak of live bytes.**  The tracked inputs' storages, plus every
   storage an op allocates, each dropped when Python frees it (autograd's
   saved tensors stay live, as on the card), plus a kernel call's scratch
-  (its padded operands, a stage, a cast) while it runs.  A storage counts
+  (a stage, a cast) while it runs.  A storage counts
   once, however many views of it there are.
 
 Counting does not depend on the device: the same step on ``meta``, on the

@@ -122,6 +122,9 @@ def test_flash_attention_bhsd_entry_on_both_routes(dev):
     # kv tile 0 crosses the diagonal of warpgroup 0's rows (100..163) and
     # lies wholly below warpgroup 1's (164..227)
     (1, 130, 640, 16, 8, 128, 100),
+    (1, 200, 700, 32, 32, 112, 333),  # Zamba2's head dim, at D
+    (1, 130, 640, 16, 8, 192, 100),   # Nemotron-4's: 64-row kv tiles on wgmma
+    (2, 77, 300, 8, 4, 48, 201),      # bf16 on the CUDA cores below 64
 ])
 def test_flash_attention_q_offset(dev, B, Sq, Skv, H, Kh, D, q_offset, dtype):
     """Query rows at absolute positions ``q_offset + i``: against the plain
@@ -167,17 +170,21 @@ def test_flash_attention_at_the_chunk_shapes(dev, q_offset):
     assert torch.equal(got, whole[:, q_offset:q_offset + 256])
 
 
-# sha256 (first 16 hex digits) of the outputs of the flash kernel as it was
-# before it took a query offset, on an NVIDIA H100 80GB HBM3 (inputs from
-# numpy seed 11): the q_offset = 0 call must reproduce them bit for bit
+# sha256 (first 16 hex digits) of the outputs of the flash kernel on an
+# NVIDIA H100 80GB HBM3 (inputs from numpy seed 11): the q_offset = 0 call
+# must reproduce them bit for bit.  The tensor-core entries are the kernel's
+# before it took a query offset; the CUDA-core entries (f32, and bf16 at D
+# 16) are the register-tiled design's, which replaced the first one: it
+# sums S over d in the same order but accumulates P.V and the row sums in
+# another, so its bits differ from the retired kernel's
 PRE_OFFSET_SHA256 = {
     (torch.bfloat16, 1, 256, 16, 8, 128, True): "7cdabb7496334322",
     (torch.bfloat16, 1, 1024, 16, 8, 128, True): "eeef910088820fe4",
     (torch.bfloat16, 1, 1000, 16, 8, 64, True): "5380b0a339f23d5e",
     (torch.bfloat16, 2, 200, 4, 2, 128, False): "f79e082b06cbe452",
-    (torch.float32, 1, 1024, 16, 8, 128, True): "0d311f4d796fd963",
-    (torch.float32, 1, 200, 4, 1, 32, True): "ff89134060c19b4f",
-    (torch.bfloat16, 1, 96, 6, 3, 16, True): "6c8cd99a088a10ac",
+    (torch.float32, 1, 1024, 16, 8, 128, True): "89bc674ce6d6ed3e",
+    (torch.float32, 1, 200, 4, 1, 32, True): "931dc39f18230948",
+    (torch.bfloat16, 1, 96, 6, 3, 16, True): "736e3c4d106e2b74",
 }
 
 
@@ -1555,20 +1562,23 @@ def test_failed_attempt_is_freed_before_the_restore(dev, tmp_path,
 @pytest.mark.parametrize("B,Sq,Skv,H,Kh,D,causal", [
     (2, 256, 256, 8, 8, 112, True),     # Zamba2's head dim, MHA
     (1, 200, 200, 4, 2, 112, True),     # ragged, GQA
-    (1, 64, 192, 2, 2, 48, False),      # another dim without an instance
+    (1, 64, 192, 2, 2, 48, False),      # below the tensor cores' dims
 ])
 def test_flash_attention_pads_a_head_dim_without_an_instance(
         dev, B, Sq, Skv, H, Kh, D, causal, dtype, route):
-    """A head dim the kernel has no instance of runs zero-padded to the
-    next one on the route the padding gives (bf16 112 on the tensor
-    cores), one launch, the true scale: against the plain version at D."""
-    assert ops.flash_launch_dim(dtype, D) > D
+    """A head dim that was zero-padded to the next instance before the
+    kernel had one of its own now runs at D, one launch, nothing padded:
+    bf16 112 on the tensor cores, bf16 48 and f32 on the CUDA cores;
+    against the plain version at D."""
+    if D < 64:
+        route = "simt"
+    assert ops.flash_route(dtype, D) == route
     _flash_case(dev, B, Sq, Skv, H, Kh, D, causal, dtype, route)
 
 
 def test_flash_attention_padded_rows_follow_q_offset(dev):
-    """At D 112 too, rows at an offset are bit for bit the rows of the
-    q_offset = 0 call."""
+    """At D 112 too (no padding), rows at an offset are bit for bit the
+    rows of the q_offset = 0 call."""
     rng = np.random.default_rng(12)
     q = _randn(rng, (1, 512, 32, 112), torch.bfloat16, dev)
     k = _randn(rng, (1, 512, 32, 112), torch.bfloat16, dev)
@@ -1738,10 +1748,11 @@ def test_prefill_cell_counts_alike_on_meta_and_card(dev, arch):
 
 
 def test_padded_flash_peak_and_charges_on_card(dev):
-    """Zamba2's head dim of 112, zero-padded to a launch at 128: the pad is
-    charged alike on ``meta`` and on the card, and the count's peak (the
-    output and the pad's scratch) is the card's ``max_memory_allocated``
-    within 1%."""
+    """Zamba2's head dim of 112, which was zero-padded to a launch at 128,
+    launches at D: the call is counted alike on ``meta`` and on the card,
+    charges the kernel alone (no ``flash_pad``), and the count's peak (the
+    output, no scratch) is the card's ``max_memory_allocated`` within
+    1%."""
     from repro_torch.roofline.op_cost import OpCost
     rng = np.random.default_rng(0)
     q, k, v = (_randn(rng, (2, 1024, 32, 112), torch.bfloat16, dev)
@@ -1760,7 +1771,8 @@ def test_padded_flash_peak_and_charges_on_card(dev):
     meta, card = om.summary(), oc.summary()
     assert meta == card
     assert ops.launches["flash_attention"] - n0 == 1
-    assert card["kernel_charges"]["flash_pad"]["calls"] == 1
+    assert set(card["kernel_charges"]) == {"flash_attention"}
+    assert card["peak_live_bytes"] == q.numel() * q.element_size()
     assert 0.99 <= measured / card["peak_live_bytes"] <= 1.01
 
 
@@ -1775,3 +1787,70 @@ def test_flash_attention_on_meta_neither_launches_nor_raises(dev):
     assert out.device.type == "meta" and out.shape == q.shape
     assert out.dtype == torch.bfloat16
     assert out_bhsd.shape == (2, 16, 64, 128)
+
+
+# ------------------- the CUDA-core route redesigned; head dims 112 and 192
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_every_head_dim(dev, D, dtype):
+    """Every instance against the plain version, on the route
+    ``ops.flash_route`` names: f32 on the CUDA cores at every dim, bf16 on
+    the tensor cores from 64 up and on the CUDA cores below; a ragged causal
+    call and a ragged non-causal one with more keys than rows."""
+    route = ops.flash_route(dtype, D)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and D >= 64
+                     else "simt")
+    _flash_case(dev, 2, 200, 200, 8, 2, D, True, dtype, route)
+    _flash_case(dev, 1, 130, 333, 4, 4, D, False, dtype, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Kh,D", [
+    (1, 1024, 16, 8, 128),    # qwen3-1.7b's heads: f32 on the CUDA cores
+    (1, 1024, 32, 32, 112),   # Zamba2-7B's
+    (1, 1024, 96, 8, 192),    # Nemotron-4-340B's
+])
+def test_flash_attention_at_the_redesigned_shapes(dev, B, S, H, Kh, D, dtype):
+    """The chip run's shapes of the two redesigned routes against the plain
+    version, and a repeat of the same call bit for bit."""
+    rng = np.random.default_rng(21)
+    q = _randn(rng, (B, S, H, D), dtype, dev)
+    k = _randn(rng, (B, S, Kh, D), dtype, dev)
+    v = _randn(rng, (B, S, Kh, D), dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=True)
+    again = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0),
+                                             (True, 200)])
+def test_flash_attention_d112_is_the_padded_d128_launch(dev, causal,
+                                                        q_offset):
+    """Zamba2's D 112 on the tensor cores is bit for bit the D 128 launch
+    over zero-padded copies at the scale 1/sqrt(112), called through the
+    library's C entry point as the wrapper launched it before it had the
+    instance: TMA's zero fill stands for the pad, and the store clips."""
+    import ctypes
+    import math
+    from repro_torch.kernels import build
+    rng = np.random.default_rng(13)
+    q = _randn(rng, (2, 300, 8, 112), torch.bfloat16, dev)
+    k = _randn(rng, (2, 500, 4, 112), torch.bfloat16, dev)
+    v = _randn(rng, (2, 500, 4, 112), torch.bfloat16, dev)
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 16)) for t in (q, k, v))
+    wide = torch.empty(qp.shape, dtype=qp.dtype, device=dev)
+    layout = ops.flash_layout(qp, kp, vp) + [
+        ops._operand_strides("out", wide)]
+    strides = (ctypes.c_longlong * 12)(*(x for st in layout for x in st))
+    rc = build.load("flash_attention").flash_attention(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), wide.data_ptr(),
+        strides, 2, 8, 4, 300, 500, 128, 1.0 / math.sqrt(112), int(causal),
+        q_offset, 1, 1, torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(got, wide[..., :112])
