@@ -122,8 +122,10 @@ Phases, in order; any failure raises and the process exits non-zero:
              the moment three records chosen by rule are appended (a kill
              at that record boundary: right after the first ``mv``, right
              after the first ``snap``, and the first ``emit`` past half the
-             records with every slot live); from each clone
-             ``recover_engine(..., device="cuda")`` drains the session: the
+             records with every slot live); from the clones of
+             ``RECOVERY_DRAINED`` (the last: a snapshot and records after
+             it, every slot live) ``recover_engine(..., device="cuda")``
+             drains the session: the
              bf16 tokens of every request whose ``sub`` survived equal the
              unkilled run's, ``audit()`` passes, flash and paged attention
              launch.  Then a kill inside the async window (the async
@@ -345,33 +347,45 @@ Phases, in order; any failure raises and the process exits non-zero:
              bound it reaches and its model-FLOP share of the bf16 peak.
 21. mesh   — training on the JAX package's data x model mesh
              (``launch.steps.make_train_fn(..., mesh=)``: each rank holds its
-             shard of the params and moments under ``DEFAULT_RULES``,
-             gathers them for its batch slice, all-reduces the gradients),
+             shard of the params and moments under ``DEFAULT_RULES``; the
+             dense family's step is the partitioned route, the JAX
+             program's work per device: its heads, columns and vocabulary
+             rows, the sequence-parallel residual, each layer's FSDP
+             weights gathered for its forward and again for its backward),
              qwen3-1.7b at full width, bf16, TF32 off, deterministic
              kernels, AdamW (``MESH_OPT``), ``MESH_STEPS`` steps of B 2 x
              S 1,024.  (b) Two ``gloo`` ranks sharing the card on a (2, 1)
-             mesh (a spawn), B 1 each: losses within ``MESH_BARS`` of (a)'s,
-             params apart from (a)'s in at most ``MESH_BARS``' share of
-             elements and each within one unit in the last place plus 2 lr
-             per step (the bars from ``scripts/rehearse_mesh.py``);
-             reported: each rank's peak ``max_memory_allocated``, step ms
-             and the host ms inside its all-gathers and all-reduces (the
-             card synchronised around each).  (a) One ``nccl`` rank at
-             world size 1, in this process: the one-device steps, then the
-             same on a (1, 1) mesh, whose losses and params must be bitwise
-             the one-device ones.  (c) Elastic, cut to
-             ``MESH_ELASTIC_LAYERS``: the seed's params saved from the (2,
-             1) mesh (in (b)'s spawn), restored onto one rank (its (2, 1)
-             slices bitwise the saving ranks' shards), then onto (2, 1)
-             again (bitwise) and a step taken from fresh moments (finite
-             loss), as ``tests/test_elastic.py`` does (a second spawn).
-             (d) The (2, 1) mesh's train and prefill cells (B 2 x 1,024),
-             counted on ``meta`` at the mesh's sizes and on each rank on
-             the card (the train cell is (b)'s first step, the same step on
-             the same arguments): FLOPs by dtype, HBM bytes, kernel charges
-             and collective bytes equal; the prefill's flash charges = its
-             launches = 28 per rank; the peak within ``DRYRUN_PEAK_BAR`` of
-             the count's.
+             mesh (a spawn), B 1 each, then (e) the same two ranks on a
+             (1, 2) mesh, the whole batch each on half the model: losses
+             within ``MESH_BARS`` / ``MESH_BARS_TP`` of (a)'s, params
+             apart from (a)'s in at most the bars' share of elements and
+             each within 2 lr plus one unit in the last place per step,
+             (e)'s norms (held whole by both ranks, their gradients summed
+             over "model") within their bar of that cap on average and
+             bitwise equal on both ranks (the bars from
+             ``scripts/rehearse_mesh.py``, each between sound readings and a
+             planted fault's); reported: each rank's peak
+             ``max_memory_allocated`` ((b)'s must lie below the
+             replicated route's 28.36 GB; (e)'s stands beside the
+             one-device 47.6 GB and (a)'s own), step ms and the host ms inside its
+             all-gathers, reduce-scatters and all-reduces (the card
+             synchronised around each).  (a) One ``nccl`` rank at world
+             size 1, in this process: the one-device steps, then the same
+             on a (1, 1) mesh, whose losses and params must be bitwise the
+             one-device ones.  (c) Elastic, cut to ``MESH_ELASTIC_LAYERS``:
+             the seed's params saved from the (2, 1) mesh (in (b)'s spawn),
+             restored onto one rank (its (2, 1) slices bitwise the saving
+             ranks' shards), then onto (2, 1) again (bitwise) and a step
+             taken from fresh moments (finite loss), as
+             ``tests/test_elastic.py`` does (a second spawn).  (d) The (2,
+             1) and (1, 2) meshes' train cells and the (2, 1) prefill cell
+             (B 2 x 1,024), counted on ``meta`` at the mesh's sizes and on
+             each rank on the card (a train cell is its leg's first step,
+             the same step on the same arguments): FLOPs by dtype, HBM
+             bytes, kernel charges and collective bytes equal, a train
+             cell's reduce-scatters counted; the prefill's flash charges =
+             its launches = 28 per rank; the peak within
+             ``DRYRUN_PEAK_BAR`` of the count's.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -517,6 +531,11 @@ RECOVERY_REHEARSED = {
     "f32": dict(records=55, snapshot_id=0, records_replayed=28,
                 sequences_resumed=1, requests_requeued=1, tokens_replayed=529),
 }
+# the cuts recovered on the card: the last alone (a snapshot and 68 records
+# replayed, every slot live), cut from all three to keep the script inside
+# its time limit; the CPU tests recover at every record boundary
+# (``tests/test_torch_recovery.py``)
+RECOVERY_DRAINED = ("mid_all_live",)
 # the async-window kill: the first step boundary with a move in flight from
 # this dispatch on
 RECOVERY_ASYNC_FROM = 40
@@ -649,28 +668,46 @@ DRYRUN_PEAK_BAR = (0.99, 1.01)
 # the mesh phase: qwen3-1.7b trained on the JAX package's data x model mesh
 MESH_ARCH = "qwen3-1.7b"
 MESH_SHAPE = ShapeConfig("train", 1024, 2, "train")   # the train phase's
-MESH_STEPS = 3
+MESH_STEPS = 2
 MESH_OPT = dict(lr=1e-4, weight_decay=0.1, clip_norm=1.0)   # build_cell's
 MESH_PAIR = (2, 1)   # (data, model): two gloo ranks sharing the one card
+MESH_TP = (1, 2)     # (e): the same two ranks as (data 1, model 2)
+# what the legs' rank peaks stand beside: a (2, 1) rank's on the replicated
+# route (the whole tree gathered per step), and the one-device step's (the
+# train phase's), both measured on an NVIDIA H100 80GB HBM3, 700.00 W
+MESH_PAIR_PEAK_REPLICATED_GB = 28.36
+MESH_ONE_DEVICE_PEAK_GB = 47.6
 # (c)'s cut: at 4 of 28 layers the saved params are 1.04 GB (the
 # vocabulary's table 0.62 GB of it); the uncut ones' 4.06 GB would take
 # ~4x as long to gather through the host and write
 MESH_ELASTIC_LAYERS = 4
 MESH_CKPT = dict(seg_bytes=64 << 20, chunk_bytes=4 << 20)  # the train phase's
 MESH_PREFILL = DRYRUN_CELLS[1]   # (d)'s prefill cell, B 2 x 1,024
-MESH_TIMEOUT_S = 300
-# (b)'s bars against (a), set between sound readings and a planted fault's.
-# ``scripts/rehearse_mesh.py --fault`` (the same functions at smoke width,
-# bf16, two CPU ranks, seeds 0-2): sound, losses 6.5e-6-4.1e-5 relative
-# and 1.22-1.29% of the param elements apart; with the gradients' all-reduce
-# taken out, losses 5.2e-4-6.5e-4 relative and 27.0-27.4% apart.  On the
-# card (NVIDIA H100 80GB HBM3, 700.00 W, full width) the sound step read
-# 1.27e-5 and 3.32%.  Each bar sits near the geometric mean of the largest
-# sound reading and the least fault one: ~3.5x from each for the losses,
-# ~3x for the share.  The cap (one unit in the last place plus 2 lr per
-# step) only bounds an update's size: sound 0.34-0.85 of it, the fault
-# 1.108.
-MESH_BARS = {"loss_rtol": 1.5e-4, "param_share_differ": 0.10}
+MESH_TIMEOUT_S = 420
+# (b)'s and (e)'s bars against (a), set between sound readings and a
+# planted fault's.  ``scripts/rehearse_mesh.py --fault`` (the same functions
+# at smoke width, bf16, two CPU ranks, seeds 0-2, ``MESH_STEPS`` 2): (b)
+# sound, losses 2.5e-5-4.4e-5 relative and 0.81-0.89% of the param elements
+# apart; with the gradients' sum over "data" taken out, losses 1.0e-4-6.6e-4
+# and 22.6-23.2% apart.  On the card (NVIDIA H100 80GB HBM3, 700.00 W, full
+# width, 2 steps) the sound (b) read 2.4e-5 and 2.11%.  Each bar sits near
+# the geometric mean of the largest sound reading and the least fault one:
+# 1.5x from each for the losses, ~3.3x for the share.  The cap (2 lr plus
+# one unit in the last place per step: each step's update rounds to the
+# leaf's type) only bounds an update's size: sound 0.50-0.78 of it, the
+# fault 0.99.
+MESH_BARS = {"loss_rtol": 6.7e-5, "param_share_differ": 0.07}
+# (e): sound, losses 3.1e-5-5.2e-5 and 1.25-1.38% apart, the leaves every
+# "model" rank holds whole (the norms) 0.0027-0.0032 of their cap apart on
+# average, the ranks' copies of them bitwise equal.  With the norms'
+# gradients not summed over "model", the norms read 0.167-0.179 and the
+# copies differ, while the losses (1.4e-5-3.1e-5) and the share
+# (1.34-1.46%) stay within the sound range (AdamW's update hardly moves
+# when a gradient halves): the norms' bar sits at the geometric mean (~7x
+# from each), the copies must be equal, and the loss and share bars sit ~3x
+# above the largest sound readings (the card's, 2 steps: 1.5e-5 and 4.18%).
+MESH_BARS_TP = {"loss_rtol": 1.5e-4, "param_share_differ": 0.12,
+                "model_whole_mean_over_cap": 0.023}
 
 
 def encdec_flash_shapes() -> dict:
@@ -1751,10 +1788,10 @@ RECOVERY_COUNTERS = ("snapshot_id", "records_replayed", "sequences_resumed",
 
 
 def phase_recovery(cfg, mono) -> dict:
-    """Crash safety on the card: the journaled run, three kills in it, a
-    kill inside the async window, and the f32 leg (see the module's
-    docstring).  Every check is made before any fails, and the phase's
-    line names each failure."""
+    """Crash safety on the card: the journaled run, its kills (one of
+    three recovered), a kill inside the async window, and the f32 leg (see
+    the module's docstring).  Every check is made before any fails, and
+    the phase's line names each failure."""
     t0 = time.perf_counter()
     reh = RECOVERY_REHEARSED
     prompts, news = engine_requests(cfg.vocab_size)
@@ -1816,7 +1853,7 @@ def phase_recovery(cfg, mono) -> dict:
 
         per_cut = {}
         want = run["tokens"]
-        for name in sorted(cuts):
+        for name in RECOVERY_DRAINED:
             seq, n_sub, d = cuts[name]
             got, summ = recover_drain(model, d, **POOL, device="cuda")
             add(summ["launches"])
@@ -3585,12 +3622,14 @@ def mesh_note(what: str, t0: float) -> None:
 
 @contextlib.contextmanager
 def collective_timer(device):
-    """Host ms inside ``torch.distributed``'s all_gather and all_reduce
-    while active, by name, the card synchronised before and after each
-    call (so it times the collective and not the work queued before it)."""
+    """Host ms inside ``torch.distributed``'s all_gather, all_reduce and
+    reduce_scatter while active, by name, the card synchronised before and
+    after each call (so it times the collective and not the work queued
+    before it)."""
     import torch.distributed as dist
-    box = {"all_gather": 0.0, "all_reduce": 0.0, "calls": 0}
-    saved = {n: getattr(dist, n) for n in ("all_gather", "all_reduce")}
+    names = ("all_gather", "all_reduce", "reduce_scatter")
+    box = {n: 0.0 for n in names} | {"calls": 0}
+    saved = {n: getattr(dist, n) for n in names}
 
     def timed(name, fn):
         def call(*a, **k):
@@ -3650,7 +3689,8 @@ def mesh_train(cfg, device, mesh=None, seed: int = SEED,
     step = (make_train_fn(model, opt) if mesh is None else make_train_fn(
         model, opt, mesh, global_batch=MESH_SHAPE.global_batch))
     out = {"loss": [], "step_ms": [], "all_gather_ms": [],
-           "all_reduce_ms": [], "collective_calls": []}
+           "all_reduce_ms": [], "reduce_scatter_ms": [],
+           "collective_calls": [], "compute": step.compute}
     for i, b in enumerate(mesh_batches(cfg, device, seed)):
         if mesh is not None:
             b = shard_batch(b, TOKENS_AXES, mesh)
@@ -3671,8 +3711,8 @@ def mesh_train(cfg, device, mesh=None, seed: int = SEED,
                 "card": counter.summary(),
                 "measured_peak": torch.cuda.max_memory_allocated() - base,
                 "launches": {k: n - n0[k] for k, n in ops.launches.items()}}
-        out["all_gather_ms"].append(ct["all_gather"])
-        out["all_reduce_ms"].append(ct["all_reduce"])
+        for name in ("all_gather", "all_reduce", "reduce_scatter"):
+            out[f"{name}_ms"].append(ct[name])
         out["collective_calls"].append(ct["calls"])
     out["params"] = params
     return out
@@ -3712,38 +3752,58 @@ def mesh_manager(root) -> CheckpointManager:
                              **MESH_CKPT)
 
 
+MESH_KEYS = ("loss", "step_ms", "all_gather_ms", "all_reduce_ms",
+             "reduce_scatter_ms", "collective_calls", "compute")
+
+
+def mesh_leg(cfg, device, shape: tuple, root, name: str, card: bool,
+             seed: int) -> dict:
+    """One leg's steps on a ``shape`` (data, model) mesh of this spawn's two
+    ranks: the rank's param shards written to ``root`` as ``name`` for (a)
+    to hold against; with ``card``, its peak ``max_memory_allocated`` and
+    the first step counted as (d)'s train cell at the mesh's sizes."""
+    mesh = make_debug_mesh(*shape, device.type)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    r = mesh_train(cfg, device, mesh, seed, count=card)
+    out = {k: r[k] for k in MESH_KEYS}
+    torch.save({"/".join(p): t.detach().cpu()
+                for p, t in leaves_with_path(r["params"])},
+               os.path.join(root, f"{name}_{torch.distributed.get_rank()}"
+                                  f".pt"))
+    if card:
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        count = r["count"]
+        del r
+        free_card()
+        out["train_cell"] = mesh_cell(cfg, MESH_SHAPE,
+                                      dict(zip(("data", "model"), shape)),
+                                      count)
+        out["train_cell"]["mesh"] = list(shape)
+    return out
+
+
 def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
-                   seed: int = SEED) -> dict:
-    """(b), on each of the two ranks of a (2, 1) mesh: the steps, the
+                   seed: int = SEED, legs: tuple = ("pair", "tp")) -> dict:
+    """(b) and (e), on each of this spawn's two ranks: the steps on the (2,
+    1) mesh, then on the (1, 2) mesh (``legs`` names which run), each
     rank's param shards written to ``root`` for (a) to hold against; with
-    ``card``, the first step counted as (d)'s train cell, then (c)'s save:
-    the params at ``MESH_ELASTIC_LAYERS``, saved from the mesh, each
-    shard's digest."""
+    ``card``, each leg's first step counted as (d)'s train cell, then
+    (c)'s save: the params at ``MESH_ELASTIC_LAYERS``, saved from the (2,
+    1) mesh, each shard's digest."""
     t0 = time.perf_counter()
     deterministic()
     ops.reset_launches()
     cfg = get_config(MESH_ARCH)
     cfg = cfg.smoke() if smoke else cfg
-    mesh = make_debug_mesh(*MESH_PAIR, device.type)
-    mesh_note("mesh made", t0)
+    out = {}
+    for leg, shape in (("pair", MESH_PAIR), ("tp", MESH_TP)):
+        if leg in legs:
+            out[leg] = mesh_leg(cfg, device, shape, root, leg, card, seed)
+            free_card()
+            mesh_note(f"{leg} {shape} steps done", t0)
     if card:
-        torch.cuda.reset_peak_memory_stats()
-    r = mesh_train(cfg, device, mesh, seed, count=card)
-    mesh_note("steps done", t0)
-    out = {k: r[k] for k in ("loss", "step_ms", "all_gather_ms",
-                             "all_reduce_ms", "collective_calls")}
-    torch.save({"/".join(p): t.detach().cpu()
-                for p, t in leaves_with_path(r["params"])},
-               os.path.join(root, f"pair_{rank}.pt"))
-    if card:
-        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["train_cell"] = mesh_cell(cfg, MESH_SHAPE,
-                                      dict(zip(("data", "model"), MESH_PAIR)),
-                                      r["count"])
-        mesh_note("train cell counted", t0)
-    del r
-    free_card()
-    if card:
+        mesh = make_debug_mesh(*MESH_PAIR, device.type)
         cut = cfg.with_(n_layers=MESH_ELASTIC_LAYERS)
         params = mesh_params(cut, device, mesh, seed)
         specs = tree_specs(Model(cut, params={}).axes(),
@@ -3759,30 +3819,56 @@ def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
     return out
 
 
-def mesh_gap(one_params, root, device) -> dict:
-    """(b) against (a): each rank's param shards against the same slices of
-    the one-device params, as the share of elements that differ and the
-    largest |difference| over its cap, one unit in the last place of the
-    one-device value (in the leaf's type) plus 2 lr per step."""
-    sizes = dict(zip(("data", "model"), MESH_PAIR))
+def mesh_gap(one_params, root, device, name: str = "pair",
+             shape: tuple = MESH_PAIR) -> dict:
+    """A leg against (a): each rank's param shards (``name``, on a
+    ``shape`` mesh) against the same slices of the one-device params, as
+    the share of elements that differ and the largest and mean |difference|
+    over its cap, ``MESH_STEPS`` times 2 lr plus one unit in the last place
+    of the larger of the two values (each step's update rounds to the
+    leaf's type); on a mesh with a "model" axis, the same over the leaves
+    every "model" rank holds whole (``model_whole``: the norms, whose
+    gradients are summed over "model"), and whether those ranks' copies of
+    them are bitwise equal."""
+    sizes = dict(zip(("data", "model"), shape))
     axes = Model(get_config(MESH_ARCH), params={}).axes()
     specs = tree_specs(axes, one_params, sizes)
-    worst, differ, total = 0.0, 0, 0
-    for r in range(MESH_PAIR[0]):
-        shards = torch.load(os.path.join(root, f"pair_{r}.pt"))
-        coords = {"data": r, "model": 0}
+    # per subset: worst, sum of |d| / cap, elements that differ, elements
+    acc = {k: [0.0, 0.0, 0, 0] for k in ("all", "model_whole")}
+    copies: dict = {}
+    worst_leaf = None
+    for r in range(shape[0] * shape[1]):
+        shards = torch.load(os.path.join(root, f"{name}_{r}.pt"))
+        coords = {"data": r // shape[1], "model": r % shape[1]}
         for (path, a), sp in zip(leaves_with_path(one_params), specs):
             want = shard_view(a.detach(), sp, sizes, coords).float()
             got = shards.pop("/".join(path)).to(device).float()
-            ulp = torch.finfo(a.dtype).eps * torch.exp2(
-                torch.frexp(want).exponent.float() - 1)
-            cap = ulp + 2 * MESH_OPT["lr"] * MESH_STEPS
-            d = (got - want).abs()
-            worst = max(worst, float((d / cap).max()))
-            differ += int((d > 0).sum())
-            total += d.numel()
-    return {"share_differ": differ / total, "worst_over_cap": worst,
-            "elements": total}
+            ulp = torch.finfo(a.dtype).eps * torch.exp2(torch.frexp(
+                torch.maximum(want.abs(), got.abs())).exponent.float() - 1)
+            d = (got - want).abs() / (MESH_STEPS * (ulp + 2 * MESH_OPT["lr"]))
+            over = float(d.max())
+            if over > acc["all"][0]:
+                worst_leaf = "/".join(path)
+            held_whole = shape[1] > 1 and "model" not in sp
+            for k in ("all", "model_whole")[:1 + held_whole]:
+                acc[k][0] = max(acc[k][0], over)
+                acc[k][1] += float(d.sum())
+                acc[k][2] += int((d > 0).sum())
+                acc[k][3] += d.numel()
+            if held_whole:
+                copies.setdefault(("/".join(path), coords["data"]),
+                                  []).append(got)
+
+    def read(k):
+        worst, total, differ, n = acc[k]
+        return {"share_differ": differ / n, "worst_over_cap": worst,
+                "mean_over_cap": total / n, "elements": n}
+
+    out = read("all") | {"worst_leaf": worst_leaf}
+    if copies:
+        out["model_whole"] = read("model_whole") | {"copies_equal": all(
+            torch.equal(c[0], x) for c in copies.values() for x in c)}
+    return out
 
 
 def mesh_restore(root, cfg, device, mesh) -> tuple[dict, float]:
@@ -3798,8 +3884,8 @@ def mesh_restore(root, cfg, device, mesh) -> tuple[dict, float]:
 def mesh_one(root) -> dict:
     """(a) in this process, one ``nccl`` rank at world size 1 (the tp
     phase's way), deterministic kernels while it runs: the one-device
-    steps, (b)'s shards held against them, then the same steps on a (1, 1)
-    mesh."""
+    steps (and their peak above the level before), (b)'s and (e)'s shards
+    held against them, then the same steps on a (1, 1) mesh."""
     t0 = time.perf_counter()
     device = torch.device("cuda", torch.cuda.current_device())
     cfg = get_config(MESH_ARCH)
@@ -3810,10 +3896,15 @@ def mesh_one(root) -> dict:
     torch.distributed.init_process_group("nccl", store=store, rank=0,
                                          world_size=1)
     try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         one = mesh_train(cfg, device)
         out = {"one": {"loss": one["loss"], "step_ms": one["step_ms"],
-                       "digests": tree_digests(one["params"])}}
+                       "digests": tree_digests(one["params"]),
+                       "max_memory_allocated_gb": (
+                           torch.cuda.max_memory_allocated() - base) / 1e9}}
         out["gap"] = mesh_gap(one["params"], root, device)
+        out["gap_tp"] = mesh_gap(one["params"], root, device, "tp", MESH_TP)
         del one
         free_card()
         mesh_note("one-device steps and gap done", t0)
@@ -3927,10 +4018,10 @@ def phase_mesh(smi) -> dict:
         failures.append("(1, 1) mesh steps differ from the one-device "
                         "steps")
     # (b) the two gloo ranks within their bars of (a)
-    losses = np.array(pair[0]["loss"])
+    losses = np.array(pair[0]["pair"]["loss"])
     want = np.array(one["one"]["loss"])
     loss_gap = float(np.abs(losses / want - 1).max())
-    if any(r["loss"] != pair[0]["loss"] for r in pair):
+    if any(r["pair"]["loss"] != pair[0]["pair"]["loss"] for r in pair):
         failures.append("the ranks read different losses")
     if loss_gap > MESH_BARS["loss_rtol"]:
         failures.append(f"(2, 1) losses {losses.tolist()} against "
@@ -3939,6 +4030,31 @@ def phase_mesh(smi) -> dict:
     if (gap["share_differ"] > MESH_BARS["param_share_differ"]
             or gap["worst_over_cap"] > 1.0):
         failures.append(f"(2, 1) params against (a): {gap}")
+    b_ranks, e_ranks = [r["pair"] for r in pair], [r["tp"] for r in pair]
+    for r in b_ranks:
+        if r["max_memory_allocated_gb"] >= MESH_PAIR_PEAK_REPLICATED_GB:
+            failures.append(f"(2, 1) rank peak {r['max_memory_allocated_gb']}"
+                            f" GB, not below the replicated route's "
+                            f"{MESH_PAIR_PEAK_REPLICATED_GB}")
+    # (e) the (1, 2) mesh's partitioned steps within their bars of (a)
+    e_losses = np.array(e_ranks[0]["loss"])
+    e_loss_gap = float(np.abs(e_losses / want - 1).max())
+    if any(r["loss"] != e_ranks[0]["loss"] for r in e_ranks):
+        failures.append("the (1, 2) ranks read different losses")
+    if e_loss_gap > MESH_BARS_TP["loss_rtol"]:
+        failures.append(f"(1, 2) losses {e_losses.tolist()} against "
+                        f"{want.tolist()}: {e_loss_gap:.3g} relative")
+    gap_tp = one["gap_tp"]
+    whole = gap_tp["model_whole"]
+    if (gap_tp["share_differ"] > MESH_BARS_TP["param_share_differ"]
+            or gap_tp["worst_over_cap"] > 1.0
+            or whole["mean_over_cap"] > MESH_BARS_TP[
+                "model_whole_mean_over_cap"]
+            or not whole["copies_equal"]):
+        failures.append(f"(1, 2) params against (a): {gap_tp}")
+    for r in b_ranks + e_ranks:
+        if r["compute"] != "partitioned":
+            failures.append(f"a leg ran the {r['compute']} route")
     # (c) elastic
     if not regrow[0]["restored_one_rank_bitwise"]:
         failures.append("restore onto one rank is not the saved leaves")
@@ -3949,11 +4065,11 @@ def phase_mesh(smi) -> dict:
             failures.append(f"loss after the regrow {r['loss_after_regrow']}")
     # (d) meta and card counts, flash launches = charges, the peak
     lo, hi = DRYRUN_PEAK_BAR
-    cells = [[p["train_cell"], g["prefill_cell"]]
-             for p, g in zip(pair, regrow)]
+    cells = [[p["pair"]["train_cell"], p["tp"]["train_cell"],
+              g["prefill_cell"]] for p, g in zip(pair, regrow)]
     for rank, rank_cells in enumerate(cells):
         for c in rank_cells:
-            name = f"rank {rank} {c['cell']}"
+            name = f"rank {rank} {c['cell']} {tuple(c.get('mesh', MESH_PAIR))}"
             if not all(c["counts_equal"].values()):
                 failures.append(f"{name}: meta and card counts differ "
                                 f"{c['counts_equal']}")
@@ -3966,8 +4082,8 @@ def phase_mesh(smi) -> dict:
                 failures.append(f"{name}: {flash} flash charges, {launched}"
                                 f" launches, {want_flash} wanted")
             if c["cell"] == "train" and not c["collective_bytes"].get(
-                    "all-reduce"):
-                failures.append(f"{name}: no gradient all-reduce counted")
+                    "reduce-scatter"):
+                failures.append(f"{name}: no reduce-scatter counted")
             if not lo <= c["peak_ratio"] <= hi:
                 failures.append(f"{name}: measured peak {c['peak_ratio']:.4f}"
                                 f" of the predicted one, outside "
@@ -3982,12 +4098,18 @@ def phase_mesh(smi) -> dict:
            "a_nccl_mesh_1x1": {"loss": one["mesh11"]["loss"],
                                "step_ms": one["mesh11"]["step_ms"],
                                "bitwise_equal": a_bitwise},
+           "a_one_device_peak_gb": one["one"]["max_memory_allocated_gb"],
            "b_gloo_mesh_2x1": {
-               "ranks": [{k: r[k] for k in (
-                   "loss", "step_ms", "all_gather_ms", "all_reduce_ms",
-                   "collective_calls", "max_memory_allocated_gb")}
-                   for r in pair],
+               "ranks": [{k: r[k] for k in MESH_KEYS + (
+                   "max_memory_allocated_gb",)} for r in b_ranks],
+               "peak_replicated_route_gb": MESH_PAIR_PEAK_REPLICATED_GB,
                "loss_max_rel_gap": loss_gap, "params": gap},
+           "e_gloo_mesh_1x2": {
+               "ranks": [{k: r[k] for k in MESH_KEYS + (
+                   "max_memory_allocated_gb",)} for r in e_ranks],
+               "peak_one_device_train_phase_gb": MESH_ONE_DEVICE_PEAK_GB,
+               "bars": MESH_BARS_TP,
+               "loss_max_rel_gap": e_loss_gap, "params": gap_tp},
            "c_elastic": {
                "what": "params", "n_layers": MESH_ELASTIC_LAYERS,
                "cut": f"{MESH_ELASTIC_LAYERS} of "

@@ -1,0 +1,234 @@
+"""One rank's part of the dense family's train step on a mesh: the work the
+JAX program's GSPMD partition gives each device, with the collectives
+written out (``launch.steps.make_train_fn``'s partitioned route).
+
+A :class:`Partition` reads every local size from the leaves' resolved
+specs under ``DEFAULT_RULES`` (``tree_specs``), never from a per-arch
+table: this rank's query heads, kv heads, MLP columns and vocabulary rows
+are the slices its ``wq`` / ``wk`` / ``w_up`` / ``embed`` shards hold on
+"model", and the residual stream's sequence is cut over "model" where the
+rules cut ``seq_act``.  What the model's code does with them
+(``models.transformer``'s partitioned block, embedding and unembedding,
+``models.model``'s vocab-parallel loss):
+
+* **Tensor-parallel products over "model".**  ``wq`` / ``wk`` / ``wv`` and
+  ``w_gate`` / ``w_up`` are column-parallel (this rank's heads or
+  columns), ``wo`` and ``w_down`` row-parallel: their outputs are partial
+  sums over "model", reduce-scattered in the activations' dtype.  A dim
+  the resolver leaves whole (a head count or a vocabulary "model" does not
+  divide) is computed whole on every rank, on the whole sequence, and only
+  this rank's positions are kept.  Where the kv heads stay whole but the
+  query heads are cut, a rank projects only the kv heads its query heads
+  read, sliced from the whole ``wk`` / ``wv``.
+* **Sequence-parallel activations.**  Between blocks the residual stream is
+  this rank's slice of the sequence (the JAX ``_sp`` constraint): each
+  block all-gathers its normed input along the sequence and
+  reduce-scatters its attention and MLP outputs back; the norms run on the
+  local slice.
+* **Vocab-parallel embedding and loss.**  The lookup masks the rows outside
+  this rank's vocabulary slice and reduce-scatters the partial embeddings
+  onto the sequence slices (the JAX lookup's all-reduce, joined with the
+  cut onto the sequence); the logits stay vocab-sharded and the loss is
+  the JAX iota-mask form, all-reducing the max, the sum of exponentials and
+  the label's logit as (B, S) values.
+* **FSDP over "data", one layer at a time.**  Each layer's weights are
+  gathered over the axes their ``embed`` dim is cut on just before its
+  forward, kept by autograd as their shards (``collectives.FsdpHooks``),
+  gathered again for its backward, and their gradient reduce-scattered to
+  the shard right after it.
+
+Gradients: a leaf's shard gradient is summed over every mesh axis its spec
+does not name (:func:`grad_sum_axes`: the batch's ranks, and "model" for a
+leaf every "model" rank holds whole, whose gradient each rank computes
+from its own sequence slice or heads), the loss being scaled by the number
+of ranks outside "model" so that the sum is the mean over the batch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..tree import leaves_with_path
+from . import collectives as coll
+from .sharding import (DEFAULT_RULES, mesh_axes, mesh_coords, part_axes,
+                       rank_slice, resolve_spec, spec_shards, tree_specs)
+
+MODEL = "model"
+
+
+def grad_sum_axes(spec: tuple, mesh) -> tuple[str, ...]:
+    """The mesh axes (in the mesh's order, each of more than one rank) a
+    leaf of ``spec``'s gradient is summed over after the backward: every
+    axis the spec does not cut.  (An axis it cuts over the batch, "data",
+    was summed by its FSDP gather's reduce-scatter; "model" it cuts needs
+    no sum: each rank computed its own slice whole.)"""
+    named = {a for p in spec for a in part_axes(p)}
+    return tuple(a for a, n in mesh_axes(mesh).items()
+                 if n > 1 and a not in named)
+
+
+def _entry(spec: tuple, d: int):
+    return spec[d] if d < len(spec) else None
+
+
+class Partition:
+    """This rank's part of a dense model's step on ``mesh`` (module
+    docstring).  ``model``: a ``models.Model``; ``mesh``: a
+    ``DeviceMesh`` with named dims or a mesh given as sizes only (rank 0's
+    part, ``meta`` tensors)."""
+
+    def __init__(self, model, mesh):
+        cfg = model.cfg
+        if cfg.family != "dense":
+            raise ValueError(f"the partitioned step runs the dense family, "
+                             f"not {cfg.family}")
+        self.cfg, self.mesh = cfg, mesh
+        self.coords = mesh_coords(mesh)
+        self.n_model = mesh_axes(mesh).get(MODEL, 1)
+        abstract = model.abstract()
+        self.specs = {path: sp for (path, _), sp in zip(
+            leaves_with_path(abstract),
+            tree_specs(model.axes(), abstract, mesh))}
+        self.spec_list = list(self.specs.values())
+        self.hooks = coll.FsdpHooks()
+        blocks = ("blocks", "attn")
+        self.heads = self._slice(cfg.n_heads, blocks + ("wq",), 2)
+        self.kv = self._slice(cfg.n_kv_heads, blocks + ("wk",), 2)
+        up = ("blocks", "mlp", "w_up")
+        self.ff = self._slice(cfg.d_ff, up, 2)
+        self.vocab = self._slice(cfg.vocab_size, ("embed",), 0)
+        # whether "model" cuts each of them
+        self.heads_cut = self.heads.stop - self.heads.start < cfg.n_heads
+        self.kv_cut = self.kv.stop - self.kv.start < cfg.n_kv_heads
+        self.ff_cut = self.ff.stop - self.ff.start < cfg.d_ff
+        self.vocab_cut = self.vocab.stop - self.vocab.start < cfg.vocab_size
+        self._vocab_part = MODEL if self.vocab_cut else None
+        # the kv heads this rank's query heads read: its own where "model"
+        # cuts them too, else a slice of the whole ones (or, where its
+        # query heads do not cover whole groups, one per query head)
+        G = cfg.n_heads // cfg.n_kv_heads
+        need = [h // G for h in range(self.heads.start, self.heads.stop)]
+        kvs = range(need[0], need[-1] + 1)
+        if self.kv_cut or not self.heads_cut:
+            self.kv_pick = None
+        elif need == [k for k in kvs for _ in range(len(need) // len(kvs))]:
+            self.kv_pick = slice(kvs.start, kvs.stop)
+        else:
+            self.kv_pick = need
+
+    def _slice(self, size: int, path: tuple, d: int) -> slice:
+        part = _entry(self.specs[path], d)
+        if MODEL not in part_axes(part):
+            return slice(0, size)
+        return rank_slice(size, part, self.mesh, self.coords)
+
+    # -- the sequence over "model" -----------------------------------------
+    def seq_part(self, S: int):
+        """The spec entry of the residual stream's sequence of ``S``
+        positions: "model" where it divides, nothing on a mesh without
+        one (raises on a "model" axis it does not divide)."""
+        part = _entry(resolve_spec((S,), ("seq_act",), self.mesh,
+                                   DEFAULT_RULES), 0)
+        if self.n_model > 1 and part is None:
+            raise ValueError(f"the partitioned step cuts the sequence over "
+                             f"'model': {S} positions do not divide over "
+                             f"{self.n_model} ranks")
+        return part
+
+    def seq_slice(self, S: int) -> slice:
+        return rank_slice(S, self.seq_part(S), self.mesh, self.coords)
+
+    def enter(self, h):
+        """A block's input (this rank's positions) gathered along the
+        sequence; its gradient reduce-scattered back."""
+        S = h.shape[1] * self.n_model
+        return coll.gather_from(h, 1, self.seq_part(S), self.mesh)
+
+    def leave(self, y, cut: bool):
+        """A block's output over the whole sequence back to this rank's
+        positions: reduce-scattered where ``cut`` (partial sums of a
+        product cut over "model"), else this rank's slice of it."""
+        part = self.seq_part(y.shape[1])
+        if cut:
+            return coll.scatter_to(y, 1, part, self.mesh)
+        return y[:, self.seq_slice(y.shape[1])]
+
+    def seq_sum(self, t):
+        """``t`` summed over the sequence's ranks (gradient as it is)."""
+        return coll.reduce_from(t, MODEL if self.n_model > 1 else None,
+                                self.mesh)
+
+    # -- the vocabulary over "model" ---------------------------------------
+    def vocab_sum(self, t):
+        """``t`` summed over the vocabulary's slices (gradient as it is)."""
+        return coll.reduce_from(t, self._vocab_part, self.mesh)
+
+    def vocab_max(self, t):
+        """``t``'s max over the vocabulary's slices, in place."""
+        return coll.all_reduce(t, self._vocab_part, self.mesh, op="max")
+
+    # -- weights -----------------------------------------------------------
+    def fsdp(self, t, spec: tuple):
+        """``t`` (this rank's shard of a weight of ``spec``) gathered along
+        every dim its spec cuts on axes other than "model"."""
+        for d, part in enumerate(spec):
+            if part is not None and MODEL not in part_axes(part):
+                t = coll.fsdp_gather(t, d, part, self.mesh, self.hooks)
+        return t
+
+    def weight(self, tree: dict, name: str):
+        """A top-level leaf (``embed``, ``lm_head``, ``final_norm``)
+        gathered for use."""
+        return self.fsdp(tree[name], self.specs[(name,)])
+
+    def layer(self, lp: dict) -> dict:
+        """One layer's weights (views of this rank's shards of the stacked
+        ``blocks`` leaves) gathered for its forward, ``wk`` / ``wv``
+        narrowed to the kv heads this rank's query heads read."""
+        out = {}
+        for path, t in leaves_with_path(lp):
+            spec = self.specs[("blocks",) + path][1:]
+            if self.kv_pick is not None and path[-1] in ("wk", "wv"):
+                t = t[:, self.kv_pick]
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = self.fsdp(t, spec)
+        return out
+
+    # -- the gradients -----------------------------------------------------
+    def reduce_grads(self, grads: list) -> None:
+        """Each shard gradient (in the params' leaf order) summed in place
+        over :func:`grad_sum_axes` of its leaf."""
+        for g, spec in zip(grads, self.spec_list):
+            axes = grad_sum_axes(spec, self.mesh)
+            if axes:
+                coll.all_reduce(g, axes, self.mesh)
+
+    def global_norm(self, grads: list):
+        """The whole gradient's norm from its shards: each leaf's f32 sum of
+        squares, the leaves cut on the same axes added in leaf order and
+        summed over those axes' ranks (the distinct shards: a leaf held
+        whole by several ranks counts once), the groups added in the order
+        of their first leaf."""
+        sizes = mesh_axes(self.mesh)
+        groups: dict = {}
+        for g, spec in zip(grads, self.spec_list):
+            axes = tuple(a for a in sizes if sizes[a] > 1 and a in
+                         {x for p in spec for x in part_axes(p)})
+            s = torch.sum(torch.square(g.float()))
+            groups[axes] = s if axes not in groups else groups[axes] + s
+        total = None
+        for axes, s in groups.items():
+            if axes:
+                coll.all_reduce(s, axes, self.mesh)
+            total = s if total is None else total + s
+        return total.sqrt()
+
+    def loss_scale(self) -> int:
+        """The number of ranks outside "model": the local loss is divided
+        by it before the backward, so the gradients' sum over them is the
+        gradient of the mean over the batch."""
+        return spec_shards(tuple(a for a in mesh_axes(self.mesh)
+                                 if a != MODEL), self.mesh)
+

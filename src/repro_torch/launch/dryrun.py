@@ -23,12 +23,15 @@ one-device step.  On ``single`` and ``multi`` the cell is rank 0's
 (``build_cell(..., mesh=)`` on the mesh given as sizes: no rank is
 spawned): its arguments are rank 0's shards under ``DEFAULT_RULES``, the
 per-device bytes are ``tree_bytes_per_device``'s (the JAX record's), and
-the count is rank 0's step on ``meta`` with its collectives (the
-all-gathers of the parameters, the cache's non-batch cuts, the gradient's
-and the loss's all-reduce) charged by kind and payload.  The port's step
-on a mesh is data-parallel with sharded state (``launch.steps``), not the
-JAX GSPMD program, so its FLOPs, bytes, collectives and peak are the
-port's, not the TPU's.
+the count is rank 0's step on ``meta`` with its collectives charged by
+kind and payload.  Each record names the step's route as ``"compute"``
+(``launch.steps.compute_route``): the dense family's train cells are
+``partitioned`` (the JAX program's work per device: its heads, columns and
+vocabulary rows, the sequence-parallel residual, per-layer FSDP gathers),
+the other cells on a mesh ``replicated`` (the whole tree gathered, the
+compute repeated over "model"), and the ``one`` cells ``one-device``.  The
+FLOPs, bytes, collectives and peak are the port's eager program's, not
+the TPU's.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from ..optim import AdamW
 from ..roofline.op_cost import OpCost
 from ..tree import leaves
 from .mesh import make_production_mesh
-from .steps import build_cell
+from .steps import build_cell, compute_route
 
 # the one-card cells' mesh, as sizes (per-device bytes = the whole tree's)
 ONE = {"data": 1, "model": 1}
@@ -153,6 +156,7 @@ def run_cell(arch: str, shape_name: str, out_dir: pathlib.Path,
         "overrides": overrides or {}, "seq_len": shape.seq_len,
         "global_batch": shape.global_batch, "kind": shape.kind,
         "mesh_shape": dict(sizes or ONE),
+        "compute": compute_route(cfg, shape.kind, sizes),
     }
     reason = port_skip_reason(cfg, shape)
     if reason:

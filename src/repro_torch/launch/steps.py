@@ -11,24 +11,38 @@ argument and every result of a step is this rank's shard under
 ``distributed.sharding.DEFAULT_RULES``, the JAX cell's in- and
 out-shardings: the parameters and both AdamW moments, the batch (cut over
 ``("pod", "data")`` or ``("data",)``, as the resolver gives its batch dim),
-the decode cache (its batch, and its length over "model").  The work in
-between is data-parallel: each step all-gathers every leaf over the mesh
-axes it is cut on (``distributed.collectives.gather``), runs the
-one-device step on its slice of the batch, and cuts what it returns back
-to its shard.  The train step all-reduces the gradients, in their own
-dtype as the JAX step's (bf16 for bf16 params), to their mean over the
-batch's ranks, clips by the global norm of that whole gradient (the
-one-device step's scale) and updates its own shards in place; its loss
-comes back averaged over the batch's ranks.
+the decode cache (its batch, and its length over "model").  The train
+step's loss comes back averaged over the batch's ranks, and it updates its
+own shards in place, clipped by the whole gradient's global norm (the
+one-device step's scale).  The work in between takes one of two routes,
+which :func:`compute_route` names (the dry-run records it as
+``"compute"``):
 
-This is not the JAX program.  GSPMD partitions the JAX step's work by the
-same shardings (tensor-parallel products over "model", per-layer gathers
-of the FSDP weights); here the compute is replicated over "model" and the
-gathered parameters are one transient whole tree per step, so a rank's
-peak holds the whole parameters and gradient, and its FLOPs are those of
-its batch slice at full width.  What each rank holds between steps, and
-every argument and result, is the JAX layout, which is what the
-checkpoint and the dry-run's per-device bytes read.
+* **partitioned** — the train step of the dense family (but the VLM stub,
+  whose patches it does not take): the JAX program's work per device
+  under GSPMD (``distributed.partition``).  Each rank runs its batch slice
+  on its own heads, kv heads, MLP columns and vocabulary rows (a dim the
+  rules leave whole it computes whole), with the residual stream cut over
+  "model" along the sequence between blocks, a vocab-parallel embedding and
+  loss (no rank holds the (B, S, V) logits whole), and each layer's FSDP
+  weights gathered over "data" for its forward and again for its
+  backward, its gradient reduce-scattered back to the shard; the peak
+  holds one layer's whole weights, never the tree's.  Each leaf's gradient
+  is then summed over the axes its spec does not cut, and the global norm
+  is the shards' sums of squares, a leaf held whole by several ranks
+  counted once.
+* **replicated** — the train step of the other families (MoE, MLA, SSM,
+  hybrid, encoder-decoder) and of the VLM stub, and every prefill and
+  decode step: data-parallel.  Each step all-gathers every leaf over the
+  mesh axes it is cut on (``distributed.collectives.gather``), runs the
+  one-device step on its slice of the batch at full width, and cuts what
+  it returns back to its shard; a train step all-reduces the whole
+  gradients, in their own dtype as the JAX step's (bf16 for bf16 params),
+  to their mean over the batch's ranks.  This is not the JAX program: its
+  compute is replicated over "model", and a rank's peak holds the whole
+  parameters and gradient.
+
+A (1, 1) mesh runs the one-device step, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,8 +51,10 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..distributed.collectives import all_reduce_mean, gather
-from ..distributed.sharding import (DEFAULT_RULES, tree_specs, resolve_spec,
-                                    shard_spec, shard_view)
+from ..distributed.partition import Partition
+from ..distributed.sharding import (DEFAULT_RULES, mesh_axes, tree_specs,
+                                    resolve_spec, shard_spec, shard_view,
+                                    spec_shards)
 from ..kernels import ops
 from ..models import Model, input_specs
 from ..models import transformer as tfm
@@ -93,18 +109,33 @@ def _cache_layout(model: Model, global_batch: int, max_len: int,
                                                    max_len).items()}
 
 
+def compute_route(cfg: ModelConfig, kind: str, mesh) -> str:
+    """How a ``kind`` step of ``cfg`` computes on ``mesh`` (module
+    docstring): ``"one-device"`` without a mesh, ``"partitioned"`` for the
+    dense family's train step (not the VLM stub's), else
+    ``"replicated"``."""
+    if mesh is None:
+        return "one-device"
+    if kind == "train" and cfg.family == "dense" and not cfg.n_patches:
+        return "partitioned"
+    return "replicated"
+
+
 def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
                   global_batch: int | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``.
     The params (leaves with ``requires_grad``) and the moments are updated
     in place; the loss comes back detached, a 0-d f32 tensor on the
-    params' device (reading it waits for the step).
+    params' device (reading it waits for the step).  ``train_step.compute``
+    names its route (:func:`compute_route`).
 
     On ``mesh`` (module docstring) the params and moments are this rank's
     shards, ``batch`` is its slice of a global batch of ``global_batch``
-    rows, and the loss is the mean over the batch's ranks.  On a (1, 1)
-    mesh the step is the one-device step, bit for bit."""
-    if mesh is None:
+    rows, and the loss is the mean over the batch's ranks: partitioned for
+    the dense family, replicated for the others.  On a (1, 1) mesh the step
+    is the one-device step, bit for bit."""
+    route = compute_route(model.cfg, "train", mesh)
+    if mesh is None or spec_shards(tuple(mesh_axes(mesh)), mesh) == 1:
         def train_step(params, opt_state, batch):
             loss = model.loss(params, batch)
             # the gradients as a list in the params' leaf order, which is
@@ -113,11 +144,14 @@ def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
             params, opt_state = opt.update(params, grads, opt_state)
             return params, opt_state, loss.detach()
 
+        train_step.compute = route
         return train_step
+    part = batch_part(global_batch, mesh)
+    if route == "partitioned":
+        return _partitioned_train_fn(model, opt, mesh, part)
 
     specs = tree_specs(model.axes(), model.abstract(), mesh)
     gather_all = _gather_params(model, mesh)
-    part = batch_part(global_batch, mesh)
 
     def sharded_step(params, opt_state, batch):
         whole = gather_all(params)
@@ -136,7 +170,38 @@ def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
         params, opt_state = opt.update(params, shards, opt_state, gnorm=gnorm)
         return params, opt_state, all_reduce_mean(loss.detach(), part, mesh)
 
+    sharded_step.compute = route
     return sharded_step
+
+
+def partitioned_grads(model: Model, part: Partition, params, batch):
+    """``(loss, grads)`` of the partitioned route: this rank's loss (the
+    mean over its rows) and the gradient of the mean over the batch's
+    ranks, as this rank's shard of each leaf (a list in leaf order)."""
+    loss = model.loss(params, batch, part=part)
+    scale = part.loss_scale()
+    grads = list(torch.autograd.grad(loss / scale if scale > 1 else loss,
+                                     leaves(params)))
+    with torch.no_grad():
+        part.reduce_grads(grads)
+    return loss, grads
+
+
+def _partitioned_train_fn(model: Model, opt: AdamW, mesh, batch_ranks):
+    """The dense family's partitioned train step (module docstring):
+    ``batch_ranks``, the spec entry of the ranks whose mean the loss is."""
+    part = Partition(model, mesh)
+
+    def partitioned_step(params, opt_state, batch):
+        loss, grads = partitioned_grads(model, part, params, batch)
+        with torch.no_grad():
+            gnorm = part.global_norm(grads)
+        params, opt_state = opt.update(params, grads, opt_state, gnorm=gnorm)
+        return params, opt_state, all_reduce_mean(loss.detach(), batch_ranks,
+                                                  mesh)
+
+    partitioned_step.compute = "partitioned"
+    return partitioned_step
 
 
 def make_decode_fn(model: Model, mesh=None, *, global_batch: int | None = None,

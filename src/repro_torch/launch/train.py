@@ -4,10 +4,13 @@ with straggler detection, failure injection and restart/resume.  A port of
 cpu``) or, with ``mesh=``, once per rank of a ``("data", "model")`` mesh
 (``--mesh DATAxMODEL`` spawns the ranks): each rank holds its shard of the
 params and moments (``distributed.sharding.DEFAULT_RULES``), takes its
-slice of each global batch and runs ``launch.steps.make_train_fn``'s
-sharded step (data-parallel compute, replicated over "model"; see that
-module); checkpoints are saved from the mesh and restored onto it,
-re-sharded (``checkpoint.manager``).
+slice of each global batch and runs ``launch.steps.make_train_fn``'s step
+on the mesh: the partitioned route for the dense family (tensor-parallel
+products over "model" with a sequence-parallel residual and a
+vocab-parallel loss, each layer's FSDP weights gathered over "data"), the
+replicated route for the others (data-parallel compute, repeated over
+"model"; see that module); rank 0 prints the route.  Checkpoints are saved
+from the mesh and restored onto it, re-sharded (``checkpoint.manager``).
 
 Every piece of state survives a mid-run failure: params and optimizer via
 the MDC checkpoint store, the data cursor by construction (batch =
@@ -20,7 +23,14 @@ state beside the restored one.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --steps 30 --save-every 10 --fail-at 17
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --mesh 1x2 --dist-backend gloo --steps 12 --seq-len 32
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --mesh 2x2 --dist-backend gloo --steps 12 --save-every 4 --fail-at 7
+
+On one card, two ranks sharing it on a (1, 2) mesh (each holds half the
+model): ``PYTHONPATH=src python -m repro_torch.launch.train --mesh 1x2
+--dist-backend gloo --steps 12 --seq-len 32``.  The sequence must divide
+over "model".
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from ..data import SyntheticLMStream
 from ..device import resolve_device
 from ..distributed.fault import (FailureInjector, SimulatedFailure,
                                  StragglerDetector, run_with_restarts)
-from ..distributed.sharding import shard_spec, tree_specs
+from ..distributed.sharding import mesh_axes, shard_spec, tree_specs
 from ..models import Model
 from ..models import transformer as tfm
 from ..models.layers import abstract_params
@@ -97,6 +107,9 @@ def train(*, arch: str = "qwen3-1.7b", smoke: bool = True, steps: int = 30,
         specs = tree_specs(axes, template, mesh)
         p_specs = tree_specs(axes["params"], shapes, mesh)
     verbose = verbose and (mesh is None or dist.get_rank() == 0)
+    if verbose and mesh is not None:
+        print(f"[train] {arch} on mesh {mesh_axes(mesh)}: the "
+              f"{train_step.compute} step")
 
     manager = (CheckpointManager(ckpt_dir, keep_last=keep_last,
                                  policy=ckpt_policy, seg_bytes=ckpt_seg_bytes,

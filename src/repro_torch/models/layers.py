@@ -156,7 +156,7 @@ def softmax_cross_entropy(logits, labels, mask=None):
 
     The label logit is picked with a gather, which is exact on one device;
     the JAX function's iota-mask reduction exists for a vocabulary sharded
-    over a mesh, and would build a (..., V) iota here.
+    over a mesh (:func:`token_nll`), and would build a (..., V) iota here.
     """
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
@@ -166,3 +166,25 @@ def softmax_cross_entropy(logits, labels, mask=None):
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def token_nll(logits, labels, *, vocab_start: int = 0, vocab_sum=None,
+              vocab_max=None):
+    """Each position's NLL in f32 by the JAX function's iota-mask reduction,
+    for logits (..., V_local) holding vocabulary rows ``vocab_start`` on
+    (the partitioned train step's vocab-parallel loss): the label's logit
+    is the sum of the logits whose vocabulary position equals it, so a
+    rank whose slice lacks the label adds 0.  ``vocab_max`` / ``vocab_sum``
+    take a (...,) value to its max / sum over the vocabulary's slices (None:
+    the whole vocabulary is here); the max is a constant of the backward."""
+    lf = logits.float()
+    m = lf.detach().amax(-1)
+    if vocab_max is not None:
+        m = vocab_max(m)
+    se = torch.exp(lf - m[..., None]).sum(-1)
+    pos = torch.arange(vocab_start, vocab_start + lf.shape[-1],
+                       device=lf.device)
+    ll = torch.where(pos == labels[..., None], lf, 0.0).sum(-1)
+    if vocab_sum is not None:
+        se, ll = vocab_sum(torch.stack([se, ll])).unbind(0)
+    return m + torch.log(se) - ll

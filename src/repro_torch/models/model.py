@@ -13,7 +13,7 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import transformer as tfm
 from .layers import (abstract_params, flatten, init_params, logical_axes,
-                     softmax_cross_entropy, unflatten)
+                     softmax_cross_entropy, token_nll, unflatten)
 
 
 class Model(nn.Module):
@@ -113,21 +113,49 @@ class Model(nn.Module):
     def forward(self, params, tokens, extras=None):
         return tfm.forward(params, tokens, self.cfg, extras)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, part=None):
         """Next-token cross-entropy of ``batch["tokens"]`` (B, S), the mean
         over B·(S-1) positions in f32, for every family; the batch's
         ``"frames"`` / ``"patches"`` go to :func:`transformer.forward` as
         its extras, and the vision positions' logits are dropped.  The JAX
         ``Model.loss`` adds its MoE aux term as ``+ 0.0`` (the load-balance
         loss, ``moe.aux_load_balance_loss``, is the trainer's to add), so
-        this adds none."""
+        this adds none.
+
+        ``part``: a ``distributed.partition.Partition``: ``params`` are this
+        rank's shards and ``batch`` its rows, and the loss (the mean over
+        its rows, the same on every "model" rank) is vocab-parallel
+        (:func:`partitioned_loss`)."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        if part is not None:
+            return partitioned_loss(
+                tfm.forward(params, tokens, cfg, part=part), tokens, part)
         extras = {k: v for k, v in batch.items() if k in ("frames", "patches")}
         logits = tfm.forward(params, tokens, cfg, extras or None)
         if cfg.n_patches and extras:
             logits = logits[:, cfg.n_patches:]  # drop the vision positions
         return softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+
+def partitioned_loss(logits, tokens, part):
+    """The next-token loss of :func:`transformer.partitioned_forward`'s
+    logits: over a vocabulary cut over "model", every position's NLL by the
+    iota-mask reduction, its max, sum of exponentials and label logit
+    all-reduced as (B, S) values; over a whole vocabulary, the NLL of this
+    rank's positions (the last position has no label), summed over the
+    sequence's ranks."""
+    B, S = tokens.shape
+    if part.vocab_cut:
+        return token_nll(logits[:, :-1], tokens[:, 1:],
+                         vocab_start=part.vocab.start,
+                         vocab_sum=part.vocab_sum,
+                         vocab_max=part.vocab_max).mean()
+    sl = part.seq_slice(S)
+    labels = torch.roll(tokens, -1, 1)[:, sl]
+    has_label = torch.arange(S, device=tokens.device)[sl] < S - 1
+    nll = torch.where(has_label, token_nll(logits, labels), 0.0)
+    return part.seq_sum(nll.sum()) / (B * (S - 1))
 
 
 # ------------------------------------------------------------- input specs

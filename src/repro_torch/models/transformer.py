@@ -252,13 +252,17 @@ def _ssm_order(cfg):
         yield "ssm", i
 
 
-def forward(params, tokens, cfg, extras=None):
+def forward(params, tokens, cfg, extras=None, part=None):
     """Training/scoring forward: tokens (B, S) -> logits (B, S[+patches],
     V), through autograd when the params require grad.  ``extras``:
     ``"frames"`` (B, n_frames, d) for the encoder-decoder (required),
     ``"patches"`` (B, n_patches, VISION_DIM) for the VLM (optional; their
-    rows come first)."""
+    rows come first).  ``part``: a ``distributed.partition.Partition``,
+    this rank's part of the dense family's partitioned train step
+    (:func:`partitioned_forward`)."""
     _check_family(cfg)
+    if part is not None:
+        return partitioned_forward(params, tokens, cfg, part)
     x = _embed(params, tokens, cfg, extras)
     layers = unstack_layers(params["blocks"], cfg.n_layers)
     if cfg.family == "encdec":
@@ -281,6 +285,62 @@ def forward(params, tokens, cfg, extras=None):
         x = (block(x, layers[i]) if kind == "ssm"
              else _shared_attn_block(x, sq, cfg))
     return _unembed(params, x, cfg)
+
+
+# ------------------------------------------- the partitioned train step
+
+def _tp_block(x, lp, cfg, part):
+    """A dense layer on the partitioned route: ``x`` is this rank's
+    positions of the residual stream, ``lp`` the layer's views of this
+    rank's shards, gathered here for the layer.  The attention and the MLP
+    run over the whole sequence on this rank's heads and columns, and their
+    partial outputs go back to this rank's positions."""
+    w = part.layer(lp)
+    h = part.enter(rmsnorm(x, w["ln1"]))
+    x = x + part.leave(att.gqa_train(h, w["attn"], cfg, causal=True),
+                       part.heads_cut)
+    h = part.enter(rmsnorm(x, w["ln2"]))
+    return x + part.leave(_mlp(h, w["mlp"], cfg), part.ff_cut)
+
+
+def _tp_embed(params, tokens, part):
+    """This rank's positions of the embeddings: a vocab-parallel lookup
+    (the rows outside its vocabulary slice masked, the partial rows
+    reduce-scattered onto the sequence), or, over a whole vocabulary, the
+    lookup of its own positions."""
+    w = part.weight(params, "embed")
+    if not part.vocab_cut:
+        return w[tokens[:, part.seq_slice(tokens.shape[1])]]
+    ids = tokens - part.vocab.start
+    inside = (ids >= 0) & (ids < w.shape[0])
+    x = w[ids.clamp(0, w.shape[0] - 1)].masked_fill(~inside[..., None], 0)
+    return part.leave(x, True)
+
+
+def _tp_unembed(params, x, cfg, part):
+    """The logits of this rank's vocabulary slice at every position, or,
+    over a whole vocabulary, of the whole vocabulary at its positions."""
+    x = rmsnorm(x, part.weight(params, "final_norm"))
+    if part.vocab_cut:
+        x = part.enter(x)
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, part.weight(params, "embed"))
+    return x @ part.weight(params, "lm_head")
+
+
+def partitioned_forward(params, tokens, cfg, part):
+    """The dense family's forward as one rank of the partitioned train step
+    (``distributed.partition``): ``params`` this rank's shards, ``tokens``
+    its rows; the logits are (B, S, V / |model|) where "model" cuts the
+    vocabulary, else (B, S / |model|, V).  Each layer's FSDP weights are
+    gathered for it and kept by autograd as their shards (``part.hooks``)."""
+    x = _tp_embed(params, tokens, part)
+    block = _maybe_remat(functools.partial(_tp_block, cfg=cfg, part=part),
+                         cfg)
+    with part.hooks:
+        for lp in unstack_layers(params["blocks"], cfg.n_layers):
+            x = block(x, lp)
+        return _tp_unembed(params, x, cfg, part)
 
 
 # ------------------------------------------------------------- the cache

@@ -75,8 +75,9 @@ def term_seconds(rec: dict) -> dict:
     step = max(comp, mem, coll)
     # useful model FLOPs: 6·N_active·tokens (train) / 2·N_active·tokens
     # (fwd), per device of the cell's mesh as the JAX report shares them (a
-    # rank of the port's mesh replicates its compute over "model", so its
-    # useful share of what it counts is below one)
+    # rank of the replicated route repeats its compute over "model", so its
+    # useful share of what it counts is below one; the partitioned route
+    # shares it)
     tokens = rec["global_batch"] * (rec["seq_len"] if rec["kind"] != "decode"
                                     else 1)
     mf = (6 if rec["kind"] == "train" else 2) * rec["n_active_params"] * tokens
@@ -114,26 +115,27 @@ def fmt_engineering(x: float) -> str:
 
 def markdown_table(cells: list[dict], mesh: str = "one") -> str:
     rows = []
-    hdr = ("| arch | shape | comp (ms) | mem (ms) | coll (ms) | dominant | "
-           "useful/counted | roofline frac | peak GiB | fits one card |")
-    sep = "|" + "---|" * 10
+    hdr = ("| arch | shape | compute | comp (ms) | mem (ms) | coll (ms) | "
+           "dominant | useful/counted | roofline frac | peak GiB | "
+           "fits one card |")
+    sep = "|" + "---|" * 11
     rows.append(hdr)
     rows.append(sep)
     for rec in cells:
         if rec.get("mesh") != mesh:
             continue
+        head = (f"| {rec['arch']} | {rec['shape']} | "
+                f"{rec.get('compute', '—')} |")
         if rec.get("status") == "skipped":
-            rows.append(f"| {rec['arch']} | {rec['shape']} | — | — | — | "
-                        f"skipped | — | — | — | — |")
+            rows.append(f"{head} — | — | — | skipped | — | — | — | — |")
             continue
         if rec.get("status") != "ok":
-            rows.append(f"| {rec['arch']} | {rec['shape']} | — | — | — | "
-                        f"ERROR | — | — | — | — |")
+            rows.append(f"{head} — | — | — | ERROR | — | — | — | — |")
             continue
         t = term_seconds(rec)
         peak = rec["peak_live_bytes"] / 2**30
         rows.append(
-            f"| {rec['arch']} | {rec['shape']} | {t['compute_s']*1e3:.2f} | "
+            f"{head} {t['compute_s']*1e3:.2f} | "
             f"{t['memory_s']*1e3:.2f} | {t['collective_s']*1e3:.2f} | "
             f"{t['dominant']} | {t['useful_flop_frac']:.2f} | "
             f"{t['roofline_frac']:.3f} | {peak:.2f} | "

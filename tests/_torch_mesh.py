@@ -26,7 +26,7 @@ from repro_torch.launch.steps import make_train_fn, shard_batch
 from repro_torch.launch.train import TOKENS_AXES, _opt_axes, train
 from repro_torch.models import Model
 from repro_torch.optim import AdamW
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 ARCH = "qwen3-1.7b"
 CKPT = dict(keep_last=2, async_save=False, seg_bytes=1 << 20,
@@ -228,3 +228,67 @@ def round_trip(rank, device, whole) -> dict:
     collectives.all_reduce_mean(x, "data", mesh)
     return {"gathered_equal": equal, "cut": sum(
         spec_shards(sp, mesh) > 1 for sp in specs), "mean": x.tolist()}
+
+
+def partitioned_grads(rank, device, shape, cfg, params, batch) -> dict:
+    """On a ``shape`` (data, model) mesh, the partitioned route's loss and
+    gradient for ``cfg`` from the whole ``params`` and the global
+    ``batch``: this rank's loss and its shard of each leaf's gradient
+    (reduced, as the step hands them to AdamW), by leaf path, and the
+    route ``make_train_fn`` names."""
+    from repro_torch.distributed.partition import Partition
+    from repro_torch.launch.steps import partitioned_grads as grads_of
+    mesh = make_debug_mesh(*shape, device.type)
+    model = Model(cfg, params={})
+    p = _shards(tree_map(lambda t: t.to(device, copy=True), params),
+                model.axes(), mesh)
+    for t in leaves(p):
+        t.requires_grad_(True)
+    b = shard_batch({k: v.to(device) for k, v in batch.items()},
+                    TOKENS_AXES, mesh)
+    loss, grads = grads_of(model, Partition(model, mesh), p, b)
+    route = make_train_fn(model, AdamW(), mesh, global_batch=batch[
+        "tokens"].shape[0]).compute
+    return {"loss": float(loss.detach()), "route": route, "coords": dict(zip(
+        mesh.mesh_dim_names, mesh.get_coordinate())),
+        "grads": {"/".join(path): g.cpu() for (path, _), g in zip(
+            leaves_with_path(p), grads)}}
+
+
+def megatron_ops(rank, device) -> dict:
+    """On a (1, 2) mesh: each of the partitioned step's operators forward
+    and backward on a rank-dependent input, and the upstream gradient ones;
+    every result as a list."""
+    mesh = make_debug_mesh(1, 2, device.type)
+    x = (torch.arange(8.0, device=device).reshape(2, 4) + 10 * rank)
+    out = {}
+    for name, fn in (("copy_to", lambda t: collectives.copy_to(t, "model",
+                                                               mesh)),
+                     ("reduce_from", lambda t: collectives.reduce_from(
+                         t, "model", mesh)),
+                     ("gather_from", lambda t: collectives.gather_from(
+                         t, 1, "model", mesh)),
+                     ("scatter_to", lambda t: collectives.scatter_to(
+                         t, 1, "model", mesh)),
+                     ("fsdp_gather", lambda t: collectives.fsdp_gather(
+                         t, 0, "model", mesh, collectives.FsdpHooks()))):
+        t = x.clone().requires_grad_(True)
+        y = fn(t)
+        y.backward(torch.ones_like(y) * (rank + 1))
+        out[name] = {"y": y.detach().cpu().tolist(),
+                     "grad": t.grad.cpu().tolist()}
+    m = torch.tensor([1.0 + rank, 5.0 - rank], device=device)
+    out["max"] = collectives.all_reduce(m, "model", mesh, op="max").tolist()
+    return out
+
+
+def count_train_cell(rank, device, shape, cfg, cell) -> dict:
+    """This rank's train cell (``build_cell`` on ``device`` at a ``shape``
+    (data, model) mesh) run once under a counter: its summary."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline.op_cost import OpCost
+    mesh = make_debug_mesh(*shape, device.type)
+    fn, args = build_cell(cfg, cell, device, mesh=mesh)
+    with OpCost(inputs=args) as oc:
+        fn(*args)
+    return oc.summary()

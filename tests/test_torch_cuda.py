@@ -1385,6 +1385,38 @@ def test_gather_and_shard_round_trip_on_the_card(dev):
         assert r["mean"] == [0.5] * 3
 
 
+def test_partitioned_one_by_two_step_on_the_card(dev):
+    """Two gloo ranks sharing the card on a (1, 2) mesh (the partitioned
+    route: half the heads, columns and vocabulary each, the sequence cut
+    between blocks): three smoke f32 steps against the one-device steps on
+    the card, at ``tests/test_torch_elastic.py``'s bars (losses within 1e-5
+    relative; at most 1e-3 of the param elements beyond 1e-4, none beyond
+    2 lr per step)."""
+    import _torch_mesh as tm
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves, tree_map
+    opt_kw = dict(lr=3e-3, b2=0.95, weight_decay=0.1, clip_norm=1.0)
+    params, batches = _smoke_train_case()
+    p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(True), params)
+    opt = AdamW(**opt_kw)
+    state, one = opt.init(p), []
+    step = make_train_fn(Model(get_config("qwen3-1.7b").smoke(), params={}),
+                         opt)
+    for b in batches:
+        p, state, loss = step(p, state, {k: v.to(dev) for k, v in b.items()})
+        one.append(float(loss))
+    r0, r1 = spawn_ranks(tm.sharded_steps, 2, (1, 2), params, batches,
+                         opt_kw, None, backend="gloo", device="cuda")
+    assert r0["losses"] == r1["losses"]
+    np.testing.assert_allclose(r0["losses"], one, rtol=1e-5, atol=0)
+    d = torch.cat([(a - b.detach().cpu()).abs().ravel()
+                   for a, b in zip(leaves(r0["params"]), leaves(p))])
+    assert float(d.max()) < 2 * opt_kw["lr"] * len(batches)
+    assert float((d > 1e-4).float().mean()) <= 1e-3
+
+
 # ------------------------------------------------------ the MoE family
 
 MOE = "qwen3-moe-30b-a3b"
