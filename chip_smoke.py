@@ -230,14 +230,38 @@ Phases, in order; any failure raises and the process exits non-zero:
              attention at G 8, flash at H 32 / Kh 4 on the ``wgmma``
              route).  Each request through the plain path on the card at
              the engine's prompt bucket (so the MoE groups and drops as the
-             engine's does): its tokens equal the engine's, or the first
-             mismatch sits on a logit near-tie (``near_tie_bar``) of the
-             plain path.  Layer 0 of a 1,024-token bucket through the
+             engine's does), up to its first ``MOE_PLAIN_TOKENS`` tokens:
+             they equal the engine's, or the first mismatch sits on a logit
+             near-tie (``near_tie_bar``) of the plain path.  Layer 0 of a 1,024-token bucket through the
              port's moe functions: the capacity-dropped picks, and
              ``moe_ffn`` at the prefill and decode shapes called twice,
              bitwise equal.  Reported: the parameter counts, wall and
              dispatch times, peak memory.  (The decode step's device split
              is ``scripts/profile_engine.py --arch qwen3-moe-30b-a3b``.)
+16b. yi    — yi-34b at full width (60 layers, d 7,168, 56 q over 8 kv
+             heads: G 7, which only the paged kernel's second instance
+             family takes), random bf16 weights drawn on the card from the
+             seed, in a process of its own (it first asserts room for the
+             68.8 GB of weights, the pool and ``YI_HEADROOM``).  Four
+             requests of 256-512 tokens, 16 new each, through the engine:
+             the host counters of ``scripts/rehearse_schedule.py yi 8``,
+             paged attention launched (every launch at G 7), flash on its
+             ``wgmma`` route; reported, its wall and dispatch times.  Then
+             the same stream again, its tokens equal to the first's, each
+             of its paged calls held to the plain version in all f32 on the
+             same pools, tables and lengths (``YI_PAGED_BAR``), and the
+             kernel run again on three planted faults per call, each caught
+             by that bar in at least ``YI_FAULT_CAUGHT`` of the calls
+             (``paged_calls_held``).  Each request through the plain path on the
+             card, its prefill through the engine's flash kernel: reported,
+             not asserted, whether its tokens equal the engine's, and the
+             plain path's own first token with the chunked attention's
+             prefill (a random 60-layer stack carries rounding to O(1):
+             ``scripts/family_sensitivity.py yi-34b``).  Then the same
+             weights cut to ``YI_F32_LAYERS`` in f32, through the engine
+             over an f32 pool: its counters the rehearsal's, its tokens
+             equal to the f32 plain path's or parting on a near-tie (top-2
+             margin < 1e-3).
 17. train  — the training side at full width: qwen3-1.7b uncut (28
              layers, d 2,048, vocab 151,936, ~2.03 B params), random bf16
              weights from the seed, through ``launch.train.train`` (the JAX
@@ -377,15 +401,23 @@ Phases, in order; any failure raises and the process exits non-zero:
              restored onto one rank (its (2, 1) slices bitwise the saving
              ranks' shards), then onto (2, 1) again (bitwise) and a step
              taken from fresh moments (finite loss), as
-             ``tests/test_elastic.py`` does (a second spawn).  (d) The (2,
+             ``tests/test_elastic.py`` does (in (b)'s spawn, once both
+             ranks have saved).  (d) The (2,
              1) and (1, 2) meshes' train cells and the (2, 1) prefill cell
-             (B 2 x 1,024), counted on ``meta`` at the mesh's sizes and on
-             each rank on the card (a train cell is its leg's first step,
-             the same step on the same arguments): FLOPs by dtype, HBM
-             bytes, kernel charges and collective bytes equal, a train
-             cell's reduce-scatters counted; the prefill's flash charges =
-             its launches = 28 per rank; the peak within
-             ``DRYRUN_PEAK_BAR`` of the count's.
+             (B 2 x 1,024, in (b)'s spawn), counted on ``meta`` at the
+             mesh's sizes and on each rank on the card (a train cell is its
+             leg's first step, the same step on the same arguments): FLOPs
+             by dtype, HBM bytes, kernel charges and collective bytes
+             equal, a train cell's reduce-scatters counted; the prefill's
+             flash charges = its launches = 28 per rank; the peak within
+             ``DRYRUN_PEAK_BAR`` of the count's.  (f) Qwen3-30B-A3B at full
+             width cut to ``MESH_MOE_LAYERS``, the same two ranks on the
+             (1, 2) mesh
+             (each on half the experts, its router's logits gathered over
+             "model"), against its one-device steps in this process: the
+             losses and params within ``MESH_BARS_MOE``, the norms' copies
+             bitwise equal; reported: each rank's peak beside one
+             device's, step ms.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -418,13 +450,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.configs.paper_store import PAPER  # noqa: E402
 from repro_torch.core import analysis, policies  # noqa: E402
 from repro_torch.core.simulator import Simulator  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import build, ops, ref, work  # noqa: E402
-from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.distributed.sharding import (shard_spec,  # noqa: E402
                                               shard_view, tree_specs)
 from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
@@ -580,7 +612,36 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_REHEARSED = dict(dispatches=34, blocks_written=295, blocks_moved=114,
                      compactions=4, wamp=114 / 295)
 MOE_HEADROOM = 8e9   # bytes free beyond the weights and the pool
+# the plain path's depth per request: it decodes one token at a time
+# (~0.15-0.2 s a token), and 5 of the 8 requests part from the engine on a
+# near-tie within their first 24 tokens on an NVIDIA H100 80GB HBM3
+MOE_PLAIN_TOKENS = 24
 MOE_TIMEOUT_S = 600
+# the yi phase: yi-34b (56 q over 8 kv heads: G 7, which only the paged
+# kernel's second instance family takes) at full width in a process of its
+# own (its 68.8 GB of weights leave ~10 GB of the card): a short stream,
+# its host counters from ``scripts/rehearse_schedule.py yi 8``
+YI_ARCH = "yi-34b"
+YI_REQUESTS = 4
+YI_NEW = 16
+YI_SLABS = 8
+YI_REHEARSED = dict(dispatches=4, blocks_written=90, blocks_moved=0,
+                    compactions=0, wamp=0.0)
+YI_HEADROOM = 3e9
+# each engine paged call against the plain version in all f32 (q and the
+# pools read in f32, p unrounded): |kernel - plain| <= rel * |plain| + sum *
+# sum_j p_j |v_j|.  The kernel rounds its f32 result to q's bf16 once (at
+# most 2**-8 of it); the rest is the two f32 sums' orders, a small share
+# of what they sum.  Each call is also run with three planted faults
+# (``paged_faults``), each of which the bar must catch in at least
+# ``YI_FAULT_CAUGHT`` of the calls
+YI_PAGED_BAR = {"rel": 2 ** -7, "sum": 2 ** -12}
+YI_FAULT_CAUGHT = 0.9
+# the f32 leg's depth: a 1e-7 nudge of the f32 embeddings moves yi's random
+# full-width logits by 0.0105 at 4 layers and 0.90 at 8, and a bf16 stack
+# already parts from f32 at 4 (``scripts/family_sensitivity.py yi-34b``)
+YI_F32_LAYERS = 2
+YI_TIMEOUT_S = 600
 TRAIN_ARCH = "qwen3-1.7b"
 # train(): the JAX trainer's optimizer settings (its lr, warmup and AdamW
 # are train()'s defaults), full width, 6 steps of B 2 x S 1024
@@ -677,13 +738,15 @@ MESH_TP = (1, 2)     # (e): the same two ranks as (data 1, model 2)
 # train phase's), both measured on an NVIDIA H100 80GB HBM3, 700.00 W
 MESH_PAIR_PEAK_REPLICATED_GB = 28.36
 MESH_ONE_DEVICE_PEAK_GB = 47.6
-# (c)'s cut: at 4 of 28 layers the saved params are 1.04 GB (the
-# vocabulary's table 0.62 GB of it); the uncut ones' 4.06 GB would take
-# ~4x as long to gather through the host and write
 MESH_ELASTIC_LAYERS = 4
 MESH_CKPT = dict(seg_bytes=64 << 20, chunk_bytes=4 << 20)  # the train phase's
 MESH_PREFILL = DRYRUN_CELLS[1]   # (d)'s prefill cell, B 2 x 1,024
 MESH_TIMEOUT_S = 420
+# (f): Qwen3-30B-A3B at full width on the (1, 2) mesh, cut to 4 of its 48
+# layers.  Whole, its 30.5 B parameters with AdamW's f32 moments are ~366
+# GB: no card holds (a)'s one-device steps; at 4 layers the tree is 3.11 B
+# parameters (the 0.62 B of the vocabulary's two tables among them)
+MESH_MOE_LAYERS = 4
 # (b)'s and (e)'s bars against (a), set between sound readings and a
 # planted fault's.  ``scripts/rehearse_mesh.py --fault`` (the same functions
 # at smoke width, bf16, two CPU ranks, seeds 0-2, ``MESH_STEPS`` 2): (b)
@@ -708,6 +771,16 @@ MESH_BARS = {"loss_rtol": 6.7e-5, "param_share_differ": 0.07}
 # above the largest sound readings (the card's, 2 steps: 1.5e-5 and 4.18%).
 MESH_BARS_TP = {"loss_rtol": 1.5e-4, "param_share_differ": 0.12,
                 "model_whole_mean_over_cap": 0.023}
+# (f), the MoE config on (1, 2), rehearsed the same way (smoke width at
+# its capacity factor 1.25, where the capacity binds and a routing choice
+# that flips on a near-tie moves a whole pick): sound, losses 7.5e-5-5.5e-4
+# and 5.1-6.0% apart, the norms 0.030-0.042 of their cap on average; with
+# the norms' sum over "model" taken out, the norms read 0.178-0.195 (the
+# losses and the share as sound).  The norms' bar sits at the geometric
+# mean of the largest sound reading and the least fault one, the loss and
+# share bars ~3x above the largest sound readings.
+MESH_BARS_MOE = {"loss_rtol": 1.7e-3, "param_share_differ": 0.18,
+                 "model_whole_mean_over_cap": 0.086}
 
 
 def encdec_flash_shapes() -> dict:
@@ -816,9 +889,10 @@ def phase_build() -> None:
 
 
 def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None, Kh=8,
-                          G=2) -> dict:
+                          G=2, D=128) -> dict:
     """Decode attention at qwen3-1.7b's heads (Kh 8, G 2, D 128, 16-token
-    pages; Qwen3-30B-A3B's are Kh 4, G 8) over B sequences of up to P pages
+    pages; Qwen3-30B-A3B's are Kh 4, G 8, yi-34b's Kh 8, G 7 and
+    Nemotron-4-340B's Kh 8, G 12, D 192) over B sequences of up to P pages
     each; a full table and a one-token sequence among them
     (``_torch_checks.paged_case``).
     ``dtype`` is the pools', ``q_dtype`` (default the same) q's and the
@@ -828,7 +902,7 @@ def check_paged_attention(dtype, timer, B=8, P=64, q_dtype=None, Kh=8,
     1).  A same-dtype output at a shape ``PAGED_SHA256`` holds must be
     bitwise the one it holds."""
     q_dtype = q_dtype or dtype
-    D, T = 128, 16
+    T = 16
     H = Kh * G
     q, k_pool, v_pool, bt, lens = paged_case(q_dtype, dtype, B, P, Kh, G, D, T,
                                              seed=SEED)
@@ -1078,6 +1152,16 @@ def phase_kernels() -> dict:
     emit({"phase": "kernel", "name": "paged_attention", "model": MOE_ARCH,
           "dtype": "torch.bfloat16", **r})
     main["paged_attention_moe"] = r
+    # yi-34b's heads (56 q over 8 kv: G 7), which the yi phase decodes,
+    # and Nemotron-4-340B's (96 over 8 of D 192: G 12, two chunks of 6
+    # heads): the kernel's second instance family
+    for key, arch in (("yi", YI_ARCH), ("nemotron", NEMOTRON_ARCH)):
+        c = get_config(arch)
+        r = check_paged_attention(torch.bfloat16, timer, Kh=c.n_kv_heads,
+                                  G=c.n_heads // c.n_kv_heads, D=c.hd)
+        emit({"phase": "kernel", "name": "paged_attention", "model": arch,
+              "dtype": "torch.bfloat16", **r})
+        main[f"paged_attention_{key}"] = r
     r = check_flash_attention(torch.bfloat16, max(FLASH_BUCKETS), timer,
                               H=moe.n_heads, Kh=Kh)
     emit({"phase": "kernel", "name": "flash_attention", "model": MOE_ARCH,
@@ -1211,6 +1295,14 @@ def long_requests(vocab: int, news=(16, 16, 16, 16)) -> list:
     rng = np.random.default_rng(SEED + 2)
     return [(rng.integers(1, vocab, int(n)), int(m))
             for n, m in zip(rng.integers(300, 1001, 4), news)]
+
+
+def yi_requests(vocab: int) -> list:
+    """The yi phase's ``YI_REQUESTS`` requests: prompts of 256-512 tokens
+    (seed 3), ``YI_NEW`` new tokens each."""
+    rng = np.random.default_rng(SEED + 3)
+    return [(rng.integers(1, vocab, int(n)), YI_NEW)
+            for n in rng.integers(256, 513, YI_REQUESTS)]
 
 
 def engine_requests(vocab: int) -> tuple[list, np.ndarray]:
@@ -2330,14 +2422,15 @@ def phase_sim(smi) -> dict:
     return launches
 
 
-def tp_paged(rank, mesh) -> tuple:
+def tp_paged(rank, mesh, Kh: int = 8, G: int = 2, D: int = 128) -> tuple:
     """(a) ``paged_attention_sharded`` on this rank's kv heads at the
     kernels phase's shape (B 8, P 64, Kh 8, G 2, D 128, 16-token pages,
-    bf16): bit for bit the unsharded kernel's slice of the same heads, its
-    gather the whole unsharded output, within ``paged_bar`` of the plain
-    version on the local heads.  Returns (result, kernel, plain, library)."""
+    bf16; or other heads: Nemotron-4-340B's Kh 8, G 12, D 192): bit for
+    bit the unsharded kernel's slice of the same heads, its gather the
+    whole unsharded output, within ``paged_bar`` of the plain version on
+    the local heads.  Returns (result, kernel, plain, library)."""
     n = mesh.size()
-    Kh, G, D, T, B, P = 8, 2, 128, 16, 8, 64
+    T, B, P = 16, 8, 64
     q, k_pool, v_pool, bt, lens = paged_case(torch.bfloat16, torch.bfloat16,
                                              B, P, Kh, G, D, T, seed=SEED)
     ql = local_heads(q, 1, rank, n)
@@ -2435,7 +2528,11 @@ def tp_rank(rank, device, cfg, requests) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_serving_mesh(TP_RANKS)
+    nemo = get_config(NEMOTRON_ARCH)
     checks = {"paged": tp_paged(rank, mesh),
+              "paged_nemotron": tp_paged(
+                  rank, mesh, nemo.n_kv_heads, nemo.n_heads
+                  // nemo.n_kv_heads, nemo.hd),
               "flash": tp_flash(rank, mesh, 1024),
               "flash_hit": tp_flash(rank, mesh, 512)}
     torch.cuda.synchronize()
@@ -2575,18 +2672,41 @@ def phase_tp(cfg, smi) -> tuple[dict, dict]:
     lead = ranks[0]["kernels"]
     return engines[0]["launches"], {
         "paged_attention_sharded": lead["paged"],
+        "paged_attention_sharded_nemotron": lead["paged_nemotron"],
         "flash_attention_sharded": lead["flash"]}
 
 
 # ------------------------------------------------------------ moe phase
 
-def moe_plain(params, cfg, prompt, n_new, expect, bucket) -> dict:
+def plain_partings(tokens, plain, dtype=torch.bfloat16) -> list:
+    """Where each request's engine ``tokens`` first part from its plain
+    path's (``moe_plain``), with the plain logits' top-2 margin there and
+    whether it is a near-tie (``near_tie_bar`` of the logits' ``dtype``)."""
+    parts = []
+    for i, (got, want) in enumerate(zip(tokens, plain)):
+        first = next((j for j, (a, b) in enumerate(zip(got, want["tokens"]))
+                      if a != b), None)
+        if first is None:
+            continue
+        bar = near_tie_bar(dtype, want["tops"][first])
+        parts.append({"request": i, "first_mismatch": first,
+                      "margin_at_mismatch": want["margins"][first],
+                      "near_tie_bar": bar,
+                      "near_tie": want["margins"][first] <= bar})
+    return parts
+
+
+def moe_plain(params, cfg, prompt, n_new, expect, bucket,
+              kernel: bool = False, cache_dtype=torch.bfloat16) -> dict:
     """The plain path on the card for one request: ``tfm.prefill`` of the
     prompt right-padded to ``bucket``, the engine's (``kernel=False``:
-    chunked attention; a dense bf16 cache), so its MoE groups its tokens as
-    the engine does, then ``tfm.decode_step`` one token at a time, up to the
-    first token that differs from ``expect`` (the engine's).  Per emitted
-    token: the top-2 logit margin and the top logit."""
+    chunked attention; ``kernel=True``: the engine's flash kernel, so the
+    first token is the engine's and the rest holds its decode alone; a
+    dense cache in ``cache_dtype``), so a MoE groups its tokens as the
+    engine does, then
+    ``tfm.decode_step`` one token at a time, up to the first token that
+    differs from ``expect`` (the engine's).  Per emitted token: the top-2
+    logit margin and the top logit."""
     dev = params["embed"].device
     plen = len(prompt)
     toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
@@ -2594,8 +2714,8 @@ def moe_plain(params, cfg, prompt, n_new, expect, bucket) -> dict:
     out, margins, tops = [], [], []
     logits, cache = tfm.prefill(params, toks, cfg,
                                 max(bucket, plen + n_new + 1),
-                                cache_dtype=torch.bfloat16, true_len=plen,
-                                kernel=False)
+                                cache_dtype=cache_dtype, true_len=plen,
+                                kernel=kernel)
     while True:
         a, b = torch.topk(logits[0].float(), 2).values.tolist()
         margins.append(a - b)
@@ -2689,7 +2809,8 @@ def moe_rank(rank, device) -> dict:
     long = next(p for p, _ in requests if len(p) > 512)
     out["layer0"] = moe_layer0(model, long, buckets[len(long)])
     t1 = time.perf_counter()
-    out["plain"] = [moe_plain(model.params, cfg, p, n, want, buckets[len(p)])
+    out["plain"] = [moe_plain(model.params, cfg, p,
+                              min(n, MOE_PLAIN_TOKENS), want, buckets[len(p)])
                     for (p, n), want in zip(requests, run["tokens"])]
     out["plain_s"] = time.perf_counter() - t1
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2718,17 +2839,7 @@ def phase_moe(smi) -> dict:
     if not all(r["layer0"]["moe_ffn_bitwise_repeat"].values()):
         failures.append(f"moe_ffn does not repeat bitwise: "
                         f"{r['layer0']['moe_ffn_bitwise_repeat']}")
-    parts = []
-    for i, (got, want) in enumerate(zip(eng["tokens"], plain)):
-        first = next((j for j, (a, b) in enumerate(zip(got, want["tokens"]))
-                      if a != b), None)
-        if first is None:
-            continue
-        bar = near_tie_bar(torch.bfloat16, want["tops"][first])
-        parts.append({"request": i, "first_mismatch": first,
-                      "margin_at_mismatch": want["margins"][first],
-                      "near_tie_bar": bar,
-                      "near_tie": want["margins"][first] <= bar})
+    parts = plain_partings(eng["tokens"], plain)
     bad = [p for p in parts if not p["near_tie"]]
     if bad:
         failures.append(f"tokens part from the plain path off a logit "
@@ -2753,6 +2864,226 @@ def phase_moe(smi) -> dict:
     if failures:
         raise AssertionError(f"moe phase: {failures}")
     return eng["launches"]
+
+
+def paged_share(out, want, pv, live):
+    """The largest share of ``YI_PAGED_BAR`` that ``out`` takes against the
+    all-f32 plain version ``want``, over the live rows (a device
+    scalar)."""
+    bar = YI_PAGED_BAR["rel"] * want.abs() + YI_PAGED_BAR["sum"] * pv
+    err = (out.float() - want).abs() / bar
+    return torch.where(live[:, None, None], err, 0.0).max()
+
+
+def paged_faults(q, k_pool, block_tables, seq_lens) -> dict:
+    """The planted faults a paged call is also run with, each as the
+    kernel's inputs altered: the last page's tokens dropped, the softmax
+    scale of the next smaller head dim's instance (D - 16), and each query
+    head reading its neighbour's q within its kv group."""
+    B, H, D = q.shape
+    T, Kh = k_pool.shape[1], k_pool.shape[2]
+    return {
+        "page_dropped": (q, torch.where(seq_lens > T, seq_lens - T,
+                                        seq_lens)),
+        "scale": ((q.float() * math.sqrt(D / (D - 16))).to(q.dtype),
+                  seq_lens),
+        "head": (q.view(B, Kh, H // Kh, D).roll(1, 2).reshape(B, H, D),
+                 seq_lens)}
+
+
+@contextlib.contextmanager
+def paged_calls_held(shares: list, faults: dict):
+    """While active, every card call of ``ops.paged_attention`` (the
+    engine's, on its own pools, tables and lengths) is held against the
+    plain version in all f32 (q and the pools read in f32, p unrounded) on
+    the same inputs: |kernel - plain| <= ``YI_PAGED_BAR`` rel * |plain| +
+    sum * sum_j p_j |v_j|.  The kernel is run again on each of
+    ``paged_faults``' inputs, held to the same bar and plain version.  Each
+    call's largest share of the bar over its live rows is appended to
+    ``shares``, and each fault's to ``faults[name]``, as device tensors (no
+    host sync)."""
+    kernel = ops.paged_attention
+
+    def held(q, k_pool, v_pool, block_tables, seq_lens, **kw):
+        out = kernel(q, k_pool, v_pool, block_tables, seq_lens, **kw)
+        if q.is_cuda:
+            bt = block_tables.clamp(0, k_pool.shape[0] - 1)
+            k32, v32 = k_pool.float(), v_pool.float()
+            want = ref.paged_attention_ref(q.float(), k32, v32, bt, seq_lens)
+            pv = ref.paged_attention_ref(q.float(), k32, v32.abs(), bt,
+                                         seq_lens)
+            live = seq_lens > 0
+            shares.append(paged_share(out, want, pv, live))
+            for name, (fq, flens) in paged_faults(q, k_pool, block_tables,
+                                                  seq_lens).items():
+                got = kernel(fq, k_pool, v_pool, block_tables, flens, **kw)
+                faults.setdefault(name, []).append(
+                    paged_share(got, want, pv, live))
+        return out
+
+    ops.paged_attention = held
+    try:
+        yield
+    finally:
+        ops.paged_attention = kernel
+
+
+def yi_rank(rank, device) -> dict:
+    """The yi phase's process (spawned by ``phase_yi``): yi-34b at full
+    width, its weights drawn on the card from the seed, through the engine
+    on ``yi_requests``, then again with its paged calls held, beside the
+    plain path; then the f32 leg, the same weights cut to ``YI_F32_LAYERS``
+    in f32 through the engine over an f32 pool beside the plain path in
+    f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(YI_ARCH)
+    requests = yi_requests(cfg.vocab_size)
+    specs = dict(flatten(tfm.model_specs(cfg)))
+    weight_bytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                       for s in specs.values())
+    pages = YI_SLABS * POOL["blocks_per_slab"] + 1
+    pool_bytes = (2 * cfg.n_layers * pages * POOL["page_T"] * cfg.n_kv_heads
+                  * cfg.hd * 2)
+    free, total = torch.cuda.mem_get_info()
+    if free < weight_bytes + pool_bytes + YI_HEADROOM:
+        raise MemoryError(f"yi: {free / 1e9:.2f} GB free of {total / 1e9:.2f}"
+                          f", the weights need {weight_bytes / 1e9:.2f} GB, "
+                          f"the pool {pool_bytes / 1e9:.3f} GB, headroom "
+                          f"{YI_HEADROOM / 1e9:.0f} GB")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    out = {"free_gb_before_draw": free / 1e9, "weight_gb": weight_bytes / 1e9,
+           "pool_gb": pool_bytes / 1e9,
+           "draw_s": time.perf_counter() - t0, "n_params": model.n_params()}
+    buckets = {}
+    run = serve(model, requests, n_slabs=YI_SLABS, setup=lambda eng: (
+        buckets.update({len(p): eng._prefill_bucket(len(p), 0)[0]
+                        for p, _ in requests})))
+    out["engine"] = {"tokens": run["tokens"],
+                     "counters": {k: run["metrics"][k] for k in COUNTERS},
+                     "launches": run["launches"],
+                     "flash_routes": run["flash_routes"],
+                     "stream": stream_summary(run), "memory": run["memory"]}
+    # the same stream again with every paged call held (its times are not
+    # the engine's: the checks run between its launches)
+    shares, faults = [], {}
+    with paged_calls_held(shares, faults):
+        held = serve(model, requests, n_slabs=YI_SLABS)
+    out["held"] = {"tokens_equal_clean": held["tokens"] == run["tokens"],
+                   "calls": len(shares),
+                   "share_max": float(torch.stack(shares).max()),
+                   "faults": {name: {
+                       "share_least": float(torch.stack(v).min()),
+                       "share_median": float(torch.stack(v).median()),
+                       "caught": float((torch.stack(v) > 1).float().mean())}
+                       for name, v in faults.items()}}
+    t1 = time.perf_counter()
+    # the plain path's prefill through the engine's flash kernel, so its
+    # first token is the engine's; and, to show what rounding alone does
+    # to this stack, its first token through the chunked attention
+    out["plain"] = [moe_plain(model.params, cfg, p, n, want, buckets[len(p)],
+                              kernel=True)
+                    for (p, n), want in zip(requests, run["tokens"])]
+    out["chunked_first"] = [moe_plain(model.params, cfg, p, 1, want[:1],
+                                      buckets[len(p)])
+                            for (p, _), want in zip(requests, run["tokens"])]
+    out["plain_s"] = time.perf_counter() - t1
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    free_card()
+    fcfg = cfg.with_(n_layers=YI_F32_LAYERS)
+    f32 = Model(fcfg, unflatten((p, t.float()) for p, t in flatten(
+        Model(fcfg, params={}).init(SEED, device="cuda"))))
+    frun = serve(f32, requests, n_slabs=YI_SLABS, pool_dtype=torch.float32)
+    out["f32"] = {"n_layers": YI_F32_LAYERS, "tokens": frun["tokens"],
+                  "counters": {k: frun["metrics"][k] for k in COUNTERS},
+                  "launches": frun["launches"],
+                  "plain": [moe_plain(f32.params, fcfg, p, n, want,
+                                      buckets[len(p)], kernel=True,
+                                      cache_dtype=torch.float32)
+                            for (p, n), want in zip(requests,
+                                                    frun["tokens"])]}
+    return out
+
+
+def phase_yi(smi) -> dict:
+    """yi-34b at full width through the paged engine, in a process of its
+    own (docstring, phase 16b): every paged launch at G 7 (the kernel's
+    second instance family), the host counters of its CPU rehearsal, each
+    paged call within its bar of the all-f32 plain version and the planted
+    faults outside it; the
+    uncut bf16 tokens beside the plain path (reported: the random stack
+    carries rounding to O(1), ``YI_F32_LAYERS``), the f32 leg's equal to
+    it or parting on a near-tie.  Returns the launches of its engine
+    runs."""
+    free_card()
+    t0 = time.perf_counter()
+    cfg = get_config(YI_ARCH)
+    r, = spawn_ranks(importlib.import_module("chip_smoke").yi_rank, 1,
+                     backend="gloo", device="cuda", timeout_s=YI_TIMEOUT_S)
+    failures = []
+    eng, plain, f32 = r["engine"], r["plain"], r["f32"]
+    G = cfg.n_heads // cfg.n_kv_heads
+    for name, leg in (("bf16", eng), ("f32", f32)):
+        if G != 7 or leg["launches"]["paged_attention"] == 0:
+            failures.append(f"{name}: no paged launch at G 7: G {G}, "
+                            f"launches {leg['launches']}")
+        if leg["counters"] != YI_REHEARSED:
+            failures.append(f"{name}: counters {leg['counters']} != the "
+                            f"rehearsal's {YI_REHEARSED}")
+    if eng["flash_routes"]["wgmma"] == 0:
+        failures.append("the prefill's flash never took the wgmma route")
+    held = r["held"]
+    if not held["tokens_equal_clean"]:
+        failures.append("the held stream's tokens differ from the clean "
+                        "stream's")
+    if (held["calls"] != eng["launches"]["paged_attention"]
+            or not held["share_max"] <= 1.0):
+        failures.append(f"the engine's paged calls against the all-f32 "
+                        f"plain version: {held['calls']} held of "
+                        f"{eng['launches']['paged_attention']}, largest "
+                        f"share of the bar {held['share_max']}")
+    for name, f in held["faults"].items():
+        if not f["caught"] >= YI_FAULT_CAUGHT:
+            failures.append(f"the bar catches the planted fault {name} in "
+                            f"{f['caught']:.3f} of the calls")
+    parts = plain_partings(eng["tokens"], plain)
+    f32_parts = plain_partings(f32["tokens"], f32["plain"], torch.float32)
+    bad = [p for p in f32_parts if not p["near_tie"]]
+    if bad:
+        failures.append(f"f32: tokens part from the plain path off a logit "
+                        f"near-tie: {bad}")
+    chunked = [{"first_equal": c["tokens"][0] == t[0],
+                "margin": c["margins"][0]}
+               for c, t in zip(r["chunked_first"], eng["tokens"])]
+    out = {"phase": "yi", "card": smi, "model": YI_ARCH, "dtype": "bfloat16",
+           "heads": {"H": cfg.n_heads, "Kh": cfg.n_kv_heads, "G": G,
+                     "D": cfg.hd, "layers": cfg.n_layers},
+           "requests": len(plain), "n_slabs": YI_SLABS,
+           **{k: r[k] for k in ("n_params", "weight_gb", "pool_gb",
+                                "free_gb_before_draw", "draw_s",
+                                "max_memory_allocated_gb", "plain_s")},
+           "tokens": eng["tokens"], "counters": eng["counters"],
+           "rehearsed": YI_REHEARSED, "flash_routes": eng["flash_routes"],
+           "stream": eng["stream"], "memory": eng["memory"],
+           "paged_calls_held": held, "paged_bar": YI_PAGED_BAR,
+           "first_tokens_equal_plain": [p["tokens"][0] == t[0] for p, t in
+                                        zip(plain, eng["tokens"])],
+           "tokens_equal_plain": not parts, "partings": parts,
+           "plain_chunked_prefill_first_token": chunked,
+           "f32": {"n_layers": f32["n_layers"],
+                   "counters": f32["counters"],
+                   "paged_launches": f32["launches"]["paged_attention"],
+                   "tokens_equal_plain": not f32_parts,
+                   "partings": f32_parts},
+           "phase_seconds": time.perf_counter() - t0, "failures": failures}
+    emit(out)
+    if failures:
+        raise AssertionError(f"yi phase: {failures}")
+    return {k: eng["launches"][k] + f32["launches"][k]
+            for k in eng["launches"]}
 
 
 def train_state_bytes(cfg) -> int:
@@ -3763,7 +4094,8 @@ def mesh_leg(cfg, device, shape: tuple, root, name: str, card: bool,
     to hold against; with ``card``, its peak ``max_memory_allocated`` and
     the first step counted as (d)'s train cell at the mesh's sizes."""
     mesh = make_debug_mesh(*shape, device.type)
-    if card:
+    on_card = device.type == "cuda"
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
     r = mesh_train(cfg, device, mesh, seed, count=card)
     out = {k: r[k] for k in MESH_KEYS}
@@ -3771,8 +4103,9 @@ def mesh_leg(cfg, device, shape: tuple, root, name: str, card: bool,
                 for p, t in leaves_with_path(r["params"])},
                os.path.join(root, f"{name}_{torch.distributed.get_rank()}"
                                   f".pt"))
-    if card:
+    if on_card:
         out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if card:
         count = r["count"]
         del r
         free_card()
@@ -3783,26 +4116,43 @@ def mesh_leg(cfg, device, shape: tuple, root, name: str, card: bool,
     return out
 
 
+def mesh_moe_config(smoke: bool):
+    """(f)'s config: Qwen3-30B-A3B cut to ``MESH_MOE_LAYERS`` (at
+    ``smoke``, its smoke config at its own capacity factor, 1.25, where the
+    capacity binds)."""
+    cfg = get_config(MOE_ARCH)
+    if smoke:
+        return cfg.smoke().with_(capacity_factor=cfg.capacity_factor)
+    return cfg.with_(n_layers=MESH_MOE_LAYERS)
+
+
 def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
-                   seed: int = SEED, legs: tuple = ("pair", "tp")) -> dict:
-    """(b) and (e), on each of this spawn's two ranks: the steps on the (2,
-    1) mesh, then on the (1, 2) mesh (``legs`` names which run), each
-    rank's param shards written to ``root`` for (a) to hold against; with
-    ``card``, each leg's first step counted as (d)'s train cell, then
-    (c)'s save: the params at ``MESH_ELASTIC_LAYERS``, saved from the (2,
-    1) mesh, each shard's digest."""
+                   seed: int = SEED,
+                   legs: tuple = ("pair", "tp", "moe")) -> dict:
+    """(b), (e) and (f), on each of this spawn's two ranks: the steps on
+    the (2, 1) mesh, then on the (1, 2) mesh, then the MoE config's on the
+    (1, 2) mesh (``legs`` names which run), each rank's param shards
+    written to ``root`` for (a) to hold against; with ``card``, (b)'s and
+    (e)'s first step counted as (d)'s train cell, then (d)'s prefill cell,
+    then (c): the params at ``MESH_ELASTIC_LAYERS`` saved from the (2, 1)
+    mesh (each shard's digest) and restored (``mesh_regrow``)."""
     t0 = time.perf_counter()
     deterministic()
     ops.reset_launches()
     cfg = get_config(MESH_ARCH)
     cfg = cfg.smoke() if smoke else cfg
     out = {}
-    for leg, shape in (("pair", MESH_PAIR), ("tp", MESH_TP)):
+    for leg, shape, leg_cfg in (("pair", MESH_PAIR, cfg),
+                                ("tp", MESH_TP, cfg),
+                                ("moe", MESH_TP, mesh_moe_config(smoke))):
         if leg in legs:
-            out[leg] = mesh_leg(cfg, device, shape, root, leg, card, seed)
+            out[leg] = mesh_leg(leg_cfg, device, shape, root, leg,
+                                card and leg != "moe", seed)
             free_card()
             mesh_note(f"{leg} {shape} steps done", t0)
     if card:
+        out["prefill_cell"] = mesh_prefill_cell(cfg, device)
+        mesh_note("prefill cell counted", t0)
         mesh = make_debug_mesh(*MESH_PAIR, device.type)
         cut = cfg.with_(n_layers=MESH_ELASTIC_LAYERS)
         params = mesh_params(cut, device, mesh, seed)
@@ -3815,12 +4165,15 @@ def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
         del params
         free_card()
         mesh_note("elastic save done", t0)
+        saved = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(saved, out["elastic"]["digests"])
+        out["regrow"] = mesh_regrow(rank, device, root, saved, t0)
     out["launches"] = dict(ops.launches)
     return out
 
 
 def mesh_gap(one_params, root, device, name: str = "pair",
-             shape: tuple = MESH_PAIR) -> dict:
+             shape: tuple = MESH_PAIR, cfg=None) -> dict:
     """A leg against (a): each rank's param shards (``name``, on a
     ``shape`` mesh) against the same slices of the one-device params, as
     the share of elements that differ and the largest and mean |difference|
@@ -3831,7 +4184,7 @@ def mesh_gap(one_params, root, device, name: str = "pair",
     gradients are summed over "model"), and whether those ranks' copies of
     them are bitwise equal."""
     sizes = dict(zip(("data", "model"), shape))
-    axes = Model(get_config(MESH_ARCH), params={}).axes()
+    axes = Model(cfg or get_config(MESH_ARCH), params={}).axes()
     specs = tree_specs(axes, one_params, sizes)
     # per subset: worst, sum of |d| / cap, elements that differ, elements
     acc = {k: [0.0, 0.0, 0, 0] for k in ("all", "model_whole")}
@@ -3871,21 +4224,12 @@ def mesh_gap(one_params, root, device, name: str = "pair",
     return out
 
 
-def mesh_restore(root, cfg, device, mesh) -> tuple[dict, float]:
-    """(c)'s params, restored onto ``mesh`` (None: whole, on ``device``):
-    this rank's shards, seconds."""
-    model = Model(cfg, params={})
-    t0 = time.perf_counter()
-    got = mesh_manager(root).restore(model.abstract(), 1, device=device,
-                                     mesh=mesh, axes=model.axes())
-    return got, time.perf_counter() - t0
-
-
 def mesh_one(root) -> dict:
     """(a) in this process, one ``nccl`` rank at world size 1 (the tp
     phase's way), deterministic kernels while it runs: the one-device
     steps (and their peak above the level before), (b)'s and (e)'s shards
-    held against them, then the same steps on a (1, 1) mesh."""
+    held against them, (f)'s against the MoE config's own one-device
+    steps, then the same steps on a (1, 1) mesh."""
     t0 = time.perf_counter()
     device = torch.device("cuda", torch.cuda.current_device())
     cfg = get_config(MESH_ARCH)
@@ -3908,6 +4252,18 @@ def mesh_one(root) -> dict:
         del one
         free_card()
         mesh_note("one-device steps and gap done", t0)
+        moe_cfg = mesh_moe_config(False)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one = mesh_train(moe_cfg, device)
+        out["moe"] = {"loss": one["loss"], "step_ms": one["step_ms"],
+                      "max_memory_allocated_gb": (
+                          torch.cuda.max_memory_allocated() - base) / 1e9,
+                      "gap": mesh_gap(one["params"], root, device, "moe",
+                                      MESH_TP, moe_cfg)}
+        del one
+        free_card()
+        mesh_note("one-device MoE steps and gap done", t0)
         m = mesh_train(cfg, device, make_debug_mesh(1, 1, device.type))
         out["mesh11"] = {"loss": m["loss"], "step_ms": m["step_ms"],
                          "digests": tree_digests(m["params"])}
@@ -3924,21 +4280,46 @@ def mesh_one(root) -> dict:
     return out
 
 
-def mesh_regrow_rank(rank, device, root, saved: list) -> dict:
-    """(c) restored: first onto one rank (rank 0 alone, no mesh: the whole
-    params, each leaf's (2, 1) slices digested against the saving ranks'
-    shards), then onto the (2, 1) mesh again (this rank's shards against
-    the saving rank's), and one step taken from fresh moments (as
-    ``tests/test_elastic.py``); then (d)'s prefill cell (B 2 x 1,024),
+def mesh_prefill_cell(cfg, device) -> dict:
+    """(d)'s prefill cell (B 2 x 1,024) on this rank of the (2, 1) mesh,
     counted on the card and on ``meta``."""
+    n0 = dict(ops.launches)
+    mesh = make_debug_mesh(*MESH_PAIR, device.type)
+    base = torch.cuda.memory_allocated()
+    fn, args = build_cell(cfg, MESH_PREFILL, device, mesh=mesh, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCost(inputs=args) as oc:
+        fn(*args)
+    torch.cuda.synchronize()
+    count = {"card": oc.summary(),
+             "launches": {k: n - n0[k] for k, n in ops.launches.items()},
+             "measured_peak": torch.cuda.max_memory_allocated() - base}
+    del fn, args
+    free_card()
+    return mesh_cell(cfg, MESH_PREFILL, dict(zip(("data", "model"),
+                                                 MESH_PAIR)), count)
+
+
+def mesh_restore(root, cfg, device, mesh) -> tuple[dict, float]:
+    """(c)'s params, restored onto ``mesh`` (None: whole, on ``device``):
+    this rank's shards, seconds."""
+    model = Model(cfg, params={})
     t0 = time.perf_counter()
-    deterministic()
-    ops.reset_launches()
-    cfg = get_config(MESH_ARCH)
-    cut = cfg.with_(n_layers=MESH_ELASTIC_LAYERS)
+    got = mesh_manager(root).restore(model.abstract(), 1, device=device,
+                                     mesh=mesh, axes=model.axes())
+    return got, time.perf_counter() - t0
+
+
+def mesh_regrow(rank, device, root, saved: list, t0: float) -> dict:
+    """(c) restored, in the saving spawn once every rank has saved: first
+    onto one rank (rank 0 alone, no mesh: the whole params, each leaf's
+    (2, 1) slices digested against the saving ranks' shards), then onto
+    the (2, 1) mesh again (this rank's shards against the saving rank's),
+    and one step taken from fresh moments (as ``tests/test_elastic.py``)."""
+    cut = get_config(MESH_ARCH).with_(n_layers=MESH_ELASTIC_LAYERS)
     model = Model(cut, params={})
     mesh = make_debug_mesh(*MESH_PAIR, device.type)
-    mesh_note("mesh made", t0)
     out = {}
     if rank == 0:
         got, out["restore_one_rank_s"] = mesh_restore(root, cut, device,
@@ -3968,29 +4349,13 @@ def mesh_regrow_rank(rank, device, root, saved: list) -> dict:
     del params
     free_card()
     mesh_note("regrow step done", t0)
-    ops.reset_launches()
-    base = torch.cuda.memory_allocated()
-    fn, args = build_cell(cfg, MESH_PREFILL, device, mesh=mesh, seed=SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with OpCost(inputs=args) as oc:
-        fn(*args)
-    torch.cuda.synchronize()
-    count = {"card": oc.summary(), "launches": dict(ops.launches),
-             "measured_peak": torch.cuda.max_memory_allocated() - base}
-    del fn, args
-    free_card()
-    out["prefill_cell"] = mesh_cell(cfg, MESH_PREFILL, dict(zip(
-        ("data", "model"), MESH_PAIR)), count)
-    out["launches"] = dict(ops.launches)
-    mesh_note("prefill cell counted", t0)
     return out
 
 
 def phase_mesh(smi) -> dict:
     """Training on the JAX package's data x model mesh (docstring, phase
-    21): two spawns of two ranks, and (a) in this process between them.
-    Returns the phase's launches, summed over its ranks."""
+    21): a spawn of two ranks, then (a) in this process.  Returns the
+    phase's launches, summed over its ranks."""
     free_card()
     t0 = time.perf_counter()
     chip = importlib.import_module("chip_smoke")
@@ -4001,14 +4366,8 @@ def phase_mesh(smi) -> dict:
                            backend="gloo", device="cuda",
                            timeout_s=MESH_TIMEOUT_S)
         spawn_s["pair"] = time.perf_counter() - t0
-        saved = [r["elastic"]["digests"] for r in pair]
         one = mesh_one(root)
         spawn_s["one"] = time.perf_counter() - t0 - spawn_s["pair"]
-        regrow = spawn_ranks(chip.mesh_regrow_rank, 2, root, saved,
-                             backend="gloo", device="cuda",
-                             timeout_s=MESH_TIMEOUT_S)
-        spawn_s["regrow"] = (time.perf_counter() - t0 - spawn_s["pair"]
-                             - spawn_s["one"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # (a) the (1, 1) nccl mesh is the one-device step, bit for bit
@@ -4052,10 +4411,30 @@ def phase_mesh(smi) -> dict:
                 "model_whole_mean_over_cap"]
             or not whole["copies_equal"]):
         failures.append(f"(1, 2) params against (a): {gap_tp}")
-    for r in b_ranks + e_ranks:
+    # (f) the MoE config's partitioned steps within their bars of its own
+    # one-device steps
+    f_ranks, f_one = [r["moe"] for r in pair], one["moe"]
+    f_losses = np.array(f_ranks[0]["loss"])
+    f_loss_gap = float(np.abs(f_losses / np.array(f_one["loss"]) - 1).max())
+    if any(r["loss"] != f_ranks[0]["loss"] for r in f_ranks):
+        failures.append("the MoE (1, 2) ranks read different losses")
+    if f_loss_gap > MESH_BARS_MOE["loss_rtol"]:
+        failures.append(f"MoE (1, 2) losses {f_losses.tolist()} against "
+                        f"{f_one['loss']}: {f_loss_gap:.3g} relative")
+    gap_moe = f_one["gap"]
+    whole = gap_moe["model_whole"]
+    if (gap_moe["share_differ"] > MESH_BARS_MOE["param_share_differ"]
+            or gap_moe["worst_over_cap"] > 1.0
+            or whole["mean_over_cap"] > MESH_BARS_MOE[
+                "model_whole_mean_over_cap"]
+            or not whole["copies_equal"]):
+        failures.append(f"MoE (1, 2) params against its one-device steps: "
+                        f"{gap_moe}")
+    for r in b_ranks + e_ranks + f_ranks:
         if r["compute"] != "partitioned":
             failures.append(f"a leg ran the {r['compute']} route")
     # (c) elastic
+    regrow = [r["regrow"] for r in pair]
     if not regrow[0]["restored_one_rank_bitwise"]:
         failures.append("restore onto one rank is not the saved leaves")
     for r in regrow:
@@ -4066,7 +4445,7 @@ def phase_mesh(smi) -> dict:
     # (d) meta and card counts, flash launches = charges, the peak
     lo, hi = DRYRUN_PEAK_BAR
     cells = [[p["pair"]["train_cell"], p["tp"]["train_cell"],
-              g["prefill_cell"]] for p, g in zip(pair, regrow)]
+              p["prefill_cell"]] for p in pair]
     for rank, rank_cells in enumerate(cells):
         for c in rank_cells:
             name = f"rank {rank} {c['cell']} {tuple(c.get('mesh', MESH_PAIR))}"
@@ -4088,7 +4467,7 @@ def phase_mesh(smi) -> dict:
                 failures.append(f"{name}: measured peak {c['peak_ratio']:.4f}"
                                 f" of the predicted one, outside "
                                 f"{DRYRUN_PEAK_BAR}")
-    launches = {k: sum(r["launches"][k] for r in pair + regrow)
+    launches = {k: sum(r["launches"][k] for r in pair)
                 for k in ops.launches}
     out = {"phase": "mesh", "card": smi, "model": MESH_ARCH,
            "dtype": "bfloat16", "deterministic": True,
@@ -4110,6 +4489,16 @@ def phase_mesh(smi) -> dict:
                "peak_one_device_train_phase_gb": MESH_ONE_DEVICE_PEAK_GB,
                "bars": MESH_BARS_TP,
                "loss_max_rel_gap": e_loss_gap, "params": gap_tp},
+           "f_gloo_mesh_1x2_moe": {
+               "model": MOE_ARCH,
+               "cut": f"{MESH_MOE_LAYERS} of {get_config(MOE_ARCH).n_layers}"
+                      f" layers",
+               "ranks": [{k: r[k] for k in MESH_KEYS + (
+                   "max_memory_allocated_gb",)} for r in f_ranks],
+               "one_device": {k: f_one[k] for k in (
+                   "loss", "step_ms", "max_memory_allocated_gb")},
+               "bars": MESH_BARS_MOE, "loss_max_rel_gap": f_loss_gap,
+               "params": gap_moe},
            "c_elastic": {
                "what": "params", "n_layers": MESH_ELASTIC_LAYERS,
                "cut": f"{MESH_ELASTIC_LAYERS} of "
@@ -4159,6 +4548,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths["moe"] = phase_moe(smi)
     torch.cuda.empty_cache()
+    paths["yi"] = phase_yi(smi)
+    torch.cuda.empty_cache()
     paths["train"] = phase_train(smi)
     torch.cuda.empty_cache()
     paths["families"] = phase_families(smi)
@@ -4171,8 +4562,9 @@ def main() -> None:
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "path": ("victims, sim" if name == "mdc_priority"
-                  else "engine, moe, families, encdec, dryrun, mesh"
+                  else "engine, moe, yi, families, encdec, dryrun, mesh"
                   if name == "flash_attention"
+                  else "engine, moe, yi" if name == "paged_attention"
                   else "engine, moe" if name in ENGINE_KERNELS
                   else "tp" if name in TP_KERNELS else "none"),
          "launches": launches[name],
@@ -4181,9 +4573,11 @@ def main() -> None:
          **{k: results[name][k] for k in ("max_abs_err", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
-         # the same kernel at the moe phase's heads (H 32 over Kh 4), at
-         # the families phase's Zamba2 heads (H 32 over Kh 32, D 112), at
-         # Nemotron-4's (H 96 over Kh 8, D 192; bf16 and f32), at the
+         # the same kernel at the moe phase's heads (H 32 over Kh 4; paged
+         # G 8), at the yi phase's (paged G 7 over Kh 8), at the families
+         # phase's Zamba2 heads (H 32 over Kh 32, D 112), at Nemotron-4's
+         # (H 96 over Kh 8, D 192; bf16 and f32; paged G 12 and, sharded,
+         # G 12 over a rank's 4 kv heads), at the
          # encdec phase's shapes (Whisper's encoder and cross attention,
          # non-causal, D 64; InternVL2's H 64 over Kh 8), and in f32 on
          # the CUDA cores at qwen3's heads (S 1,024 and the prefix hit)
@@ -4191,7 +4585,7 @@ def main() -> None:
              "kernel_ms", "max_abs_err", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "flash_route")
              if k in results[f"{name}_{model}"]} for model in (
-                 "moe", "zamba2", "nemotron", "nemotron_f32",
+                 "moe", "yi", "zamba2", "nemotron", "nemotron_f32",
                  *encdec_flash_shapes(), "f32", "f32_hit")
             if f"{name}_{model}" in results}}
         for name in KERNELS]})

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """How far rounding alone moves the logits of the MLA-MoE, SSM, hybrid and
-encoder-decoder families at full width, by depth, on one CUDA card.
+encoder-decoder families and of yi-34b at full width, by depth, on one
+CUDA card.
 
     python3 scripts/family_sensitivity.py [arch ...]
 
 Each architecture (default: mamba2-1.3b, zamba2-7b, deepseek-v2-lite-16b,
-whisper-medium; DeepSeek at the capacity factor that drops nothing, E /
+whisper-medium; also yi-34b, the dense arch the yi phase serves, whose
+f32 weights fit the card up to 16 of its 60 layers; DeepSeek at the
+capacity factor that drops nothing, E /
 top_k; Whisper with both stacks cut to the depth and 1,500 frame embeddings
 drawn from the seed) at full width from random weights drawn from a seed,
 cut to a few depths.  Per depth: one 256-token prompt through
@@ -46,7 +49,7 @@ from repro_torch.models.layers import flatten, unflatten  # noqa: E402
 S, N_DECODE, PERTURB, SEED = 256, 16, 1e-7, 0
 DEPTHS = {"mamba2-1.3b": (4, 8, 16, 48), "zamba2-7b": (7, 13, 25, 49, 81),
           "deepseek-v2-lite-16b": (4, 8, 16, 27),
-          "whisper-medium": (1, 2, 3, 4, 8, 24)}
+          "whisper-medium": (1, 2, 3, 4, 8, 24), "yi-34b": (1, 2, 4, 8, 16)}
 
 
 def run(params, cfg, toks, cache_dtype, extras=None):
@@ -75,7 +78,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     with torch.no_grad():
-        for arch in sys.argv[1:] or list(DEPTHS):
+        for arch in sys.argv[1:] or [a for a in DEPTHS if a != "yi-34b"]:
             base = get_config(arch)
             if base.n_experts:
                 base = base.with_(capacity_factor=base.n_experts / base.top_k)

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Build-time variants of the paged attention kernel, timed in alternation.
 
-    python3 scripts/paged_attention_variants.py
+    python3 scripts/paged_attention_variants.py [--variants NAME ...]
 
-Each variant is ``csrc/paged_attention.cu`` with one line replaced.  It is
+Each variant is ``csrc/paged_attention.cu`` with one line replaced (its
+first match: the first instance family's kernel).  It is
 compiled by ``nvcc`` with the port's flags into ``build/variants/``, and
 called through the same C entry point as the kernel.  What each one shows:
 
 * ``kernel``          — the source as it is;
+* ``any_family``      — every shape through the second instance family
+                        (``paged_attention_any_kernel``), the shapes the
+                        first family takes too;
 * ``table_per_page``  — each page's table entry is read when the page is
                         (no per-lane read of a warp's next 32 entries);
 * ``rounds_4``        — four rounds of loads per chunk at every G (fewer
@@ -22,16 +26,18 @@ called through the same C entry point as the kernel.  What each one shows:
 For each variant it prints one JSON line with the registers and spills of
 the G 2, D 128 instantiations (``-Xptxas -v``) and the clusters that can be
 resident at once (``cudaOccupancyMaxActiveClusters``).  For each of
-``chip_smoke.py``'s three shapes (bf16 and f32 at B 8, P 64; bf16 at B 32,
-P 256) it prints one line per variant: the median time (``chip_smoke.Timer``:
-L2 flushed before each call, variants in alternation) and the largest
-difference from the plain version.  The ``no_pages`` and ``empty``
+``chip_smoke.py``'s four first-family shapes (qwen3-1.7b's heads, Kh 8 and
+G 2: bf16 and f32 at B 8, P 64, bf16 at B 32, P 256; Qwen3-30B-A3B's, Kh 4
+and G 8: bf16 at B 8, P 64) it prints one line per variant: the median time
+(``chip_smoke.Timer``: L2 flushed before each call, variants in
+alternation) and the largest difference from the plain version.  The ``no_pages`` and ``empty``
 variants compute nothing, so their differences are large.  Measurement
 only: nothing is asserted.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -54,6 +60,8 @@ OUT = ROOT / "build" / "variants"
 # variant -> (line of the source, its replacement)
 EDITS = {
     "kernel": None,
+    "any_family": ("return (D == 32 || D == 64 || D == 128) && (G == 1 || G == 2 || G == 4 || G == 8);",
+                   "return false;"),
     "table_per_page": ("min(max(__shfl_sync(0xffffffffu, lane_page, i % 32), 0),",
                        "min(max(bt_row[j], 0),"),
     "rounds_4": ("R_MAX = G >= 8 ? 4 : 8;", "R_MAX = 4;"),
@@ -83,18 +91,20 @@ def variant_source(name: str) -> str:
     text = SRC.read_text()
     edit = EDITS[name]
     if edit is not None:
-        if text.count(edit[0]) != 1:
+        # the first match: the first instance family's kernel, ahead of
+        # the second's in the source
+        if edit[0] not in text:
             raise SystemExit(f"variant {name}: the line to replace is not in "
-                             f"the source once")
-        text = text.replace(*edit)
+                             f"the source")
+        text = text.replace(*edit, 1)
     # after the anonymous namespace, whose kernel and kThreads it can name
     return text + OCCUPANCY
 
 
-def compile_all() -> dict[str, tuple[ctypes.CDLL, dict]]:
+def compile_all(names) -> dict[str, tuple[ctypes.CDLL, dict]]:
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in EDITS:
+    for name in names:
         cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
         cu.write_text(variant_source(name))
         procs[name] = (subprocess.Popen(
@@ -133,21 +143,27 @@ def caller(lib, q, k_pool, v_pool, bt, lens, out):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--variants", nargs="+", choices=list(EDITS),
+                    default=list(EDITS))
+    names = ap.parse_args().variants
     if not torch.cuda.is_available():
         raise SystemExit("paged_attention_variants: needs a CUDA card")
     smi = cs.card()
     print(smi, flush=True)
-    libs = compile_all()
+    libs = compile_all(names)
     for name, (lib, regs) in libs.items():
         print(json.dumps({"variant": name, "ptxas_G2_D128": regs,
                           "max_active_clusters": lib.max_active_clusters(512)}),
               flush=True)
     timer = cs.Timer(reps=40)
-    for dtype, B, P in ((torch.bfloat16, 8, 64), (torch.float32, 8, 64),
-                        (torch.bfloat16, 32, 256)):
+    for dtype, B, P, Kh, G in ((torch.bfloat16, 8, 64, 8, 2),
+                               (torch.float32, 8, 64, 8, 2),
+                               (torch.bfloat16, 32, 256, 8, 2),
+                               (torch.bfloat16, 8, 64, 4, 8)):
         # chip_smoke.check_paged_attention's inputs
         g = torch.Generator(device="cuda").manual_seed(cs.SEED)
-        Kh, G, D, T = 8, 2, 128, 16
+        D, T = 128, 16
         n_pages = B * P + 1
         q = torch.randn(B, Kh * G, D, generator=g, device="cuda").to(dtype)
         k_pool = torch.randn(n_pages, T, Kh, D, generator=g, device="cuda").to(dtype)
@@ -166,7 +182,8 @@ def main() -> None:
             calls.append(call)
             errs.append(cs.max_err(out, want))
         for name, ms, err in zip(libs, timer(*calls), errs):
-            print(json.dumps({"dtype": str(dtype), "B": B, "P": P,
+            print(json.dumps({"dtype": str(dtype), "B": B, "P": P, "Kh": Kh,
+                              "G": G,
                               "tokens": int(lens.sum()), "variant": name,
                               "ms": ms, "max_abs_err": err}), flush=True)
         del q, k_pool, v_pool, want

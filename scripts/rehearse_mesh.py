@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Rehearse ``chip_smoke.py``'s mesh phase (b) and (e) on the CPU, to set
-their bars.
+"""Rehearse ``chip_smoke.py``'s mesh phase (b), (e) and (f) on the CPU, to
+set their bars.
 
     PYTHONPATH=src python3 scripts/rehearse_mesh.py [--seeds 3] [--fault]
 
 The phase's (b) runs the train step on a (2, 1) mesh of two ``gloo`` ranks,
 each taking B 1 of the phase's B 2 x 1,024 batches, and (e) on a (1, 2)
 mesh of the same two ranks, each taking the whole batch on its half of the
-heads, columns, vocabulary and sequence; both are the partitioned route,
-held to (a), the one-device steps on the same draw.  Here the same
+heads, columns, vocabulary and sequence; (f) runs Qwen3-30B-A3B's config
+on the same (1, 2) mesh, each rank on half the experts.  All are the
+partitioned route, held to the one-device steps on the same draw ((a), and
+the MoE config's own).  Here the same
 functions (``chip_smoke.mesh_train``, ``mesh_pair_rank``, ``mesh_gap``)
 run at the smoke config's width in its bf16 params, on two CPU ranks,
 ``MESH_STEPS`` AdamW steps of the phase's optimizer, once per seed of the
@@ -24,9 +26,9 @@ fault planted, and each leg is read under the fault aimed at it:
 * ``data`` (read on (b)): the gradients are not summed over "data", so
   each rank updates its shards with its own rows' gradient (and clips by
   its norm), while the loss still comes back as the mean over the ranks;
-* ``model`` (read on (e)): the gradients of the leaves every "model" rank
-  holds whole (the norms, here) are not summed over "model", so each keeps
-  the part its own sequence slice gave.
+* ``model`` (read on (e) and (f)): the gradients of the leaves every
+  "model" rank holds whole (the norms, here) are not summed over "model",
+  so each keeps the part its own sequence slice gave.
 
 ``chip_smoke.MESH_BARS`` and ``MESH_BARS_TP`` lie between the sound
 readings (these and the card's) and the faults'.
@@ -50,8 +52,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 
-LEGS = {"pair": chip_smoke.MESH_PAIR, "tp": chip_smoke.MESH_TP}
-AIMED = {"data": "pair", "model": "tp"}   # the leg each fault is read on
+LEGS = {"pair": chip_smoke.MESH_PAIR, "tp": chip_smoke.MESH_TP,
+        "moe": chip_smoke.MESH_TP}
+AIMED = {"data": ("pair",), "model": ("tp", "moe")}   # each fault's legs
 
 
 def plant(fault: str) -> None:
@@ -89,19 +92,24 @@ def sound_pair_rank(rank, device, fault, *args) -> dict:
 
 
 def rehearse(seed: int, fault: bool) -> list[dict]:
-    cfg = chip_smoke.get_config(chip_smoke.MESH_ARCH).smoke()
-    one = chip_smoke.mesh_train(cfg, torch.device("cpu"), seed=seed)
+    cfgs = {"dense": chip_smoke.get_config(chip_smoke.MESH_ARCH).smoke(),
+            "moe": chip_smoke.mesh_moe_config(True)}
+    ones = {k: chip_smoke.mesh_train(c, torch.device("cpu"), seed=seed)
+            for k, c in cfgs.items()}
     rows = []
     runs = [(sound_pair_rank, None, tuple(LEGS))]
     if fault:
-        runs += [(fault_pair_rank, f, (leg,)) for f, leg in AIMED.items()]
+        runs += [(fault_pair_rank, f, legs) for f, legs in AIMED.items()]
     for rank_fn, planted, legs in runs:
         with tempfile.TemporaryDirectory() as root:
             pair = spawn_ranks(rank_fn, 2, planted, True, root, False, seed,
                                legs, backend="gloo", device="cpu")
             for leg in legs:
+                kind = "moe" if leg == "moe" else "dense"
+                one = ones[kind]
                 gap = chip_smoke.mesh_gap(one["params"], root,
-                                          torch.device("cpu"), leg, LEGS[leg])
+                                          torch.device("cpu"), leg, LEGS[leg],
+                                          cfgs[kind])
                 got = pair[0][leg]["loss"]
                 loss = np.array(got) / np.array(one["loss"]) - 1
                 whole = {f"model_whole_{k}": v for k, v in gap.pop(

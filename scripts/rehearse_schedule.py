@@ -11,6 +11,7 @@ the CPU, to size a pool before a run on the card.
     PYTHONPATH=src python3 scripts/rehearse_schedule.py recovery 30
     PYTHONPATH=src python3 scripts/rehearse_schedule.py tp 12
     PYTHONPATH=src python3 scripts/rehearse_schedule.py moe 12
+    PYTHONPATH=src python3 scripts/rehearse_schedule.py yi 8
 
 Without a stop token the pool's decisions (admission, placement, cleaning,
 preemption, prefix hits) depend on the prompts' lengths and shared pages,
@@ -39,6 +40,8 @@ phase's first ``chip_smoke.TP_REQUESTS`` requests (its pool compacts at
 ``chip_smoke.TP_SLABS``; the sharded engine plans as the unsharded one).
 ``moe`` is the same stream through the MoE smoke model (the moe phase's
 ``MOE_REHEARSED``): the plan does not depend on the family either.
+``yi`` is the yi phase's short stream (``chip_smoke.yi_requests``, its
+``YI_REHEARSED``): the plan does not depend on the heads either.
 """
 
 from __future__ import annotations
@@ -157,6 +160,9 @@ def main() -> None:
         n = chip_smoke.TP_REQUESTS
         reqs = [(p, int(m)) for p, m in zip(prompts[:n], news[:n])]
         kw = {}
+    elif stream == "yi":
+        reqs = chip_smoke.yi_requests(full.vocab_size)
+        kw = {}
     elif stream in ("chunked", "engine", "async"):
         prompts, news = chip_smoke.engine_requests(full.vocab_size)
         reqs = [(p, int(n)) for p, n in zip(prompts, news)]
@@ -164,8 +170,8 @@ def main() -> None:
               "engine": {}, "async": dict(async_compaction=True)}[stream]
     else:
         raise SystemExit(f"unknown stream {stream!r}: preemption, prefix, "
-                         f"chunked, engine, async, async-f32, recovery, tp "
-                         f"or moe")
+                         f"chunked, engine, async, async-f32, recovery, tp, "
+                         f"moe or yi")
     for n_slabs in slabs:
         eng = PagedServingEngine(model, **{**chip_smoke.POOL, **kw,
                                            "n_slabs": n_slabs},

@@ -1,6 +1,7 @@
-"""One rank's part of the dense family's train step on a mesh: the work the
-JAX program's GSPMD partition gives each device, with the collectives
-written out (``launch.steps.make_train_fn``'s partitioned route).
+"""One rank's part of the dense and MoE families' train step on a mesh: the
+work the JAX program's GSPMD partition gives each device, with the
+collectives written out (``launch.steps.make_train_fn``'s partitioned
+route).
 
 A :class:`Partition` reads every local size from the leaves' resolved
 specs under ``DEFAULT_RULES`` (``tree_specs``), never from a per-arch
@@ -31,6 +32,19 @@ rules cut ``seq_act``.  What the model's code does with them
   cut onto the sequence); the logits stay vocab-sharded and the loss is
   the JAX iota-mask form, all-reducing the max, the sum of exponentials and
   the label's logit as (B, S) values.
+* **Expert parallelism over "model" (the MoE family).**  The rules cut
+  the routed experts' ``w_gate`` / ``w_up`` / ``w_down`` and the router's
+  columns over "model" on their expert dim, so a rank holds E / |model|
+  experts with their whole ``ff``.  Its MoE block takes the normed input
+  gathered along the sequence (every token of its rows), computes its
+  experts' router logits and gathers them over "model" on the expert dim
+  (the softmax and top-k run over all E, as the JAX program's do), keeps
+  the picks of its experts in the JAX program's global dispatch groups
+  (``models.moe.rank_groups``), runs its experts' products alone, and
+  reduce-scatters its partial combine onto the sequence slices.  The JAX
+  per-device program does the same: no all-to-all, the tokens whole over
+  "model" and the experts cut (its expert dots are (E / |model|, rows of
+  the rank's groups, ff)).
 * **FSDP over "data", one layer at a time.**  Each layer's weights are
   gathered over the axes their ``embed`` dim is cut on just before its
   forward, kept by autograd as their shards (``collectives.FsdpHooks``),
@@ -79,9 +93,10 @@ class Partition:
 
     def __init__(self, model, mesh):
         cfg = model.cfg
-        if cfg.family != "dense":
-            raise ValueError(f"the partitioned step runs the dense family, "
-                             f"not {cfg.family}")
+        if cfg.family not in ("dense", "moe") or cfg.n_shared_experts:
+            raise ValueError(f"the partitioned step runs the dense family "
+                             f"and the moe family without shared experts, "
+                             f"not {cfg.name} ({cfg.family})")
         self.cfg, self.mesh = cfg, mesh
         self.coords = mesh_coords(mesh)
         self.n_model = mesh_axes(mesh).get(MODEL, 1)
@@ -95,12 +110,25 @@ class Partition:
         self.heads = self._slice(cfg.n_heads, blocks + ("wq",), 2)
         self.kv = self._slice(cfg.n_kv_heads, blocks + ("wk",), 2)
         up = ("blocks", "mlp", "w_up")
-        self.ff = self._slice(cfg.d_ff, up, 2)
+        # the MLP's columns (dense) or routed experts (moe: w_up is (E, d,
+        # ff), its experts on "model" and its ff whole)
+        if cfg.family == "moe":
+            self.ff = slice(0, cfg.d_ff)
+            self.experts = self._slice(cfg.n_experts, up, 1)
+        else:
+            self.ff = self._slice(cfg.d_ff, up, 2)
+            self.experts = None
         self.vocab = self._slice(cfg.vocab_size, ("embed",), 0)
         # whether "model" cuts each of them
         self.heads_cut = self.heads.stop - self.heads.start < cfg.n_heads
         self.kv_cut = self.kv.stop - self.kv.start < cfg.n_kv_heads
         self.ff_cut = self.ff.stop - self.ff.start < cfg.d_ff
+        self.experts_cut = (self.experts is not None and self.experts.stop
+                            - self.experts.start < cfg.n_experts)
+        if self.experts_cut and self._slice(cfg.n_experts, (
+                "blocks", "mlp", "router"), 2) != self.experts:
+            raise ValueError("the router's expert columns and the experts' "
+                             "weights are cut apart")
         self.vocab_cut = self.vocab.stop - self.vocab.start < cfg.vocab_size
         self._vocab_part = MODEL if self.vocab_cut else None
         # the kv heads this rank's query heads read: its own where "model"
@@ -157,6 +185,20 @@ class Partition:
         """``t`` summed over the sequence's ranks (gradient as it is)."""
         return coll.reduce_from(t, MODEL if self.n_model > 1 else None,
                                 self.mesh)
+
+    # -- the experts over "model" ------------------------------------------
+    def expert_logits(self, t):
+        """Router logits (..., E / |model|) of this rank's experts gathered
+        over "model" on their last dim, in expert order (their gradient
+        reduce-scattered back)."""
+        return coll.gather_from(t, t.dim() - 1, MODEL, self.mesh)
+
+    def moe_args(self) -> dict:
+        """``models.moe.moe_ffn``'s keywords for this rank's experts (none
+        where "model" leaves them whole)."""
+        if not self.experts_cut:
+            return {}
+        return dict(experts=self.experts, whole_logits=self.expert_logits)
 
     # -- the vocabulary over "model" ---------------------------------------
     def vocab_sum(self, t):

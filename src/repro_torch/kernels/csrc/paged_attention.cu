@@ -361,6 +361,305 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- any (G, D)
+//
+// The kernel above takes G 1 / 2 / 4 / 8 at D 32 / 64 / 128: a compile-time
+// G, and a token's D / VEC lanes dividing the warp.  Every other shape runs
+// paged_attention_any_kernel, a second instance family whose head tile and
+// lane layout do not depend on (G, D):
+//
+// * Heads.  A CTA holds a compile-time tile of kHeadTile query heads and
+//   masks the tail: the host splits a group of G heads into
+//   ceil(G / kHeadTile) chunks of equal size (G 12: two of 6), and each
+//   chunk is a cluster of its own, so the grid is B * Kh * chunks * kSplit.
+//   A group of more than kHeadTile heads reads its K/V once per chunk.
+// * Lanes.  A token's D elements lie on LPU lanes of EPL elements each (one
+//   or two 16-byte vectors: two at f32 D 192), padded to a power of two
+//   LPT, so the xor-shuffle reductions run over whole lane groups; a pad
+//   lane holds zero q and zero K/V and loads nothing.  D 192 bf16: 24 of
+//   32 lanes; D 48 bf16: 6 of 8, four tokens per round.
+//
+// Everything else is the kernel above: the strided page split over the
+// cluster, the chunk's loads before their use, the online softmax with its
+// guards, the fold in warp order and the cluster combine in rank order, so
+// a sequence's output is bitwise independent of B, P and the other rows.
+
+constexpr int kHeadTile = 8;
+
+template <typename T, int D>
+struct AnyTile {  // T: the pools' type
+  static constexpr int VEC = VecT<T>::N;
+  static constexpr int NV = (D / VEC + 31) / 32;  // 16-byte vectors per lane
+  static constexpr int EPL = NV * VEC;            // elements per lane
+  static constexpr int LPU = D / EPL;             // lanes a token uses
+  static constexpr int LPT = LPU <= 1 ? 1 : LPU <= 2 ? 2 : LPU <= 4 ? 4
+                           : LPU <= 8 ? 8 : LPU <= 16 ? 16 : 32;
+  static constexpr int TPW = 32 / LPT;            // tokens per round
+  static constexpr int R_MAX = 4 / NV;            // registers: q, acc and loads
+  static constexpr int R = 16 / TPW < 1 ? 1 : (16 / TPW > R_MAX ? R_MAX : 16 / TPW);
+  static_assert(D % VEC == 0 && D % EPL == 0 && LPU <= 32, "bad D");
+};
+
+template <typename Tq, typename Tkv, int D>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
+paged_attention_any_kernel(const Tq* __restrict__ q,
+                           const Tkv* __restrict__ k_pool,
+                           const Tkv* __restrict__ v_pool,
+                           const int* __restrict__ block_tables,
+                           const int* __restrict__ seq_lens,
+                           Tq* __restrict__ out, int Kh, int G, int chunks,
+                           int per_chunk, int page_T, int P, int num_pages,
+                           float scale) {
+  using Tl = AnyTile<Tkv, D>;
+  constexpr int GT = kHeadTile;
+  constexpr int VEC = Tl::VEC, NV = Tl::NV, EPL = Tl::EPL, LPU = Tl::LPU,
+                LPT = Tl::LPT, TPW = Tl::TPW, R = Tl::R;
+
+  __shared__ float w_m[kWarps][GT], w_l[kWarps][GT];
+  __shared__ float w_acc[kWarps][GT][D];
+  __shared__ float c_m[GT], c_l[GT];  // this CTA's partial
+  __shared__ float c_acc[GT * D];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cta = blockIdx.x / kSplit;  // (b * Kh + kh) * chunks + chunk
+  const int bk = cta / chunks;          // b * Kh + kh
+  const int b = bk / Kh, kh = bk % Kh;
+  const int h0 = (cta % chunks) * per_chunk;  // the chunk's first head
+  const int gn = min(per_chunk, G - h0);      // its live heads, >= 1
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int li = lane % LPT, grp = lane / LPT;
+  const bool on = li < LPU;  // a lane that holds elements of its token
+  constexpr int kStride = kSplit * kWarps;
+  const int j0 = rank + kSplit * warp;
+  const int* bt_row = block_tables + (size_t)b * P;
+  int lane_page = j0 + lane * kStride < P ? bt_row[j0 + lane * kStride] : 0;
+  const int seq_len = seq_lens[b];
+  int n_pages = seq_len > 0 ? seq_len / page_T + (seq_len % page_T != 0) : 0;
+  if (n_pages > P) n_pages = P;
+
+  const Tq* q_row = q + ((size_t)bk * G + h0) * D + li * EPL;
+  float qv[GT][EPL];
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float t[VEC];
+      if (on && g < gn) {
+        load_q(q_row + (size_t)g * D + v * VEC, t);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) t[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[g][v * VEC + e] = t[e];
+    }
+
+  float m[GT], l[GT], acc[GT][EPL];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+  }
+
+  const size_t tok_stride = (size_t)Kh * D;
+  const size_t page_stride = (size_t)page_T * tok_stride;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int i = 0, j = j0; j < n_pages; ++i, j += kStride) {
+    if (i % 32 == 0 && i > 0)
+      lane_page = j + lane * kStride < P ? bt_row[j + lane * kStride] : 0;
+    const int page = min(max(__shfl_sync(0xffffffffu, lane_page, i % 32), 0),
+                         num_pages - 1);
+    const int valid = min(page_T, seq_len - j * page_T);
+    const size_t base = (size_t)page * page_stride + (size_t)kh * D + li * EPL;
+    for (int t0 = 0; t0 < valid; t0 += TPW * R) {
+      uint4 kr[R][NV], vr[R][NV];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const size_t off = base + (size_t)min(t0 + r * TPW + grp, valid - 1) * tok_stride;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kr[r][v] = on ? ld16(k_pool + off + v * VEC) : zero;
+          vr[r][v] = on ? ld16(v_pool + off + v * VEC) : zero;
+        }
+      }
+      float s[R][GT];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float kv[EPL];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          float t[VEC];
+          widen(kr[r][v], t);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kv[v * VEC + e] = t[e];
+        }
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) part = fmaf(qv[g][e], kv[e], part);
+          s[r][g] = part;
+        }
+      }
+#pragma unroll
+      for (int off = LPT / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int g = 0; g < GT; ++g)
+            s[r][g] += __shfl_xor_sync(0xffffffffu, s[r][g], off);
+
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          s[r][g] = t0 + r * TPW + grp < valid ? s[r][g] * scale : -INFINITY;
+          cm = fmaxf(cm, s[r][g]);
+        }
+#pragma unroll
+        for (int off = LPT; off < 32; off <<= 1)
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, off));
+        const float m_new = fmaxf(m[g], cm);
+        const float alpha = rescale(m[g], m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          s[r][g] = m_new == -INFINITY ? 0.f : expf(s[r][g] - m_new);
+          rs += s[r][g];
+        }
+#pragma unroll
+        for (int off = LPT; off < 32; off <<= 1)
+          rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l[g] = l[g] * alpha + rs;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+        m[g] = m_new;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float vv[EPL];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          float t[VEC];
+          widen(vr[r][v], t);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) vv[v * VEC + e] = t[e];
+        }
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          const float p = p_for_v<Tq, Tkv>(s[r][g]);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = LPT; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+  if (grp == 0 && on)
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) w_acc[warp][g][li * EPL + e] = acc[g][e];
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      w_m[warp][g] = m[g];
+      w_l[warp][g] = l[g];
+    }
+  __syncthreads();
+  for (int idx = tid; idx < gn * D; idx += kThreads) {
+    const int g = idx / D, d = idx % D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, w_m[w][g]);
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = rescale(w_m[w][g], M);
+      a += f * w_acc[w][g][d];
+      ls += f * w_l[w][g];
+    }
+    c_acc[idx] = a;
+    if (d == 0) {
+      c_m[g] = M;
+      c_l[g] = ls;
+    }
+  }
+
+  cluster.sync();
+  Tq* out_row = out + ((size_t)bk * G + h0) * D;
+  for (int idx = rank * kThreads + tid; idx < gn * D; idx += kSplit * kThreads) {
+    const int g = idx / D;
+    float ms[kSplit];
+    float M = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kSplit; ++r) {
+      ms[r] = cluster.map_shared_rank(&c_m[0], r)[g];
+      M = fmaxf(M, ms[r]);
+    }
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSplit; ++r) {
+      const float f = rescale(ms[r], M);
+      a += f * cluster.map_shared_rank(&c_acc[0], r)[idx];
+      ls += f * cluster.map_shared_rank(&c_l[0], r)[g];
+    }
+    store(out_row + idx, a / fmaxf(ls, 1e-30f));
+  }
+  cluster.sync();
+}
+
+template <typename Tq, typename Tkv, int D>
+cudaError_t launch_any(const void* q, const void* k_pool, const void* v_pool,
+                       const void* bt, const void* lens, void* out, int B,
+                       int Kh, int G, int page_T, int P, int num_pages,
+                       float scale, cudaStream_t stream) {
+  // equal chunks of at most kHeadTile heads, none empty
+  const int per_chunk = (G + (G + kHeadTile - 1) / kHeadTile - 1)
+                        / ((G + kHeadTile - 1) / kHeadTile);
+  const int chunks = (G + per_chunk - 1) / per_chunk;
+  const long long ctas = (long long)B * Kh * chunks * kSplit;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  paged_attention_any_kernel<Tq, Tkv, D><<<(unsigned)ctas, kThreads, 0, stream>>>(
+      static_cast<const Tq*>(q), static_cast<const Tkv*>(k_pool),
+      static_cast<const Tkv*>(v_pool), static_cast<const int*>(bt),
+      static_cast<const int*>(lens), static_cast<Tq*>(out), Kh, G, chunks,
+      per_chunk, page_T, P, num_pages, scale);
+  return cudaGetLastError();
+}
+
+template <typename Tq, typename Tkv>
+cudaError_t any_d(int G, int D, const void* q, const void* k, const void* v,
+                  const void* bt, const void* lens, void* out, int B, int Kh,
+                  int page_T, int P, int np, float scale, cudaStream_t st) {
+  switch (D) {
+#define PAGED_ANY_D(DD) \
+    case DD: return launch_any<Tq, Tkv, DD>(q, k, v, bt, lens, out, B, Kh, G, page_T, P, np, scale, st);
+    PAGED_ANY_D(16) PAGED_ANY_D(32) PAGED_ANY_D(48) PAGED_ANY_D(64)
+    PAGED_ANY_D(80) PAGED_ANY_D(96) PAGED_ANY_D(112) PAGED_ANY_D(128)
+    PAGED_ANY_D(192)
+#undef PAGED_ANY_D
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the instances of the first kernel, kept as they were
+bool first_family(int G, int D) {
+  return (D == 32 || D == 64 || D == 128) && (G == 1 || G == 2 || G == 4 || G == 8);
+}
+
 template <typename Tq, typename Tkv, int G>
 cudaError_t by_d(int D, const void* q, const void* k, const void* v,
                  const void* bt, const void* lens, void* out, int B, int Kh,
@@ -392,8 +691,12 @@ cudaError_t by_kv(int kv_dtype, int G, int D, const void* q, const void* k,
                   int B, int Kh, int page_T, int P, int np, float scale,
                   cudaStream_t st) {
   switch (kv_dtype) {
-    case 0: return by_g<Tq, float>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
-    case 1: return by_g<Tq, __nv_bfloat16>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 0: return first_family(G, D)
+        ? by_g<Tq, float>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st)
+        : any_d<Tq, float>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
+    case 1: return first_family(G, D)
+        ? by_g<Tq, __nv_bfloat16>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st)
+        : any_d<Tq, __nv_bfloat16>(G, D, q, k, v, bt, lens, out, B, Kh, page_T, P, np, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -411,7 +714,8 @@ extern "C" int paged_attention(const void* q, const void* k_pool,
                                float scale, int q_dtype, int kv_dtype,
                                void* stream) {
   if (B == 0) return 0;
-  if (num_pages < 1 || page_T < 1) return (int)cudaErrorInvalidValue;
+  if (num_pages < 1 || page_T < 1 || G < 1 || Kh < 1)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
     return (int)by_kv<float>(kv_dtype, G, D, q, k_pool, v_pool, block_tables,

@@ -267,6 +267,19 @@ def _flash_charges(q, k, causal: bool, q_offset: int) -> list:
         causal=causal, q_offset=q_offset))]
 
 
+# the head dims paged attention has an instance of, at any group G >= 1:
+# flash's (the prefill's) own
+PAGED_DIMS = FLASH_DIMS["simt"]
+
+
+def paged_dim(D: int) -> None:
+    """Raises ``ValueError`` for a head dim no paged attention instance
+    takes; any query-head group G >= 1 is taken."""
+    if D not in PAGED_DIMS:
+        raise ValueError(f"paged_attention: no instance takes head dim {D}: "
+                         f"the kernel takes {PAGED_DIMS} at any group")
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
                     mesh=None):
     """q: (B, H, D); pools: (num_pages, T, Kh, D); block_tables: (B, P);
@@ -277,8 +290,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     the card, before the plain version on the CPU.  On the card a call with
     int32 tables and lengths is one launch whose grid depends only on B and
     Kh (no host sync, nothing sized by the data), so it can be captured in a
-    CUDA graph.  With ``mesh``, q and the pools are this rank's heads:
-    :func:`paged_attention_sharded`."""
+    CUDA graph.  Any group H / Kh >= 1 and any D in :data:`PAGED_DIMS`
+    (a ``ValueError`` otherwise, on the card and on ``meta`` alike; the
+    plain version takes any shape).  With ``mesh``, q and the pools are
+    this rank's heads: :func:`paged_attention_sharded`."""
     if mesh is not None:
         return paged_attention_sharded(q, k_pool, v_pool, block_tables,
                                        seq_lens, mesh=mesh)
@@ -304,9 +319,7 @@ def _paged_call(where: str, q, k_pool, v_pool, block_tables, seq_lens):
                          f"{tuple(block_tables.shape)} seq_lens "
                          f"{tuple(seq_lens.shape)}")
     G = H // Kh
-    if D not in (32, 64, 128) or G not in (1, 2, 4, 8):
-        raise ValueError(f"paged_attention: head dim {D} / group {G} not "
-                         f"instantiated (D in 32, 64, 128; G in 1, 2, 4, 8)")
+    paged_dim(D)
     q_code = _dtype_code("paged_attention", q)
     kv_code = _dtype_code("paged_attention", k_pool, v_pool)
     out = torch.empty_like(q)

@@ -19,10 +19,11 @@ which :func:`compute_route` names (the dry-run records it as
 ``"compute"``):
 
 * **partitioned** — the train step of the dense family (but the VLM stub,
-  whose patches it does not take): the JAX program's work per device
-  under GSPMD (``distributed.partition``).  Each rank runs its batch slice
-  on its own heads, kv heads, MLP columns and vocabulary rows (a dim the
-  rules leave whole it computes whole), with the residual stream cut over
+  whose patches it does not take) and of the MoE family: the JAX
+  program's work per device under GSPMD (``distributed.partition``).  Each
+  rank runs its batch slice on its own heads, kv heads, MLP columns (MoE:
+  routed experts) and vocabulary rows (a dim the rules leave whole it
+  computes whole), with the residual stream cut over
   "model" along the sequence between blocks, a vocab-parallel embedding and
   loss (no rank holds the (B, S, V) logits whole), and each layer's FSDP
   weights gathered over "data" for its forward and again for its
@@ -31,7 +32,7 @@ which :func:`compute_route` names (the dry-run records it as
   is then summed over the axes its spec does not cut, and the global norm
   is the shards' sums of squares, a leaf held whole by several ranks
   counted once.
-* **replicated** — the train step of the other families (MoE, MLA, SSM,
+* **replicated** — the train step of the other families (MLA-MoE, SSM,
   hybrid, encoder-decoder) and of the VLM stub, and every prefill and
   decode step: data-parallel.  Each step all-gathers every leaf over the
   mesh axes it is cut on (``distributed.collectives.gather``), runs the
@@ -41,6 +42,11 @@ which :func:`compute_route` names (the dry-run records it as
   to their mean over the batch's ranks.  This is not the JAX program: its
   compute is replicated over "model", and a rank's peak holds the whole
   parameters and gradient.
+
+On both routes a rank's MoE layers dispatch in the JAX program's groups:
+the global batch's, of which a rank's rows hold a contiguous share
+(:func:`rank_model`), so a train or prefill step of a batch cut over the
+mesh computes what one device computes on the whole batch.
 
 A (1, 1) mesh runs the one-device step, bit for bit.
 """
@@ -58,6 +64,7 @@ from ..distributed.sharding import (DEFAULT_RULES, mesh_axes, tree_specs,
 from ..kernels import ops
 from ..models import Model, input_specs
 from ..models import transformer as tfm
+from ..models.moe import rank_groups
 from ..optim import AdamW
 from ..optim.adamw import global_norm
 from ..tree import leaves, tree_map
@@ -112,13 +119,30 @@ def _cache_layout(model: Model, global_batch: int, max_len: int,
 def compute_route(cfg: ModelConfig, kind: str, mesh) -> str:
     """How a ``kind`` step of ``cfg`` computes on ``mesh`` (module
     docstring): ``"one-device"`` without a mesh, ``"partitioned"`` for the
-    dense family's train step (not the VLM stub's), else
-    ``"replicated"``."""
+    dense family's train step (not the VLM stub's) and the MoE family's
+    (without shared experts), else ``"replicated"``."""
     if mesh is None:
         return "one-device"
-    if kind == "train" and cfg.family == "dense" and not cfg.n_patches:
+    if kind == "train" and (
+            (cfg.family == "dense" and not cfg.n_patches)
+            or (cfg.family == "moe" and not cfg.n_shared_experts)):
         return "partitioned"
     return "replicated"
+
+
+def rank_model(model: Model, tokens: int, ranks: int) -> Model:
+    """The model one of ``ranks`` batch ranks runs on its rows of a global
+    batch of ``tokens`` tokens: for the MoE families, its config's
+    ``moe_groups`` set to this rank's share of the global batch's dispatch
+    groups (``models.moe.rank_groups``; ``moe_ffn`` then cuts the rank's
+    tokens into exactly those groups, each of the global group's size and
+    capacity), else ``model`` itself.  Raises ``ValueError`` naming the
+    config where the groups do not divide over the ranks."""
+    cfg = model.cfg
+    if not cfg.n_experts or ranks == 1:
+        return model
+    return Model(cfg.with_(moe_groups=rank_groups(
+        tokens, cfg.moe_groups, ranks, cfg.name)), params={})
 
 
 def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
@@ -132,8 +156,8 @@ def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
     On ``mesh`` (module docstring) the params and moments are this rank's
     shards, ``batch`` is its slice of a global batch of ``global_batch``
     rows, and the loss is the mean over the batch's ranks: partitioned for
-    the dense family, replicated for the others.  On a (1, 1) mesh the step
-    is the one-device step, bit for bit."""
+    the dense and MoE families, replicated for the others.  On a (1, 1)
+    mesh the step is the one-device step, bit for bit."""
     route = compute_route(model.cfg, "train", mesh)
     if mesh is None or spec_shards(tuple(mesh_axes(mesh)), mesh) == 1:
         def train_step(params, opt_state, batch):
@@ -147,19 +171,22 @@ def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
         train_step.compute = route
         return train_step
     part = batch_part(global_batch, mesh)
+    n_batch = spec_shards((part,), mesh)
     if route == "partitioned":
-        return _partitioned_train_fn(model, opt, mesh, part)
+        return _partitioned_train_fn(model, opt, mesh, part, global_batch)
 
     specs = tree_specs(model.axes(), model.abstract(), mesh)
     gather_all = _gather_params(model, mesh)
 
     def sharded_step(params, opt_state, batch):
+        rows = rank_model(model, global_batch * batch["tokens"].shape[1],
+                          n_batch)
         whole = gather_all(params)
         flat = leaves(whole)
         for t in flat:
             if not t.requires_grad:   # a gathered leaf, not a shard itself
                 t.requires_grad_(True)
-        loss = model.loss(whole, batch)
+        loss = rows.loss(whole, batch)
         grads = list(torch.autograd.grad(loss, flat))
         del whole, flat
         with torch.no_grad():
@@ -187,13 +214,18 @@ def partitioned_grads(model: Model, part: Partition, params, batch):
     return loss, grads
 
 
-def _partitioned_train_fn(model: Model, opt: AdamW, mesh, batch_ranks):
-    """The dense family's partitioned train step (module docstring):
-    ``batch_ranks``, the spec entry of the ranks whose mean the loss is."""
+def _partitioned_train_fn(model: Model, opt: AdamW, mesh, batch_ranks,
+                          global_batch: int):
+    """The dense and MoE families' partitioned train step (module
+    docstring): ``batch_ranks``, the spec entry of the ranks whose mean the
+    loss is."""
     part = Partition(model, mesh)
+    n_batch = spec_shards((batch_ranks,), mesh)
 
     def partitioned_step(params, opt_state, batch):
-        loss, grads = partitioned_grads(model, part, params, batch)
+        rows = rank_model(model, global_batch * batch["tokens"].shape[1],
+                          n_batch)
+        loss, grads = partitioned_grads(rows, part, params, batch)
         with torch.no_grad():
             gnorm = part.global_norm(grads)
         params, opt_state = opt.update(params, grads, opt_state, gnorm=gnorm)
@@ -244,20 +276,25 @@ def make_prefill_fn(model: Model, max_len: int, mesh=None, *,
 
     On ``mesh`` the params are this rank's shards and ``batch`` its slice
     of ``global_batch`` rows; it prefills its rows whole (flash on each
-    rank, as on one device) and keeps its shard of the cache."""
+    rank, as on one device; a MoE layer in the global batch's dispatch
+    groups, :func:`rank_model`) and keeps its shard of the cache."""
     # every head dim a flash route takes is one of the CUDA cores' (bf16
     # from 64 up goes to the tensor cores' instance of it)
     kernel = model.cfg.hd in ops.FLASH_DIMS["simt"]
     if mesh is not None:
         gather_all = _gather_params(model, mesh)
         layout = _cache_layout(model, global_batch, max_len, mesh)
+        n_batch = spec_shards((batch_part(global_batch, mesh),), mesh)
 
     def prefill_step(params, batch):
+        rows = model
         if mesh is not None:
             params = gather_all(params)
+            rows = rank_model(model, global_batch * batch["tokens"].shape[1],
+                              n_batch)
         extras = {k: v for k, v in batch.items() if k != "tokens"}
-        logits, cache = model.prefill(params, batch["tokens"], max_len,
-                                      extras or None, kernel=kernel)
+        logits, cache = rows.prefill(params, batch["tokens"], max_len,
+                                     extras or None, kernel=kernel)
         if mesh is not None:
             cache = {k: shard_spec(v, layout[k], mesh)
                      for k, v in cache.items()}

@@ -13,6 +13,18 @@ Where the JAX package ``vmap``s the dispatch over the groups, this module
 runs every group in one set of batched tensor ops.  The expert products are
 the reference's dense products over all experts, as ``bmm`` over the expert
 axis: every call reads every expert's weights.
+
+**On a mesh** a rank holds its rows of the global batch, and the JAX
+program's groups are the global batch's, cut over the batch's ranks: a
+rank runs its contiguous share of them (:func:`rank_groups`), each of the
+global group's tokens at the global capacity, so it computes what the
+JAX program's device computes.  A rank of the partitioned train step
+(``distributed.partition``, experts over "model") calls :func:`moe_ffn`
+with ``experts=``: its ``w_*`` and ``router`` leaves hold those experts
+only, ``whole_logits`` gathers the router's logits over the expert dim (the
+softmax and top-k run over all of them, as the JAX program's do), the
+dispatch keeps this rank's experts' picks, the products run on them alone,
+and the combine is their partial sum, the caller's to sum over the ranks.
 """
 
 from __future__ import annotations
@@ -52,11 +64,28 @@ def _count(idx, n: int):
         0, idx, torch.ones_like(idx))
 
 
-def _dispatch_group(xt, top_e, top_p, E, k, capacity):
+def rank_groups(tokens: int, moe_groups: int, ranks: int,
+                name: str = "moe") -> int:
+    """The dispatch groups of one of ``ranks`` batch ranks: the global
+    batch of ``tokens`` tokens makes ``G = gcd(tokens, moe_groups)``
+    groups of contiguous tokens, and each rank's rows are ``G / ranks`` of
+    them.  Raises ``ValueError`` naming ``name`` where G does not divide
+    over the ranks (a rank would cut a group)."""
+    G = math.gcd(tokens, moe_groups)
+    if G % ranks:
+        raise ValueError(f"{name}: the {tokens} tokens' {G} dispatch groups "
+                         f"do not divide over {ranks} batch ranks")
+    return G // ranks
+
+
+def _dispatch_group(xt, top_e, top_p, E, k, capacity, *, experts=None):
     """Dispatch of every group at once.  xt: (G, T, d); top_e / top_p:
     (G, T, k).  Returns (gathered (G, E, capacity, d), combine metadata
     ``(st_tok, slot, sw, keep)``, each (G, T·k) in the order of a stable
-    sort by expert, as the JAX ``_dispatch_group`` returns them per group)."""
+    sort by expert, as the JAX ``_dispatch_group`` returns them per group).
+    With ``experts`` (a slice of the E) only those experts' rows are
+    gathered, (G, len, capacity, d), and only their kept picks are kept,
+    their slots counted from the slice's first expert."""
     G, T, d = xt.shape
     dev = xt.device
     flat_e = top_e.reshape(G, T * k)
@@ -72,6 +101,10 @@ def _dispatch_group(xt, top_e, top_p, E, k, capacity):
     starts = torch.cumsum(counts, 1) - counts
     pos = torch.arange(T * k, device=dev) - torch.gather(starts, 1, se)
     keep = pos < capacity
+    if experts is not None:
+        keep = keep & (se >= experts.start) & (se < experts.stop)
+        se = se - experts.start
+        E = experts.stop - experts.start
     slot = torch.where(keep, se * capacity + pos, E * capacity)
     # dropped picks all land on the extra last row, which is cut off
     gathered = xt.new_zeros((G, E * capacity + 1, d))
@@ -108,10 +141,11 @@ def _combine_group(y, meta, T):
     return out
 
 
-def _route(x, router, cfg, capacity_factor, moe_groups):
+def _route(x, router, cfg, capacity_factor, moe_groups, whole_logits=None):
     """The grouping and the router of :func:`moe_ffn`: x (B, S, d) as
     (G, Tg, d) groups, each token's top-k f32 probabilities renormalised and
-    its experts (G, Tg, k), and the capacity."""
+    its experts (G, Tg, k), and the capacity.  ``whole_logits`` takes the
+    logits of the experts ``router`` holds to those of all E."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -120,6 +154,8 @@ def _route(x, router, cfg, capacity_factor, moe_groups):
     xg = x.reshape(G, Tg, d)
 
     logits = xg.float() @ router                       # the router is f32
+    if whole_logits is not None:
+        logits = whole_logits(logits)
     probs = torch.softmax(logits, dim=-1)              # (G, Tg, E)
     top_p, top_e = torch.topk(probs, k, dim=-1)        # (G, Tg, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -130,14 +166,23 @@ def _route(x, router, cfg, capacity_factor, moe_groups):
     return xg, top_p, top_e, capacity
 
 
-def moe_ffn(x, p, cfg, capacity_factor=1.25, moe_groups=32):
-    """x: (B, S, d) -> (B, S, d).  Dropping MoE with per-group capacity."""
+def moe_ffn(x, p, cfg, capacity_factor=1.25, moe_groups=32, *,
+            experts=None, whole_logits=None):
+    """x: (B, S, d) -> (B, S, d).  Dropping MoE with per-group capacity.
+
+    ``experts`` (a slice of the E): ``p``'s routed leaves hold only those
+    experts (``router`` their columns, ``w_*`` their rows), and the result
+    is their picks' partial sum (module docstring); ``whole_logits`` takes
+    the router's logits of those experts to all E's."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     xg, top_p, top_e, capacity = _route(x, p["router"], cfg,
-                                           capacity_factor, moe_groups)
+                                        capacity_factor, moe_groups,
+                                        whole_logits)
     G = xg.shape[0]
-    gathered, meta = _dispatch_group(xg, top_e, top_p, E, k, capacity)
+    kw = {} if experts is None else {"experts": experts}
+    gathered, meta = _dispatch_group(xg, top_e, top_p, E, k, capacity, **kw)
+    E = gathered.shape[1]
 
     # every expert's products over its (G · capacity) rows
     xe = gathered.transpose(0, 1).reshape(E, G * capacity, d)

@@ -258,7 +258,7 @@ def forward(params, tokens, cfg, extras=None, part=None):
     ``"frames"`` (B, n_frames, d) for the encoder-decoder (required),
     ``"patches"`` (B, n_patches, VISION_DIM) for the VLM (optional; their
     rows come first).  ``part``: a ``distributed.partition.Partition``,
-    this rank's part of the dense family's partitioned train step
+    this rank's part of the dense or MoE family's partitioned train step
     (:func:`partitioned_forward`)."""
     _check_family(cfg)
     if part is not None:
@@ -290,16 +290,21 @@ def forward(params, tokens, cfg, extras=None, part=None):
 # ------------------------------------------- the partitioned train step
 
 def _tp_block(x, lp, cfg, part):
-    """A dense layer on the partitioned route: ``x`` is this rank's
+    """A dense or MoE layer on the partitioned route: ``x`` is this rank's
     positions of the residual stream, ``lp`` the layer's views of this
     rank's shards, gathered here for the layer.  The attention and the MLP
-    run over the whole sequence on this rank's heads and columns, and their
-    partial outputs go back to this rank's positions."""
+    run over the whole sequence on this rank's heads and columns (the MoE
+    FFN on its experts), and their partial outputs go back to this rank's
+    positions."""
     w = part.layer(lp)
     h = part.enter(rmsnorm(x, w["ln1"]))
     x = x + part.leave(att.gqa_train(h, w["attn"], cfg, causal=True),
                        part.heads_cut)
     h = part.enter(rmsnorm(x, w["ln2"]))
+    if cfg.family == "moe":
+        return x + part.leave(moe_mod.moe_ffn(
+            h, w["mlp"], cfg, cfg.capacity_factor, cfg.moe_groups,
+            **part.moe_args()), part.experts_cut)
     return x + part.leave(_mlp(h, w["mlp"], cfg), part.ff_cut)
 
 
@@ -329,9 +334,9 @@ def _tp_unembed(params, x, cfg, part):
 
 
 def partitioned_forward(params, tokens, cfg, part):
-    """The dense family's forward as one rank of the partitioned train step
-    (``distributed.partition``): ``params`` this rank's shards, ``tokens``
-    its rows; the logits are (B, S, V / |model|) where "model" cuts the
+    """The dense or MoE family's forward as one rank of the partitioned
+    train step (``distributed.partition``): ``params`` this rank's shards,
+    ``tokens`` its rows; the logits are (B, S, V / |model|) where "model" cuts the
     vocabulary, else (B, S / |model|, V).  Each layer's FSDP weights are
     gathered for it and kept by autograd as their shards (``part.hooks``)."""
     x = _tp_embed(params, tokens, part)

@@ -47,15 +47,16 @@ def _whole(tree, axes, template, mesh):
 
 
 def sharded_steps(rank, device, shape, params, batches, opt_kw,
-                  ckpt_root) -> dict:
-    """``len(batches)`` sharded train steps on a ``shape`` (data, model)
-    mesh from the whole ``params`` (every rank gets the same), each batch
-    the global one; then a save of params and moments from the mesh into
-    ``ckpt_root`` (None: no save).  Returns the losses, rank 0's gathered
-    params, and the bytes this rank holds beside
+                  ckpt_root, cfg=None) -> dict:
+    """``len(batches)`` sharded train steps of ``cfg`` (default: the smoke
+    ``ARCH``) on a ``shape`` (data, model) mesh from the whole ``params``
+    (every rank gets the same), each batch the global one; then a save of
+    params and moments from the mesh into ``ckpt_root`` (None: no save).
+    Returns the losses, the step's route, the shape of each leaf this rank
+    holds, rank 0's gathered params, and the bytes this rank holds beside
     ``tree_bytes_per_device``."""
     mesh = make_debug_mesh(*shape, device.type)
-    model = Model(get_config(ARCH).smoke(), params={})
+    model = Model(cfg or get_config(ARCH).smoke(), params={})
     opt = AdamW(**opt_kw)
     axes = model.axes()
     # a copy: the spawned ranks share the storage of `params`
@@ -74,7 +75,9 @@ def sharded_steps(rank, device, shape, params, batches, opt_kw,
         losses.append(float(loss))
     held = sum(t.numel() * t.element_size() for t in leaves(p))
     whole = _whole(p, axes, params, mesh)
-    out = {"losses": losses, "held_bytes": held,
+    out = {"losses": losses, "held_bytes": held, "route": step.compute,
+           "shapes": {"/".join(k): tuple(t.shape)
+                      for k, t in leaves_with_path(p)},
            "per_device_bytes": tree_bytes_per_device(axes, params, mesh)}
     if ckpt_root is not None:
         mgr = CheckpointManager(ckpt_root, **CKPT)
@@ -253,6 +256,33 @@ def partitioned_grads(rank, device, shape, cfg, params, batch) -> dict:
         mesh.mesh_dim_names, mesh.get_coordinate())),
         "grads": {"/".join(path): g.cpu() for (path, _), g in zip(
             leaves_with_path(p), grads)}}
+
+
+def steps_of_cases(rank, device, shape, cases, batches, opt_kw) -> dict:
+    """:func:`sharded_steps` for each case of ``cases`` ({name: (cfg,
+    params)}) on one spawn's ranks, in order: {name: its result}."""
+    return {name: sharded_steps(rank, device, shape, params, batches,
+                                opt_kw, None, cfg)
+            for name, (cfg, params) in cases.items()}
+
+
+def mesh_prefill(rank, device, shape, cfg, params, tokens,
+                 max_len) -> dict:
+    """``launch.steps.make_prefill_fn``'s step on a ``shape`` (data, model)
+    mesh: this rank's shards of the whole ``params``, its rows of the
+    global ``tokens``; its argmax tokens and its shard of the cache."""
+    from repro_torch.launch.steps import make_prefill_fn
+    mesh = make_debug_mesh(*shape, device.type)
+    model = Model(cfg, params={})
+    p = _shards(tree_map(lambda t: t.to(device, copy=True), params),
+                model.axes(), mesh)
+    b = shard_batch({"tokens": tokens.to(device)}, TOKENS_AXES, mesh)
+    step = make_prefill_fn(model, max_len, mesh,
+                           global_batch=tokens.shape[0])
+    with torch.no_grad():
+        toks, cache = step(p, b)
+    return {"tokens": toks.cpu(), "cache": {k: v.cpu()
+                                            for k, v in cache.items()}}
 
 
 def megatron_ops(rank, device) -> dict:

@@ -1169,6 +1169,151 @@ def test_paged_attention_mixed_pair_replays_in_a_cuda_graph(dev):
         assert not out[~live].float().any()
 
 
+# ---------------------------------------- paged attention at any (G, D)
+
+# every G at D 128 (the first instance family keeps G 1 / 2 / 4 / 8), and
+# G 1, 7 (yi-34b) and 12 (Nemotron-4-340B) at every other head dim
+ANY_SHAPES = ([(G, 128) for G in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)]
+              + [(G, D) for D in ops.PAGED_DIMS if D != 128
+                 for G in (1, 7, 12)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", ANY_SHAPES, ids=lambda x: str(x))
+def test_paged_attention_kernel_at_any_group_and_dim(dev, G, D, dtype):
+    """Against the plain version and the plain model of the split schedule
+    at the kernel bars, at the split edges (zero-length and one-token rows,
+    exactly 8 pages, a full table of 20); one launch per call."""
+    rng = np.random.default_rng(G * 1000 + D)
+    B, Kh, T, P = 6, 2, 16, 20
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, dtype, B, Kh * G, Kh, D,
+                                          T, P)
+    lens = torch.tensor([0, 1, 128, 257, 320, 7], dtype=torch.int32,
+                        device=dev)
+    n0 = ops.launches["paged_attention"]
+    got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_attention"] == n0 + 1
+    live = lens > 0
+    want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    assert not got[~live].float().any()
+    split = ref.paged_attention_split_ref(q, k_pool, v_pool, bt, lens)
+    torch.testing.assert_close(got.float(), split.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids=_pair_id)
+@pytest.mark.parametrize("G", [3, 5, 7, 12, 16])
+def test_paged_attention_d192_dtype_pairs(dev, G, pair):
+    """D 192 (Nemotron-4-340B's head dim) at every q / pool dtype pair, in
+    one launch, within the pair's bar (``paged_bar``)."""
+    q_dtype, kv_dtype = pair
+    rng = np.random.default_rng(G)
+    B, Kh, D, T, P = 4, 2, 192, 16, 12
+    _, k_pool, v_pool, bt = _paged_inputs(rng, dev, kv_dtype, B, Kh * G, Kh,
+                                          D, T, P)
+    q = _randn(rng, (B, Kh * G, D), q_dtype, dev)
+    lens = torch.tensor([P * T, 1, 0, 129], dtype=torch.int32, device=dev)
+    n0 = ops.launches["paged_attention"]
+    got = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_attention"] == n0 + 1 and got.dtype == q_dtype
+    live = lens > 0
+    want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+    bar = paged_bar(q, k_pool, v_pool, bt, lens, want)
+    check_paged_close(got[live], want[live], bar[live])
+    assert not got[~live].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", [(7, 128), (12, 192)], ids=str)
+def test_paged_attention_any_shape_is_batch_invariant(dev, G, D, dtype):
+    """A sequence's output at a new (G, D) is bitwise the same alone and in
+    a batch of 8, and from call to call."""
+    rng = np.random.default_rng(6)
+    Kh, T, P = 2, 16, 40
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, dtype, 8, Kh * G, Kh, D,
+                                          T, P)
+    lens = torch.from_numpy(rng.integers(0, P * T + 1, 8).astype(np.int32)
+                            ).to(dev)
+    row, n = 5, 331
+    lens[row] = n
+    batch = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    alone = ops.paged_attention(q[row:row + 1].clone(), k_pool, v_pool,
+                                bt[row:row + 1, :-(-n // T)].clone(),
+                                lens[row:row + 1].clone())
+    again = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[row])
+    assert torch.equal(again, batch)
+
+
+def test_paged_attention_at_g7_replays_in_a_cuda_graph(dev):
+    """yi-34b's heads per kv head (G 7, D 128, bf16): captured once, replayed
+    after the table and lengths were rewritten in place, each replay the
+    plain version's."""
+    rng = np.random.default_rng(7)
+    B, Kh, G, D, T, P = 8, 8, 7, 128, 16, 32
+    n_pages = 2 * B * P
+    q, k_pool, v_pool, bt = _paged_inputs(rng, dev, torch.bfloat16, B,
+                                          Kh * G, Kh, D, T, P, n_pages)
+    lens = torch.from_numpy(rng.integers(1, P * T + 1, B).astype(np.int32)
+                            ).to(dev)
+    ops.paged_attention(q, k_pool, v_pool, bt, lens)  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = ops.launches["paged_attention"]
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(q, k_pool, v_pool, bt, lens)
+    assert ops.launches["paged_attention"] == n0 + 1
+    for _ in range(3):
+        bt.copy_(torch.from_numpy(rng.permutation(n_pages)[:B * P]
+                                  .reshape(B, P).astype(np.int32)))
+        lens.copy_(torch.from_numpy(rng.integers(0, P * T + 1, B)
+                                    .astype(np.int32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        live = lens > 0
+        want = ref.paged_attention_ref(q, k_pool, v_pool, bt, lens)
+        torch.testing.assert_close(out[live].float(), want[live].float(),
+                                   **TOL[torch.bfloat16])
+        assert not out[~live].float().any()
+
+
+def test_paged_attention_refuses_an_untaken_head_dim_on_the_card(dev):
+    q = torch.zeros(1, 7, 200, device=dev)
+    k = torch.zeros(2, 8, 1, 200, device=dev)
+    bt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    n0 = ops.launches["paged_attention"]
+    with pytest.raises(ValueError, match="head dim 200"):
+        ops.paged_attention(q, k, k, bt, lens)
+    assert ops.launches["paged_attention"] == n0
+
+
+def test_paged_attention_sharded_at_nemotron_heads(dev):
+    """Two gloo ranks sharing the card, each on 4 of Nemotron-4-340B's 8 kv
+    heads (G 12, D 192, f32): each rank's paged output is bit for bit the
+    unsharded kernel's slice of its heads, its gather the whole output."""
+    import _torch_tp as tp
+    from repro_torch.launch.mesh import spawn_ranks
+    case = tp.wrapper_case(seed=1, H=96, Kh=8, D=192, Sq=8)
+    ranks = spawn_ranks(tp.run_cases, 2, {"w": dict(kind="wrappers",
+                                                     inputs=case)},
+                        backend="gloo", device="cuda")
+    t = {k: torch.from_numpy(v).to(dev) for k, v in case.items()}
+    whole = ops.paged_attention(t["q"], t["kp"], t["vp"], t["bt"],
+                                t["lens"]).cpu()
+    want = ref.paged_attention_ref(t["q"], t["kp"], t["vp"], t["bt"],
+                                   t["lens"]).cpu()
+    torch.testing.assert_close(whole, want, **TOL[torch.float32])
+    for rank, r in enumerate(ranks):
+        assert np.array_equal(r["w"]["paged"],
+                              tp.local_heads(whole, 1, rank, 2).numpy())
+        assert np.array_equal(r["w"]["paged_gathered"], whole.numpy())
+
+
 def test_f32_params_over_bf16_pool_on_card_match_cpu(dev):
     """``serve_run``'s stream with f32 parameters over its default bf16
     pool (the mix ``tests/test_torch_serve.py`` holds against the JAX
@@ -1383,6 +1528,30 @@ def test_gather_and_shard_round_trip_on_the_card(dev):
                          device="cuda"):
         assert r["cut"] > 0 and all(r["gathered_equal"])
         assert r["mean"] == [0.5] * 3
+
+
+def test_elastic_restore_on_the_card(dev, tmp_path):
+    """Two gloo ranks sharing the card take three steps on a (2, 1) mesh and
+    save params and moments from it; restored onto one rank and onto (2, 1)
+    again, every leaf is bitwise the saved one, and a step after the
+    second restore gives a finite loss (``chip_smoke.py``'s mesh phase
+    restores params alone, at full width)."""
+    import _torch_mesh as tm
+    from repro_torch.launch.mesh import spawn_ranks
+    params, batches = _smoke_train_case()
+    opt = dict(lr=3e-3, b2=0.95, weight_decay=0.1, clip_norm=1.0)
+    root = str(tmp_path / "ckpt")
+    saved = spawn_ranks(tm.sharded_steps, 2, (2, 1), params, batches, opt,
+                        root, backend="gloo", device="cuda")
+    want = saved[0]["params"]
+    one, = spawn_ranks(tm.restore_onto, 1, (1, 1), root, want, None, opt,
+                       backend="gloo", device="cuda")
+    assert one["bitwise"] and one["cut_leaves"] == 0
+    for r in spawn_ranks(tm.restore_onto, 2, (2, 1), root, want, batches[0],
+                         opt, backend="gloo", device="cuda"):
+        assert r["bitwise"] and r["cut_leaves"] > 0
+        assert r["held_bytes"] == r["per_device_bytes"]
+        assert np.isfinite(r["loss"])
 
 
 def test_partitioned_one_by_two_step_on_the_card(dev):
