@@ -114,30 +114,24 @@ Phases, in order; any failure raises and the process exits non-zero:
              compact (``rehearse_schedule.py async-f32 8``), async and sync:
              equal tokens, and equal to the plain decode or parting from it
              on a near-tie.
-11. recovery — crash safety.  The engine phase's 32 requests through its
-             pool with the session journal on and a snapshot every
-             ``RECOVERY_SNAPSHOT_EVERY`` dispatches (4 snapshots): bf16
-             tokens equal to the engine phase's in 32 of 32 (the journal is
-             passive), >= 1 ``mv`` record.  The journal directory is cloned
-             the moment three records chosen by rule are appended (a kill
-             at that record boundary: right after the first ``mv``, right
-             after the first ``snap``, and the first ``emit`` past half the
-             records with every slot live); from the clones of
-             ``RECOVERY_DRAINED`` (the last: a snapshot and records after
-             it, every slot live) ``recover_engine(..., device="cuda")``
-             drains the session: the
-             bf16 tokens of every request whose ``sub`` survived equal the
-             unkilled run's, ``audit()`` passes, flash and paged attention
-             launch.  Then a kill inside the async window (the async
-             phase's configuration, each side-stream move held back ~50 ms,
-             the engine dropped with a move in flight and recovered in the
-             same process): tokens equal to the async phase's.  Then the f32
+11. recovery — crash safety.  A kill inside the async window: the
+             engine phase's 32 requests through the async phase's
+             configuration with the session journal on and a snapshot every
+             ``RECOVERY_SNAPSHOT_EVERY`` dispatches, each side-stream move
+             held back ~50 ms, the engine dropped with a move in flight and
+             recovered in the same process (``recover_engine(...,
+             device="cuda")`` from the snapshot and the records after it,
+             ``audit()`` passing): bf16 tokens equal to the engine phase's
+             in 32 of 32; by the kill the journal holds an ``mv`` record
+             and its Wamp is 0.  Then the f32
              leg (the async phase's f32 requests and pool, TF32 off), killed
              at its middle record boundary: tokens equal to the unkilled
              run's, and to the plain decode or parting from it on a
-             near-tie.  Host counters (records, snapshots, the cuts' seqs,
-             records replayed, sequences resumed, requests requeued, tokens
-             replayed) equal ``scripts/rehearse_schedule.py recovery 30``'s.
+             near-tie.  Host counters (the kill's dispatch, the records
+             journaled by then and the ``mv`` records among them, the
+             snapshot recovered from, records replayed, sequences resumed,
+             requests requeued, tokens replayed) equal
+             ``scripts/rehearse_schedule.py recovery 30``'s.
              Reported per cut: ``load_session`` ms and the time to recover
              (from ``recover_engine`` until every resumed sequence has
              re-derived its journaled span).
@@ -417,7 +411,20 @@ Phases, in order; any failure raises and the process exits non-zero:
              "model"), against its one-device steps in this process: the
              losses and params within ``MESH_BARS_MOE``, the norms' copies
              bitwise equal; reported: each rank's peak beside one
-             device's, step ms.
+             device's, step ms.  (g)-(i) likewise for DeepSeek-V2-Lite at
+             4 of 27 layers (its latent rank, heads, experts and shared
+             experts' columns over "model"), Mamba2-1.3B uncut (its SSM
+             channels, heads and B / C columns) and Zamba2-7B at 7 of 81
+             layers (one group of 6 and the tail layer), each within
+             ``MESH_BARS_FAMILY`` of its own one-device steps
+             (``MESH_FAMILY_LEGS``); then each one's first loss and
+             gradient in f32 (the seed's params in f32, the first batch)
+             against one device's, each rank's every leaf within
+             ``MESH_GRAD_BARS`` of the one-device leaf's largest |value|
+             (``MESH_GRAD_LEGS``: Zamba2 at 13 layers, two uses of its
+             shared block and a tail; the bars from
+             ``scripts/rehearse_mesh.py --grads``, between sound readings
+             and faults planted in the partitioned blocks).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -462,7 +469,8 @@ from repro_torch.distributed.sharding import (shard_spec,  # noqa: E402
 from repro_torch.launch.mesh import (make_debug_mesh,  # noqa: E402
                                      make_serving_mesh, spawn_ranks)
 from repro_torch.launch.steps import (build_cell, make_train_fn,  # noqa: E402
-                                      shard_batch)
+                                      partitioned_grads, shard_batch)
+from repro_torch.distributed.partition import Partition  # noqa: E402
 from repro_torch.launch.train import TOKENS_AXES  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_path, tree_map  # noqa: E402
@@ -538,36 +546,22 @@ ASYNC_PLANS = {"direct": 19, "staged": 0}
 # 29 moves in 4 sub-plans, 4 step boundaries with a move in flight)
 ASYNC_F32_NEW = (16, 64, 32, 128)
 ASYNC_F32_SLABS = 8
-# the recovery phase: a snapshot every this many dispatches (4 snapshots in
-# the engine phase's 146), and its host-determined counters, rehearsed on
-# the CPU with ``scripts/rehearse_schedule.py recovery 30``
+# the recovery phase: the async-window kill's session takes a snapshot
+# every this many dispatches (the kill comes after the first), and the
+# phase's host-determined counters, rehearsed on the CPU with
+# ``scripts/rehearse_schedule.py recovery 30``.  The engine phase's stream
+# journaled to its end, and its three cuts, left the card to keep the
+# script inside its time limit; the CPU tests recover at every record
+# boundary (``tests/test_torch_recovery.py``)
 RECOVERY_SNAPSHOT_EVERY = 36
 RECOVERY_REHEARSED = {
-    "records": 439, "snapshots": 4,
-    "cuts": {"after_first_mv": 133, "after_first_snap": 152,
-             "mid_all_live": 220},
-    "per_cut": {
-        "after_first_mv": dict(snapshot_id=0, records_replayed=134,
-                               sequences_resumed=8, requests_requeued=16,
-                               tokens_replayed=5971),
-        "after_first_snap": dict(snapshot_id=1, records_replayed=0,
-                                 sequences_resumed=8, requests_requeued=15,
-                                 tokens_replayed=6279),
-        "mid_all_live": dict(snapshot_id=1, records_replayed=68,
-                             sequences_resumed=8, requests_requeued=10,
-                             tokens_replayed=6643)},
-    "async": dict(dispatch=49, snapshot_id=0, records_replayed=199,
-                  sequences_resumed=8, requests_requeued=11,
-                  tokens_replayed=6317),
+    "async": dict(dispatch=49, records=200, mv_records=4, snapshot_id=1,
+                  records_replayed=42, sequences_resumed=8,
+                  requests_requeued=11, tokens_replayed=6317),
     "f32_records": 55,
     "f32": dict(records=55, snapshot_id=0, records_replayed=28,
                 sequences_resumed=1, requests_requeued=1, tokens_replayed=529),
 }
-# the cuts recovered on the card: the last alone (a snapshot and 68 records
-# replayed, every slot live), cut from all three to keep the script inside
-# its time limit; the CPU tests recover at every record boundary
-# (``tests/test_torch_recovery.py``)
-RECOVERY_DRAINED = ("mid_all_live",)
 # the async-window kill: the first step boundary with a move in flight from
 # this dispatch on
 RECOVERY_ASYNC_FROM = 40
@@ -741,12 +735,21 @@ MESH_ONE_DEVICE_PEAK_GB = 47.6
 MESH_ELASTIC_LAYERS = 4
 MESH_CKPT = dict(seg_bytes=64 << 20, chunk_bytes=4 << 20)  # the train phase's
 MESH_PREFILL = DRYRUN_CELLS[1]   # (d)'s prefill cell, B 2 x 1,024
-MESH_TIMEOUT_S = 420
+MESH_TIMEOUT_S = 600
 # (f): Qwen3-30B-A3B at full width on the (1, 2) mesh, cut to 4 of its 48
 # layers.  Whole, its 30.5 B parameters with AdamW's f32 moments are ~366
 # GB: no card holds (a)'s one-device steps; at 4 layers the tree is 3.11 B
 # parameters (the 0.62 B of the vocabulary's two tables among them)
 MESH_MOE_LAYERS = 4
+# (f)-(i): the MoE, MLA-MoE, SSM and hybrid families on the (1, 2) mesh at
+# full width, each beside its own one-device steps: (leg letter, arch, the
+# layers it is cut to, None for uncut).  DeepSeek-V2-Lite at 4 of 27 layers
+# (~2.75 B parameters, its capacity factor 1.25), Mamba2-1.3B uncut,
+# Zamba2-7B at 7 of 81 (one group of 6 and one tail layer, ~1.0 B)
+MESH_FAMILY_LEGS = {"moe": ("f", MOE_ARCH, MESH_MOE_LAYERS),
+                    "mla": ("g", "deepseek-v2-lite-16b", 4),
+                    "ssm": ("h", "mamba2-1.3b", None),
+                    "hybrid": ("i", ZAMBA_ARCH, 7)}
 # (b)'s and (e)'s bars against (a), set between sound readings and a
 # planted fault's.  ``scripts/rehearse_mesh.py --fault`` (the same functions
 # at smoke width, bf16, two CPU ranks, seeds 0-2, ``MESH_STEPS`` 2): (b)
@@ -781,6 +784,53 @@ MESH_BARS_TP = {"loss_rtol": 1.5e-4, "param_share_differ": 0.12,
 # share bars ~3x above the largest sound readings.
 MESH_BARS_MOE = {"loss_rtol": 1.7e-3, "param_share_differ": 0.18,
                  "model_whole_mean_over_cap": 0.086}
+# (g)-(i), rehearsed at the phase's full width on the card
+# (``scripts/rehearse_mesh.py --card --fault``, seed 0, NVIDIA H100 80GB
+# HBM3, 700.00 W; the runs are deterministic: two calls read the same
+# digits).  There the random bf16 stacks part at the first loss (MLA / SSM /
+# hybrid: 1.06e-3 / 7.0e-4 / 5.7e-4 relative, where (e) reads ~1.5e-5):
+# sound, losses 1.06e-3 / 1.19e-3 / 6.6e-4 and 50.6% / 58.7% / 52.5% of the
+# elements apart, the leaves every "model" rank holds whole (the norms, and
+# MLA's w_kr) 0.0626 / 0.264 / 0.200 of their cap on average; with their
+# sum over "model" taken out, 0.0690 / 0.317 / 0.284 and the copies differ,
+# the losses and shares as sound.  So the copies' equality is what
+# separates that fault; each norms' bar sits at the geometric mean of the
+# sound reading and the fault's, the loss bars 3x above the sound ones,
+# the share bars at 0.75.  These bars are coarse (an element's AdamW step
+# is ~lr whatever its gradient, so the cap bounds any run): a fault in
+# the new blocks is told by the f32 first gradient (``MESH_GRAD_BARS``).  (At smoke width on the CPU, seeds 0-2: sound
+# losses 2.8e-4-6.6e-4 / 2.1e-5-6.8e-5 / 1.1e-4-6.5e-4, shares 6.8-7.4% /
+# 3.1-3.5% / 16.2-17.0%, norms 0.0103-0.0124 / 0.0066-0.0195 /
+# 0.107-0.134; the fault's norms 0.0417-0.0457 / 0.146-0.161 / 0.216-0.219.)
+MESH_BARS_FAMILY = {
+    "moe": MESH_BARS_MOE,
+    "mla": {"loss_rtol": 3.2e-3, "param_share_differ": 0.75,
+            "model_whole_mean_over_cap": 0.0657},
+    "ssm": {"loss_rtol": 3.6e-3, "param_share_differ": 0.75,
+            "model_whole_mean_over_cap": 0.289},
+    "hybrid": {"loss_rtol": 2.0e-3, "param_share_differ": 0.75,
+               "model_whole_mean_over_cap": 0.238}}
+# (g)-(i)'s f32 check: the first step's loss and gradient in f32, where
+# rounding is ~2^-16 of bf16's and AdamW's sign does not hide a fault, on
+# the (1, 2) mesh against one device, at the depth each is cut to here
+# (Zamba2 at 13 of 81 layers: two groups of 6, so two uses of the shared
+# block whose gradient autograd sums, and one tail layer)
+MESH_GRAD_LEGS = {"mla": 4, "ssm": None, "hybrid": 13}
+# Rehearsed (``scripts/rehearse_mesh.py --grads --fault``): sound, the first
+# loss 2.4e-7 / 1.7e-7 / 2.6e-7 relative and the worst leaf 2.9e-3 / 3.5e-3
+# / 1.3e-2 of its largest on the card at this depth (NVIDIA H100 80GB HBM3,
+# 700.00 W, seed 0; at smoke width on the CPU, seeds 0-2: within 1.5e-7 and
+# 8.4e-6 / 1.2e-5 / 1.2e-3); with a fault planted in the partitioned blocks
+# (the norms' sum over "model" taken out, MLA's latent norm over the rank's
+# slice alone or its k_nope / v unsummed, the SSM's B / C not gathered or
+# its gated norm over the rank's channels alone, the shared block's first
+# use dropped) the worst leaf reads 0.626-2.11 on the card (0.55-4.6 on the
+# CPU), the forward faults' first loss 6.75e-4-4.8e-3.  Each bar sits at the
+# geometric mean of the largest sound reading and the least fault one.
+MESH_GRAD_BARS = {
+    "mla": {"loss_rtol": 1.3e-5, "worst_over_leaf_max": 0.047},
+    "ssm": {"loss_rtol": 2.6e-5, "worst_over_leaf_max": 0.050},
+    "hybrid": {"loss_rtol": 2.2e-5, "worst_over_leaf_max": 0.090}}
 
 
 def encdec_flash_shapes() -> dict:
@@ -1781,29 +1831,6 @@ def phase_async(cfg, mono) -> dict:
     return run["launches"]
 
 
-def recovery_cuts(half: int):
-    """The recovery phase's kill points, by rule, as ``pick(engine, seq,
-    record)`` → the cut's name or None: right after the first ``mv``
-    record, right after the first ``snap`` record, and the first ``emit``
-    record at or after record ``half`` with every slot live."""
-    seen = set()
-
-    def pick(eng, seq, rec):
-        t = rec["t"]
-        if t == "mv" and "after_first_mv" not in seen:
-            name = "after_first_mv"
-        elif t == "snap" and "after_first_snap" not in seen:
-            name = "after_first_snap"
-        elif (t == "emit" and seq >= half and "mid_all_live" not in seen
-              and bool((eng.rid >= 0).all())):
-            name = "mid_all_live"
-        else:
-            return None
-        seen.add(name)
-        return name
-    return pick
-
-
 def capture(eng, root: Path, pick) -> dict:
     """Clone ``eng``'s journal directory into ``root / name`` the moment a
     record that ``pick`` names is appended: the disk state a kill at that
@@ -1880,10 +1907,9 @@ RECOVERY_COUNTERS = ("snapshot_id", "records_replayed", "sequences_resumed",
 
 
 def phase_recovery(cfg, mono) -> dict:
-    """Crash safety on the card: the journaled run, its kills (one of
-    three recovered), a kill inside the async window, and the f32 leg (see
-    the module's docstring).  Every check is made before any fails, and
-    the phase's line names each failure."""
+    """Crash safety on the card: a kill inside the async window and the
+    f32 leg (see the module's docstring).  Every check is made before any
+    fails, and the phase's line names each failure."""
     t0 = time.perf_counter()
     reh = RECOVERY_REHEARSED
     prompts, news = engine_requests(cfg.vocab_size)
@@ -1897,86 +1923,32 @@ def phase_recovery(cfg, mono) -> dict:
 
     try:
         model = Model(cfg, device="cuda", seed=SEED)
-        held = {}
-
-        def setup(eng):
-            held["eng"] = eng
-            held["cuts"] = capture(eng, root / "cuts",
-                                   recovery_cuts(reh["records"] // 2))
-
-        run = serve(model, reqs, setup=setup, journal_dir=root / "journal",
-                    snapshot_every=RECOVERY_SNAPSHOT_EVERY)
-        add(run["launches"])
-        eng, cuts = held.pop("eng"), held.pop("cuts")
-        kinds = cuts.pop("kinds")
-        m = run["metrics"]
-        gen = sum(len(t) for t in run["tokens"])
-        snap_files = [p for p in (root / "journal" / "snap").rglob("*")
-                      if p.is_file()]
-        journal = {
-            "records": m["journal_records"], "bytes": m["journal_bytes"],
-            "bytes_per_generated_token": m["journal_bytes"] / gen,
-            "journal_wamp": m["journal_wamp"], "snapshots": eng._snap_id,
-            "snapshot_store_bytes": sum(p.stat().st_size for p in snap_files),
-            "snapshot_store_bytes_written": eng._snap_store.stats.user_bytes,
-            "snapshot_store_wamp": eng._snap_store.stats.wamp(),
-            "record_kinds": kinds,
-            "wall_s": run["wall_s"], "tokens_per_s": gen / run["wall_s"],
-            "engine_phase_wall_s": mono["wall_s"],
-            "engine_phase_tokens_per_s": gen / mono["wall_s"]}
-        eng.journal.close()
-        del eng, held
-        gc.collect()
-        torch.cuda.empty_cache()
-        diff = [i for i, (a, b) in enumerate(zip(run["tokens"], mono["tokens"]))
-                if a != b]
-        if diff:
-            failures.append(f"journaled run: tokens differ from the engine "
-                            f"phase's in requests {diff}")
-        if (m["compactions"] < 1 or run["launches"]["segment_move"] == 0
-                or kinds.get("mv", 0) < 1):
-            failures.append("the journaled run never moved a page")
-        if m["journal_wamp"] != 0.0:
-            failures.append(f"journal Wamp {m['journal_wamp']} != 0")
-        host = {"records": m["journal_records"], "snapshots": journal["snapshots"],
-                "cuts": {n: cuts[n][0] for n in sorted(cuts)}}
-        if host != {k: reh[k] for k in host}:
-            failures.append(f"journal {host} is not the rehearsal's")
-
-        per_cut = {}
-        want = run["tokens"]
-        for name in RECOVERY_DRAINED:
-            seq, n_sub, d = cuts[name]
-            got, summ = recover_drain(model, d, **POOL, device="cuda")
-            add(summ["launches"])
-            summ.update(seq=seq, submissions=n_sub)
-            per_cut[name] = summ
-            bad = [r for r in range(n_sub) if got.get(r) != want[r]]
-            if bad:
-                failures.append(f"cut {name}: tokens differ in requests {bad}")
-            if {k: summ[k] for k in RECOVERY_COUNTERS} != reh["per_cut"][name]:
-                failures.append(f"cut {name}: {summ} is not the rehearsal's "
-                                f"{reh['per_cut'][name]}")
-            if not (summ["launches"]["flash_attention"]
-                    and summ["launches"]["paged_attention"]):
-                failures.append(f"cut {name}: a recovery kernel never launched")
-            gc.collect()
-            torch.cuda.empty_cache()
-
-        # a kill inside the async window, recovered in the same process
-        akw = dict(POOL, async_compaction=True, audit_every=1, device="cuda")
+        # a kill inside the async window, recovered in the same process from
+        # its snapshot and the records after it
+        akw = dict(POOL, async_compaction=True, audit_every=1, device="cuda",
+                   snapshot_every=RECOVERY_SNAPSHOT_EVERY)
         eng = PagedServingEngine(model, journal_dir=root / "async", **akw)
         eng.before_side_move = lambda: torch.cuda._sleep(100_000_000)
+        kinds = capture(eng, root / "cuts", lambda *a: None)["kinds"]
         for p, n in reqs:
             eng.submit(p, n)
         while eng.has_work() and not (eng.dispatches >= RECOVERY_ASYNC_FROM
                                       and eng._inflight_plans):
             eng.step()
-        kill = {"dispatch": eng.dispatches,
+        m = eng.metrics()
+        kill = {"dispatch": eng.dispatches, "records": m["journal_records"],
+                "mv_records": kinds.get("mv", 0), "record_kinds": kinds,
+                "journal_bytes": m["journal_bytes"],
+                "journal_wamp": m["journal_wamp"],
                 "inflight_plans": len(eng._inflight_plans),
                 "inflight_moves": sum(len(p) for p in eng._inflight_plans)}
         if not kill["inflight_moves"]:
             failures.append("async kill: no move in flight")
+        if not kill["mv_records"]:
+            failures.append("async kill: no mv record journaled")
+        if kill["journal_wamp"] != 0.0:
+            failures.append(f"async kill: journal Wamp "
+                            f"{kill['journal_wamp']} != 0")
         eng = None                  # the kill, with the move still running
         gc.collect()
         got, asum = recover_drain(model, root / "async", **akw)
@@ -1984,10 +1956,13 @@ def phase_recovery(cfg, mono) -> dict:
         bad = [r for r in range(len(reqs)) if got.get(r) != mono["tokens"][r]]
         if bad:
             failures.append(f"async kill: tokens differ in requests {bad}")
-        if {"dispatch": kill["dispatch"],
+        if {**{k: kill[k] for k in ("dispatch", "records", "mv_records")},
                 **{k: asum[k] for k in RECOVERY_COUNTERS}} != reh["async"]:
             failures.append(f"async kill: {kill} {asum} is not the "
                             f"rehearsal's {reh['async']}")
+        if not (asum["launches"]["flash_attention"]
+                and asum["launches"]["paged_attention"]):
+            failures.append("async kill: a recovery kernel never launched")
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2032,8 +2007,6 @@ def phase_recovery(cfg, mono) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "recovery", "model": cfg.name, "dtype": "bfloat16",
           "requests": len(reqs), "snapshot_every": RECOVERY_SNAPSHOT_EVERY,
-          "tokens_equal": not diff, "journal": journal,
-          "cuts": per_cut, "estimate_time_to_recover_s": [6, 9],
           "async_kill": {**kill, **asum},
           "f32": {"requests": len(small), "records": f32_records, **fsum,
                   "equal_to_unkilled": tokens32 == run32["tokens"],
@@ -4116,22 +4089,94 @@ def mesh_leg(cfg, device, shape: tuple, root, name: str, card: bool,
     return out
 
 
-def mesh_moe_config(smoke: bool):
-    """(f)'s config: Qwen3-30B-A3B cut to ``MESH_MOE_LAYERS`` (at
-    ``smoke``, its smoke config at its own capacity factor, 1.25, where the
-    capacity binds)."""
-    cfg = get_config(MOE_ARCH)
+def mesh_family_config(leg: str, smoke: bool):
+    """A family leg's config (``MESH_FAMILY_LEGS``), cut in depth (at
+    ``smoke``, its smoke config at its own capacity factor: for the MoE
+    families 1.25, where the capacity binds)."""
+    _, arch, layers = MESH_FAMILY_LEGS[leg]
+    cfg = get_config(arch)
     if smoke:
         return cfg.smoke().with_(capacity_factor=cfg.capacity_factor)
-    return cfg.with_(n_layers=MESH_MOE_LAYERS)
+    return cfg if layers is None else cfg.with_(n_layers=layers)
+
+
+def mesh_grad_config(leg: str, smoke: bool):
+    """The config of a leg's f32 first gradient (``MESH_GRAD_LEGS``): at
+    ``smoke`` the leg's own, else cut to the check's depth."""
+    cfg = mesh_family_config(leg, smoke)
+    layers = MESH_GRAD_LEGS[leg]
+    return cfg if smoke or layers is None else cfg.with_(n_layers=layers)
+
+
+def mesh_first_grads(rank, device, cfg, seed: int = SEED) -> dict:
+    """(g)-(i)'s f32 check on this rank of the (1, 2) mesh: the first
+    step's loss and gradient from the seed's params (the phase's bf16 draw,
+    in f32) on the phase's first batch, the partitioned route's (this
+    rank's shards, ``launch.steps.partitioned_grads``) against the
+    one-device step's, which each rank computes in turn (one whole gradient
+    on the card at a time) and keeps its own slices of.  Returns the loss's
+    relative gap and, per leaf, the largest |difference| over the
+    one-device leaf's largest |value|: the worst leaf's and the mean over
+    the leaves; and the partitioned gradient's ms."""
+    model = Model(cfg, params={})
+    mesh = make_debug_mesh(*MESH_TP, device.type)
+    whole = mesh_params(cfg, device, None, seed)
+    batch = mesh_batches(cfg, device, seed)[0]
+    specs = tree_specs(model.axes(), whole, mesh)
+    names = ["/".join(path) for path, _ in leaves_with_path(whole)]
+    for r in range(torch.distributed.get_world_size()):
+        if r == rank:
+            p = tree_map(lambda t: t.detach().float().requires_grad_(True),
+                         whole)
+            loss = model.loss(p, batch)
+            grads = torch.autograd.grad(loss, leaves(p))
+            one_loss = float(loss.detach())
+            leaf_max = [float(g.abs().max()) for g in grads]
+            want = [shard_view(g, sp, mesh).clone()
+                    for g, sp in zip(grads, specs)]
+            del p, loss, grads
+            free_card()
+        torch.distributed.barrier()
+    it = iter(specs)
+    p = tree_map(lambda t: shard_spec(t, next(it), mesh).detach().float()
+                 .requires_grad_(True), whole)
+    del whole
+    sync(device)
+    t0 = time.perf_counter()
+    loss, grads = partitioned_grads(model, Partition(model, mesh), p,
+                                    shard_batch(batch, TOKENS_AXES, mesh))
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    over = []
+    for g, w, m in zip(grads, want, leaf_max):
+        d = float((g - w).abs().max())
+        over.append(d / m if m else (0.0 if d == 0 else math.inf))
+    worst = max(range(len(over)), key=over.__getitem__)
+    loss = float(loss.detach())
+    del p, grads, want
+    free_card()
+    return {"loss": loss, "one_loss": one_loss,
+            "loss_rel_gap": abs(loss / one_loss - 1),
+            "worst_over_leaf_max": over[worst], "worst_leaf": names[worst],
+            "mean_over_leaf_max": sum(over) / len(over),
+            "leaves": len(over), "grad_ms": ms}
+
+
+def mesh_grads_rank(rank, device, smoke: bool, seed: int = SEED,
+                    legs: tuple = tuple(MESH_GRAD_LEGS)) -> dict:
+    """:func:`mesh_first_grads` of each of ``legs`` alone, on each of a
+    spawn's two ranks (``scripts/rehearse_mesh.py --grads``)."""
+    deterministic()
+    return {leg: mesh_first_grads(rank, device, mesh_grad_config(leg, smoke),
+                                  seed) for leg in legs}
 
 
 def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
                    seed: int = SEED,
-                   legs: tuple = ("pair", "tp", "moe")) -> dict:
-    """(b), (e) and (f), on each of this spawn's two ranks: the steps on
-    the (2, 1) mesh, then on the (1, 2) mesh, then the MoE config's on the
-    (1, 2) mesh (``legs`` names which run), each rank's param shards
+                   legs: tuple = ("pair", "tp", *MESH_FAMILY_LEGS)) -> dict:
+    """(b), (e) and (f)-(i), on each of this spawn's two ranks: the steps on
+    the (2, 1) mesh, then on the (1, 2) mesh, then each family leg's config
+    on the (1, 2) mesh (``legs`` names which run), each rank's param shards
     written to ``root`` for (a) to hold against; with ``card``, (b)'s and
     (e)'s first step counted as (d)'s train cell, then (d)'s prefill cell,
     then (c): the params at ``MESH_ELASTIC_LAYERS`` saved from the (2, 1)
@@ -4142,14 +4187,18 @@ def mesh_pair_rank(rank, device, smoke: bool, root, card: bool,
     cfg = get_config(MESH_ARCH)
     cfg = cfg.smoke() if smoke else cfg
     out = {}
-    for leg, shape, leg_cfg in (("pair", MESH_PAIR, cfg),
-                                ("tp", MESH_TP, cfg),
-                                ("moe", MESH_TP, mesh_moe_config(smoke))):
-        if leg in legs:
-            out[leg] = mesh_leg(leg_cfg, device, shape, root, leg,
-                                card and leg != "moe", seed)
-            free_card()
-            mesh_note(f"{leg} {shape} steps done", t0)
+    for leg in legs:
+        shape = MESH_PAIR if leg == "pair" else MESH_TP
+        leg_cfg = (cfg if leg in ("pair", "tp")
+                   else mesh_family_config(leg, smoke))
+        out[leg] = mesh_leg(leg_cfg, device, shape, root, leg,
+                            card and leg in ("pair", "tp"), seed)
+        free_card()
+        mesh_note(f"{leg} {shape} steps done", t0)
+        if leg in MESH_GRAD_LEGS:
+            out[leg]["grad32"] = mesh_first_grads(
+                rank, device, mesh_grad_config(leg, smoke), seed)
+            mesh_note(f"{leg} f32 first gradient done", t0)
     if card:
         out["prefill_cell"] = mesh_prefill_cell(cfg, device)
         mesh_note("prefill cell counted", t0)
@@ -4228,7 +4277,7 @@ def mesh_one(root) -> dict:
     """(a) in this process, one ``nccl`` rank at world size 1 (the tp
     phase's way), deterministic kernels while it runs: the one-device
     steps (and their peak above the level before), (b)'s and (e)'s shards
-    held against them, (f)'s against the MoE config's own one-device
+    held against them, (f)-(i)'s each against its config's own one-device
     steps, then the same steps on a (1, 1) mesh."""
     t0 = time.perf_counter()
     device = torch.device("cuda", torch.cuda.current_device())
@@ -4252,18 +4301,19 @@ def mesh_one(root) -> dict:
         del one
         free_card()
         mesh_note("one-device steps and gap done", t0)
-        moe_cfg = mesh_moe_config(False)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        one = mesh_train(moe_cfg, device)
-        out["moe"] = {"loss": one["loss"], "step_ms": one["step_ms"],
-                      "max_memory_allocated_gb": (
-                          torch.cuda.max_memory_allocated() - base) / 1e9,
-                      "gap": mesh_gap(one["params"], root, device, "moe",
-                                      MESH_TP, moe_cfg)}
-        del one
-        free_card()
-        mesh_note("one-device MoE steps and gap done", t0)
+        for leg in MESH_FAMILY_LEGS:
+            leg_cfg = mesh_family_config(leg, False)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            one = mesh_train(leg_cfg, device)
+            out[leg] = {"loss": one["loss"], "step_ms": one["step_ms"],
+                        "max_memory_allocated_gb": (
+                            torch.cuda.max_memory_allocated() - base) / 1e9,
+                        "gap": mesh_gap(one["params"], root, device, leg,
+                                        MESH_TP, leg_cfg)}
+            del one
+            free_card()
+            mesh_note(f"one-device {leg} steps and gap done", t0)
         m = mesh_train(cfg, device, make_debug_mesh(1, 1, device.type))
         out["mesh11"] = {"loss": m["loss"], "step_ms": m["step_ms"],
                          "digests": tree_digests(m["params"])}
@@ -4352,6 +4402,53 @@ def mesh_regrow(rank, device, root, saved: list, t0: float) -> dict:
     return out
 
 
+def mesh_family_gap(leg: str, ranks: list, one: dict, failures: list) -> dict:
+    """A family leg (f)-(i) against its config's one-device steps: the
+    losses' largest relative gap, the params' (``mesh_gap``), each within
+    ``MESH_BARS_FAMILY``, the norms' copies equal (failures appended); the
+    leg's report line."""
+    letter, arch, layers = MESH_FAMILY_LEGS[leg]
+    bars = MESH_BARS_FAMILY[leg]
+    losses = np.array(ranks[0]["loss"])
+    gap_loss = float(np.abs(losses / np.array(one["loss"]) - 1).max())
+    name = f"({letter}) {arch} (1, 2)"
+    if any(r["loss"] != ranks[0]["loss"] for r in ranks):
+        failures.append(f"{name}: the ranks read different losses")
+    if gap_loss > bars["loss_rtol"]:
+        failures.append(f"{name}: losses {losses.tolist()} against "
+                        f"{one['loss']}: {gap_loss:.3g} relative")
+    gap, whole = one["gap"], one["gap"]["model_whole"]
+    if (gap["share_differ"] > bars["param_share_differ"]
+            or gap["worst_over_cap"] > 1.0
+            or whole["mean_over_cap"] > bars["model_whole_mean_over_cap"]
+            or not whole["copies_equal"]):
+        failures.append(f"{name}: params against its one-device steps: "
+                        f"{gap}")
+    n_layers = get_config(arch).n_layers
+    row = {"model": arch,
+           "cut": ("uncut" if layers is None
+                   else f"{layers} of {n_layers} layers"),
+           "ranks": [{k: r[k] for k in MESH_KEYS + (
+               "max_memory_allocated_gb",)} for r in ranks],
+           "one_device": {k: one[k] for k in (
+               "loss", "step_ms", "max_memory_allocated_gb")},
+           "bars": bars, "loss_max_rel_gap": gap_loss, "params": gap}
+    if leg in MESH_GRAD_LEGS:
+        bars32 = MESH_GRAD_BARS[leg]
+        cut = MESH_GRAD_LEGS[leg]
+        row["f32_first_gradient"] = {
+            "cut": "uncut" if cut is None else f"{cut} of {n_layers} layers",
+            "bars": bars32, "ranks": [r["grad32"] for r in ranks]}
+        for i, r in enumerate(ranks):
+            g = r["grad32"]
+            if (g["loss_rel_gap"] > bars32["loss_rtol"]
+                    or g["worst_over_leaf_max"] > bars32[
+                        "worst_over_leaf_max"]):
+                failures.append(f"{name} rank {i}: f32 first gradient "
+                                f"against one device's: {g}")
+    return row
+
+
 def phase_mesh(smi) -> dict:
     """Training on the JAX package's data x model mesh (docstring, phase
     21): a spawn of two ranks, then (a) in this process.  Returns the
@@ -4411,26 +4508,12 @@ def phase_mesh(smi) -> dict:
                 "model_whole_mean_over_cap"]
             or not whole["copies_equal"]):
         failures.append(f"(1, 2) params against (a): {gap_tp}")
-    # (f) the MoE config's partitioned steps within their bars of its own
+    # (f)-(i) each family's partitioned steps within their bars of its own
     # one-device steps
-    f_ranks, f_one = [r["moe"] for r in pair], one["moe"]
-    f_losses = np.array(f_ranks[0]["loss"])
-    f_loss_gap = float(np.abs(f_losses / np.array(f_one["loss"]) - 1).max())
-    if any(r["loss"] != f_ranks[0]["loss"] for r in f_ranks):
-        failures.append("the MoE (1, 2) ranks read different losses")
-    if f_loss_gap > MESH_BARS_MOE["loss_rtol"]:
-        failures.append(f"MoE (1, 2) losses {f_losses.tolist()} against "
-                        f"{f_one['loss']}: {f_loss_gap:.3g} relative")
-    gap_moe = f_one["gap"]
-    whole = gap_moe["model_whole"]
-    if (gap_moe["share_differ"] > MESH_BARS_MOE["param_share_differ"]
-            or gap_moe["worst_over_cap"] > 1.0
-            or whole["mean_over_cap"] > MESH_BARS_MOE[
-                "model_whole_mean_over_cap"]
-            or not whole["copies_equal"]):
-        failures.append(f"MoE (1, 2) params against its one-device steps: "
-                        f"{gap_moe}")
-    for r in b_ranks + e_ranks + f_ranks:
+    family = {leg: mesh_family_gap(leg, [r[leg] for r in pair], one[leg],
+                                   failures) for leg in MESH_FAMILY_LEGS}
+    for r in b_ranks + e_ranks + [x for r in pair for x in (
+            r[leg] for leg in MESH_FAMILY_LEGS)]:
         if r["compute"] != "partitioned":
             failures.append(f"a leg ran the {r['compute']} route")
     # (c) elastic
@@ -4489,16 +4572,8 @@ def phase_mesh(smi) -> dict:
                "peak_one_device_train_phase_gb": MESH_ONE_DEVICE_PEAK_GB,
                "bars": MESH_BARS_TP,
                "loss_max_rel_gap": e_loss_gap, "params": gap_tp},
-           "f_gloo_mesh_1x2_moe": {
-               "model": MOE_ARCH,
-               "cut": f"{MESH_MOE_LAYERS} of {get_config(MOE_ARCH).n_layers}"
-                      f" layers",
-               "ranks": [{k: r[k] for k in MESH_KEYS + (
-                   "max_memory_allocated_gb",)} for r in f_ranks],
-               "one_device": {k: f_one[k] for k in (
-                   "loss", "step_ms", "max_memory_allocated_gb")},
-               "bars": MESH_BARS_MOE, "loss_max_rel_gap": f_loss_gap,
-               "params": gap_moe},
+           **{f"{MESH_FAMILY_LEGS[leg][0]}_gloo_mesh_1x2_{leg}": row
+              for leg, row in family.items()},
            "c_elastic": {
                "what": "params", "n_layers": MESH_ELASTIC_LAYERS,
                "cut": f"{MESH_ELASTIC_LAYERS} of "

@@ -29,14 +29,14 @@ sub-plans, hazard commits, drains, the waits for a dead destination, and
 the step boundaries crossed with a move in flight; ``async-f32`` the async
 phase's f32 leg (``chip_smoke.long_requests`` with ``ASYNC_F32_NEW`` new
 tokens) with async compaction.  ``recovery`` rehearses the recovery phase:
-the engine phase's stream journaled with a snapshot every
-``chip_smoke.RECOVERY_SNAPSHOT_EVERY`` dispatches (its record count, its
-snapshots and the seqs of the three cuts ``chip_smoke.recovery_cuts``
-picks), a recovery from each cut (records replayed, sequences resumed,
-requests requeued, tokens replayed), the kill inside the async window (its
-dispatch) and the f32 leg's middle cut: the ``RECOVERY_REHEARSED`` that
-``chip_smoke.py`` asserts.  ``tp`` is the tp phase's stream, the engine
-phase's first ``chip_smoke.TP_REQUESTS`` requests (its pool compacts at
+the kill inside the async window of the engine phase's stream, journaled
+with a snapshot every ``chip_smoke.RECOVERY_SNAPSHOT_EVERY`` dispatches
+(its dispatch, the records journaled by then and its ``mv`` records among
+them, then the recovery's snapshot, records replayed, sequences resumed,
+requests requeued, tokens replayed), and the f32 leg's middle cut:
+the ``RECOVERY_REHEARSED`` that ``chip_smoke.py`` asserts.  ``tp`` is the
+tp phase's stream, the engine phase's first ``chip_smoke.TP_REQUESTS``
+requests (its pool compacts at
 ``chip_smoke.TP_SLABS``; the sharded engine plans as the unsharded one).
 ``moe`` is the same stream through the MoE smoke model (the moe phase's
 ``MOE_REHEARSED``): the plan does not depend on the family either.
@@ -89,22 +89,14 @@ def rehearse_recovery(model, vocab: int, n_slabs: int) -> dict:
               device="cpu")
     prompts, news = chip_smoke.engine_requests(vocab)
     reqs = [(p % model.cfg.vocab_size, int(n)) for p, n in zip(prompts, news)]
-    S = chip_smoke.RECOVERY_SNAPSHOT_EVERY
     root = Path(tempfile.mkdtemp(prefix="rehearse_recovery_"))
     try:
-        # a first run counts the records, for the rule's half-way point
-        eng, _ = _journaled(model, reqs, root / "count", snapshot_every=S, **kw)
-        records = eng.journal.next_seq
-        eng, cuts = _journaled(model, reqs, root / "journal",
-                               chip_smoke.recovery_cuts(records // 2),
-                               snapshot_every=S, **kw)
-        kinds = cuts.pop("kinds")
-        out = {"records": records, "snapshots": eng._snap_id,
-               "cuts": {n: cuts[n][0] for n in sorted(cuts)},
-               "per_cut": {n: _counters(model, cuts[n][2], **kw)
-                           for n in sorted(cuts)}}
-        akw = dict(kw, async_compaction=True, audit_every=1)
+        out = {}
+        akw = dict(kw, async_compaction=True, audit_every=1,
+                   snapshot_every=chip_smoke.RECOVERY_SNAPSHOT_EVERY)
         eng = PagedServingEngine(model, journal_dir=root / "async", **akw)
+        kinds = chip_smoke.capture(eng, root / "cuts", lambda *a: None)[
+            "kinds"]
         for p, n in reqs:
             eng.submit(p, n)
         while eng.has_work() and not (
@@ -112,6 +104,8 @@ def rehearse_recovery(model, vocab: int, n_slabs: int) -> dict:
                 and eng._inflight_plans):
             eng.step()
         out["async"] = {"dispatch": eng.dispatches,
+                        "records": eng.journal.next_seq,
+                        "mv_records": kinds.get("mv", 0),
                         **_counters(model, root / "async", **akw)}
         small = [(p % model.cfg.vocab_size, n) for p, n in
                  chip_smoke.long_requests(vocab, chip_smoke.ASYNC_F32_NEW)]
@@ -124,7 +118,6 @@ def rehearse_recovery(model, vocab: int, n_slabs: int) -> dict:
         out["f32_records"] = eng.journal.next_seq
         out["f32"] = {"records": eng.journal.next_seq,
                       **_counters(model, cuts["middle"][2], **fkw)}
-        out["record_kinds"] = kinds
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)

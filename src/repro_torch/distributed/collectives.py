@@ -299,7 +299,12 @@ class FsdpHooks(torch.autograd.graph.saved_tensors_hooks):
     def _pack(self, t):
         src = self.sources.get(id(t.untyped_storage()))
         if src is None or src[0]() is not t.untyped_storage():
-            return t
+            # an alias of ``t``, not ``t``: an output its own node saves,
+            # packed as itself, holds that node in a cycle that Python's
+            # collector cannot see, so a node the backward never runs (an
+            # unused output's) and every tensor it reaches, the params
+            # among them, would never be freed
+            return t.detach()
         return src[1], tuple(t.shape), t.stride(), t.storage_offset()
 
     @staticmethod

@@ -1,14 +1,17 @@
-"""One rank's part of the dense and MoE families' train step on a mesh: the
-work the JAX program's GSPMD partition gives each device, with the
-collectives written out (``launch.steps.make_train_fn``'s partitioned
-route).
+"""One rank's part of a train step on a mesh (the dense but the VLM stub's
+with patches, MoE, MLA-MoE, SSM and hybrid families): the work the JAX
+program's GSPMD partition gives each device, with the collectives written
+out (``launch.steps.make_train_fn``'s partitioned route).
 
 A :class:`Partition` reads every local size from the leaves' resolved
 specs under ``DEFAULT_RULES`` (``tree_specs``), never from a per-arch
-table: this rank's query heads, kv heads, MLP columns and vocabulary rows
-are the slices its ``wq`` / ``wk`` / ``w_up`` / ``embed`` shards hold on
-"model", and the residual stream's sequence is cut over "model" where the
-rules cut ``seq_act``.  What the model's code does with them
+table: this rank's query heads, kv heads, MLP columns, experts, latent
+rank, SSM channels, heads and B / C columns and vocabulary rows are the
+slices its ``wq`` / ``wk`` / ``w_up`` / ``w_dkv`` / ``in_x`` / ``in_dt`` /
+``in_bc`` / ``embed`` shards hold on "model" (the hybrid's attention and
+MLP are its shared block's), and the residual stream's sequence is cut
+over "model" where the rules cut ``seq_act``.  What the model's code does
+with them
 (``models.transformer``'s partitioned block, embedding and unembedding,
 ``models.model``'s vocab-parallel loss):
 
@@ -44,7 +47,28 @@ rules cut ``seq_act``.  What the model's code does with them
   reduce-scatters its partial combine onto the sequence slices.  The JAX
   per-device program does the same: no all-to-all, the tokens whole over
   "model" and the experts cut (its expert dots are (E / |model|, rows of
-  the rank's groups, ff)).
+  the rank's groups, ff)).  Shared experts (MLA-MoE) are column-parallel
+  over their ff and row-parallel on the way out: their partial output joins
+  the routed experts' partial combine before the one reduce-scatter.
+* **MLA over "model" (the MLA-MoE family).**  The resolver gives "model" to
+  the latent rank ``r`` before the heads, so ``w_dkv`` / ``kv_norm`` and
+  ``w_uk`` / ``w_uv`` hold this rank's slice of ``r`` (the latter every
+  head), ``wq`` / ``wo`` its query heads, ``w_kr`` is whole.  The latent
+  norm's mean of squares is summed over "model"; ``k_nope`` and ``v``,
+  partial sums over ``r`` for every head, are reduce-scattered onto this
+  rank's heads (the JAX program's dots: every head from the rank's ``r``).
+* **The SSM over "model" (the SSM and hybrid families).**  ``in_z`` /
+  ``in_x`` / ``conv_x`` / ``gate_norm`` / ``out_proj`` hold this rank's
+  channels and ``in_dt`` / ``A_log`` / ``dt_bias`` / ``D`` its heads (which
+  must cut alike); ``in_bc`` / ``conv_bc`` its slice of the 2N B / C
+  columns, gathered whole after the depthwise conv (at |model| 2, B on
+  rank 0 and C on rank 1: the JAX "shard-aligned midpoint split").  The
+  scan runs this rank's heads over the whole sequence, the gated norm's
+  mean of squares is summed over "model", ``out_proj``'s output is a
+  partial sum.  The scan runs this rank's own rows.  (Where "data" cuts
+  the batch and the projections' embed dim alike, the JAX per-device
+  program scans every "data" rank's rows and keeps its own: the same
+  values at |data| times the scan's work.)
 * **FSDP over "data", one layer at a time.**  Each layer's weights are
   gathered over the axes their ``embed`` dim is cut on just before its
   forward, kept by autograd as their shards (``collectives.FsdpHooks``),
@@ -86,17 +110,19 @@ def _entry(spec: tuple, d: int):
 
 
 class Partition:
-    """This rank's part of a dense model's step on ``mesh`` (module
-    docstring).  ``model``: a ``models.Model``; ``mesh``: a
+    """This rank's part of a model's train step on ``mesh`` (module
+    docstring): the dense (but the VLM stub with patches), MoE, MLA-MoE,
+    SSM and hybrid families.  ``model``: a ``models.Model``; ``mesh``: a
     ``DeviceMesh`` with named dims or a mesh given as sizes only (rank 0's
     part, ``meta`` tensors)."""
 
     def __init__(self, model, mesh):
         cfg = model.cfg
-        if cfg.family not in ("dense", "moe") or cfg.n_shared_experts:
-            raise ValueError(f"the partitioned step runs the dense family "
-                             f"and the moe family without shared experts, "
-                             f"not {cfg.name} ({cfg.family})")
+        fam = cfg.family
+        if fam == "encdec" or cfg.n_patches:
+            raise ValueError(f"the partitioned step runs the dense (without "
+                             f"patches), moe, mla_moe, ssm and hybrid "
+                             f"families, not {cfg.name} ({fam})")
         self.cfg, self.mesh = cfg, mesh
         self.coords = mesh_coords(mesh)
         self.n_model = mesh_axes(mesh).get(MODEL, 1)
@@ -106,43 +132,84 @@ class Partition:
             tree_specs(model.axes(), abstract, mesh))}
         self.spec_list = list(self.specs.values())
         self.hooks = coll.FsdpHooks()
-        blocks = ("blocks", "attn")
-        self.heads = self._slice(cfg.n_heads, blocks + ("wq",), 2)
-        self.kv = self._slice(cfg.n_kv_heads, blocks + ("wk",), 2)
-        up = ("blocks", "mlp", "w_up")
-        # the MLP's columns (dense) or routed experts (moe: w_up is (E, d,
-        # ff), its experts on "model" and its ff whole)
-        if cfg.family == "moe":
-            self.ff = slice(0, cfg.d_ff)
-            self.experts = self._slice(cfg.n_experts, up, 1)
-        else:
-            self.ff = self._slice(cfg.d_ff, up, 2)
-            self.experts = None
-        self.vocab = self._slice(cfg.vocab_size, ("embed",), 0)
-        # whether "model" cuts each of them
-        self.heads_cut = self.heads.stop - self.heads.start < cfg.n_heads
-        self.kv_cut = self.kv.stop - self.kv.start < cfg.n_kv_heads
-        self.ff_cut = self.ff.stop - self.ff.start < cfg.d_ff
-        self.experts_cut = (self.experts is not None and self.experts.stop
-                            - self.experts.start < cfg.n_experts)
-        if self.experts_cut and self._slice(cfg.n_experts, (
-                "blocks", "mlp", "router"), 2) != self.experts:
-            raise ValueError("the router's expert columns and the experts' "
-                             "weights are cut apart")
-        self.vocab_cut = self.vocab.stop - self.vocab.start < cfg.vocab_size
+        # the attention's and the MLP's leaves: the hybrid's are its shared
+        # block's, the SSM has neither
+        attn = {"hybrid": ("shared_attn", "attn"),
+                "ssm": None}.get(fam, ("blocks", "attn"))
+        mlp = ("shared_attn" if fam == "hybrid" else "blocks", "mlp")
+        self.heads = self.kv = self.ff = self.experts = None
+        self.heads_cut = self.kv_cut = self.ff_cut = False
+        self.experts_cut = self.lora_cut = False
+        self.kv_pick = None
+        if attn is not None:
+            self.heads, self.heads_cut = self._cut(cfg.n_heads,
+                                                   attn + ("wq",), 2)
+        if fam == "mla_moe":
+            # the latent rank: w_dkv's columns, and w_uk / w_uv's rows
+            # (the resolver gives "model" to their rank before their heads)
+            self.lora, self.lora_cut = self._cut(cfg.kv_lora_rank,
+                                                 attn + ("w_dkv",), 2)
+        elif attn is not None:
+            self.kv, self.kv_cut = self._cut(cfg.n_kv_heads, attn + ("wk",), 2)
+            self.kv_pick = self._kv_pick()
+        if fam in ("moe", "mla_moe"):
+            # routed experts: w_up is (E, d, ff), its experts on "model"
+            # and its ff whole; the shared experts' ff columns on "model"
+            self.experts, self.experts_cut = self._cut(
+                cfg.n_experts, mlp + ("w_up",), 1)
+            if self.experts_cut and self._slice(cfg.n_experts, mlp + (
+                    "router",), 2) != self.experts:
+                raise ValueError("the router's expert columns and the "
+                                 "experts' weights are cut apart")
+            if cfg.n_shared_experts:
+                _, shared_cut = self._cut(cfg.d_ff * cfg.n_shared_experts,
+                                          mlp + ("shared_up",), 2)
+                if shared_cut != self.experts_cut:
+                    raise ValueError(f"{cfg.name}: the routed and the shared "
+                                     f"experts are cut apart")
+        elif fam != "ssm":
+            self.ff, self.ff_cut = self._cut(cfg.d_ff, mlp + ("w_up",), 2)
+        if fam in ("ssm", "hybrid"):
+            self._ssm_slices(cfg)
+        self.vocab, self.vocab_cut = self._cut(cfg.vocab_size, ("embed",), 0)
         self._vocab_part = MODEL if self.vocab_cut else None
-        # the kv heads this rank's query heads read: its own where "model"
-        # cuts them too, else a slice of the whole ones (or, where its
-        # query heads do not cover whole groups, one per query head)
+
+    def _cut(self, size: int, path: tuple, d: int) -> tuple[slice, bool]:
+        """This rank's slice of dim ``d`` of ``size`` of the leaf at
+        ``path``, and whether "model" cuts it."""
+        sl = self._slice(size, path, d)
+        return sl, sl.stop - sl.start < size
+
+    def _kv_pick(self):
+        """The kv heads this rank's query heads read, where "model" cuts
+        the query heads and leaves the kv heads whole: a slice of the whole
+        ones (or, where its query heads do not cover whole groups, one per
+        query head); None where each rank projects its own (or all)."""
+        cfg = self.cfg
+        if self.kv_cut or not self.heads_cut:
+            return None
         G = cfg.n_heads // cfg.n_kv_heads
         need = [h // G for h in range(self.heads.start, self.heads.stop)]
         kvs = range(need[0], need[-1] + 1)
-        if self.kv_cut or not self.heads_cut:
-            self.kv_pick = None
-        elif need == [k for k in kvs for _ in range(len(need) // len(kvs))]:
-            self.kv_pick = slice(kvs.start, kvs.stop)
-        else:
-            self.kv_pick = need
+        if need == [k for k in kvs for _ in range(len(need) // len(kvs))]:
+            return slice(kvs.start, kvs.stop)
+        return need
+
+    def _ssm_slices(self, cfg) -> None:
+        """The SSM's cuts: its channels (``in_x`` on "ff"), heads
+        (``in_dt`` on "heads"), which must cut alike, and its B / C
+        columns (``in_bc``'s 2N on "ff": at |model| 2 the B columns on rank
+        0 and the C columns on rank 1, gathered whole before the scan)."""
+        ssm = ("blocks", "ssm")
+        di, H = cfg.ssm_expand * cfg.d_model, cfg.ssm_heads
+        self.channels, self.channels_cut = self._cut(di, ssm + ("in_x",), 2)
+        self.ssm_heads, _ = self._cut(H, ssm + ("in_dt",), 2)
+        P = di // H
+        if (self.ssm_heads.start * P, self.ssm_heads.stop * P) != (
+                self.channels.start, self.channels.stop):
+            raise ValueError(f"{cfg.name}: the SSM's channels {self.channels}"
+                             f" and heads {self.ssm_heads} are cut apart")
+        _, self.bc_cut = self._cut(2 * cfg.ssm_state, ssm + ("in_bc",), 2)
 
     def _slice(self, size: int, path: tuple, d: int) -> slice:
         part = _entry(self.specs[path], d)
@@ -200,6 +267,48 @@ class Partition:
             return {}
         return dict(experts=self.experts, whole_logits=self.expert_logits)
 
+    # -- dims cut over "model" inside a block -------------------------------
+    def model_sum(self, t):
+        """``t`` summed over "model", and its gradient too: the ranks use
+        the sum apart (each on its own heads, channels or positions), so
+        each one's gradient of it is a part."""
+        return coll.copy_to(coll.reduce_from(t, MODEL, self.mesh), MODEL,
+                            self.mesh)
+
+    def model_mean(self, t):
+        """The mean over "model" of ``t`` (each rank's mean over its equal
+        slice of a dim: the mean over the whole dim), gradient summed."""
+        return self.model_sum(t) / self.n_model
+
+    def heads_sum(self, t):
+        """MLA's ``k_nope`` / ``v`` (B, S, H, ·), partial sums over the
+        latent rank "model" cuts, summed: this rank's heads where "model"
+        cuts the query heads (a reduce-scatter on the heads), else all of
+        them."""
+        if self.heads_cut:
+            return coll.scatter_to(t, 2, MODEL, self.mesh)
+        return self.model_sum(t)
+
+    def mla_args(self) -> dict:
+        """``models.attention.mla_train``'s keywords where "model" cuts the
+        latent rank (none where it does not)."""
+        if not self.lora_cut:
+            return {}
+        return dict(kv_mean=self.model_mean, heads_sum=self.heads_sum)
+
+    def ssm_args(self) -> dict:
+        """``models.ssm.mamba2_seq``'s keywords for this rank's channels
+        and heads: B / C gathered whole over "model" where it cuts their
+        columns, and the gated norm's mean of squares over the channels it
+        cuts."""
+        out = {}
+        if self.bc_cut:
+            out["whole_bc"] = lambda t: coll.gather_from(t, t.dim() - 1,
+                                                         MODEL, self.mesh)
+        if self.channels_cut:
+            out["gate_mean"] = self.model_mean
+        return out
+
     # -- the vocabulary over "model" ---------------------------------------
     def vocab_sum(self, t):
         """``t`` summed over the vocabulary's slices (gradient as it is)."""
@@ -223,13 +332,14 @@ class Partition:
         gathered for use."""
         return self.fsdp(tree[name], self.specs[(name,)])
 
-    def layer(self, lp: dict) -> dict:
+    def layer(self, lp: dict, stack: str = "blocks") -> dict:
         """One layer's weights (views of this rank's shards of the stacked
-        ``blocks`` leaves) gathered for its forward, ``wk`` / ``wv``
-        narrowed to the kv heads this rank's query heads read."""
+        leaves under ``stack``: ``blocks``, or the hybrid's
+        ``shared_attn``) gathered for its forward, ``wk`` / ``wv`` narrowed
+        to the kv heads this rank's query heads read."""
         out = {}
         for path, t in leaves_with_path(lp):
-            spec = self.specs[("blocks",) + path][1:]
+            spec = self.specs[(stack,) + path][1:]
             if self.kv_pick is not None and path[-1] in ("wk", "wv"):
                 t = t[:, self.kv_pick]
             node = out

@@ -25,11 +25,13 @@ spawned): its arguments are rank 0's shards under ``DEFAULT_RULES``, the
 per-device bytes are ``tree_bytes_per_device``'s (the JAX record's), and
 the count is rank 0's step on ``meta`` with its collectives charged by
 kind and payload.  Each record names the step's route as ``"compute"``
-(``launch.steps.compute_route``): the dense family's train cells are
-``partitioned`` (the JAX program's work per device: its heads, columns and
-vocabulary rows, the sequence-parallel residual, per-layer FSDP gathers),
-the other cells on a mesh ``replicated`` (the whole tree gathered, the
-compute repeated over "model"), and the ``one`` cells ``one-device``.  The
+(``launch.steps.compute_route``): the train cells of every family but
+the encoder-decoder and the VLM stub are ``partitioned`` (the JAX
+program's work per device: its heads, columns, experts, latent rank, SSM
+channels and vocabulary rows, the sequence-parallel residual, per-layer
+FSDP gathers), the other cells on a mesh ``replicated`` (the whole tree
+gathered, the compute repeated over "model"), and the ``one`` cells
+``one-device``.  The
 FLOPs, bytes, collectives and peak are the port's eager program's, not
 the TPU's.
 """

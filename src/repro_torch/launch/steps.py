@@ -18,35 +18,37 @@ one-device step's scale).  The work in between takes one of two routes,
 which :func:`compute_route` names (the dry-run records it as
 ``"compute"``):
 
-* **partitioned** — the train step of the dense family (but the VLM stub,
-  whose patches it does not take) and of the MoE family: the JAX
-  program's work per device under GSPMD (``distributed.partition``).  Each
-  rank runs its batch slice on its own heads, kv heads, MLP columns (MoE:
-  routed experts) and vocabulary rows (a dim the rules leave whole it
-  computes whole), with the residual stream cut over
-  "model" along the sequence between blocks, a vocab-parallel embedding and
-  loss (no rank holds the (B, S, V) logits whole), and each layer's FSDP
-  weights gathered over "data" for its forward and again for its
-  backward, its gradient reduce-scattered back to the shard; the peak
-  holds one layer's whole weights, never the tree's.  Each leaf's gradient
-  is then summed over the axes its spec does not cut, and the global norm
-  is the shards' sums of squares, a leaf held whole by several ranks
-  counted once.
-* **replicated** — the train step of the other families (MLA-MoE, SSM,
-  hybrid, encoder-decoder) and of the VLM stub, and every prefill and
-  decode step: data-parallel.  Each step all-gathers every leaf over the
-  mesh axes it is cut on (``distributed.collectives.gather``), runs the
-  one-device step on its slice of the batch at full width, and cuts what
-  it returns back to its shard; a train step all-reduces the whole
-  gradients, in their own dtype as the JAX step's (bf16 for bf16 params),
-  to their mean over the batch's ranks.  This is not the JAX program: its
-  compute is replicated over "model", and a rank's peak holds the whole
-  parameters and gradient.
+* **partitioned** — the train step of the dense (but the VLM stub, whose
+  patches it does not take), MoE, MLA-MoE, SSM and hybrid families: the
+  JAX program's work per device under GSPMD (``distributed.partition``).
+  Each rank runs its batch slice on its own heads, kv heads, MLP columns
+  (MoE: routed experts and the shared experts' columns; MLA: its slice of
+  the latent rank; SSM: its channels and heads, B and C gathered whole)
+  and vocabulary rows (a dim the rules leave whole it computes whole),
+  with the residual stream cut over "model" along the sequence between
+  blocks, a vocab-parallel embedding and loss (no rank holds the (B, S, V)
+  logits whole), and each layer's FSDP weights gathered over "data" for
+  its forward and again for its backward, its gradient reduce-scattered
+  back to the shard; the peak holds one layer's whole weights, never the
+  tree's.  Each leaf's gradient is then summed over the axes its spec
+  does not cut, and the global norm is the shards' sums of squares, a
+  leaf held whole by several ranks counted once.
+* **replicated** — the train step of the encoder-decoder family and of
+  the VLM stub, and every prefill and decode step: data-parallel.  Each
+  step all-gathers every leaf over the mesh axes it is cut on
+  (``distributed.collectives.gather``), runs the one-device step on its
+  slice of the batch at full width, and cuts what it returns back to its
+  shard; a train step all-reduces the whole gradients, in their own dtype
+  as the JAX step's (bf16 for bf16 params), to their mean over the
+  batch's ranks.  This is not the JAX program: its compute is replicated
+  over "model", and a rank's peak holds the whole parameters and
+  gradient.
 
 On both routes a rank's MoE layers dispatch in the JAX program's groups:
 the global batch's, of which a rank's rows hold a contiguous share
-(:func:`rank_model`), so a train or prefill step of a batch cut over the
-mesh computes what one device computes on the whole batch.
+(:func:`rank_model`), so a train, prefill or decode step of a batch cut
+over the mesh computes what one device computes on the whole batch (a
+decode step's tokens are its rows).
 
 A (1, 1) mesh runs the one-device step, bit for bit.
 """
@@ -119,13 +121,11 @@ def _cache_layout(model: Model, global_batch: int, max_len: int,
 def compute_route(cfg: ModelConfig, kind: str, mesh) -> str:
     """How a ``kind`` step of ``cfg`` computes on ``mesh`` (module
     docstring): ``"one-device"`` without a mesh, ``"partitioned"`` for the
-    dense family's train step (not the VLM stub's) and the MoE family's
-    (without shared experts), else ``"replicated"``."""
+    train step of every family but the encoder-decoder and the VLM stub,
+    else ``"replicated"``."""
     if mesh is None:
         return "one-device"
-    if kind == "train" and (
-            (cfg.family == "dense" and not cfg.n_patches)
-            or (cfg.family == "moe" and not cfg.n_shared_experts)):
+    if kind == "train" and cfg.family != "encdec" and not cfg.n_patches:
         return "partitioned"
     return "replicated"
 
@@ -155,9 +155,9 @@ def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
 
     On ``mesh`` (module docstring) the params and moments are this rank's
     shards, ``batch`` is its slice of a global batch of ``global_batch``
-    rows, and the loss is the mean over the batch's ranks: partitioned for
-    the dense and MoE families, replicated for the others.  On a (1, 1)
-    mesh the step is the one-device step, bit for bit."""
+    rows, and the loss is the mean over the batch's ranks: replicated for
+    the encoder-decoder and the VLM stub, partitioned for the others.  On
+    a (1, 1) mesh the step is the one-device step, bit for bit."""
     route = compute_route(model.cfg, "train", mesh)
     if mesh is None or spec_shards(tuple(mesh_axes(mesh)), mesh) == 1:
         def train_step(params, opt_state, batch):
@@ -171,22 +171,22 @@ def make_train_fn(model: Model, opt: AdamW, mesh=None, *,
         train_step.compute = route
         return train_step
     part = batch_part(global_batch, mesh)
-    n_batch = spec_shards((part,), mesh)
     if route == "partitioned":
         return _partitioned_train_fn(model, opt, mesh, part, global_batch)
+    # no config with experts is an encoder-decoder or takes patches, so no
+    # replicated train step dispatches in groups (rank_model)
+    assert not model.cfg.n_experts, model.cfg.name
 
     specs = tree_specs(model.axes(), model.abstract(), mesh)
     gather_all = _gather_params(model, mesh)
 
     def sharded_step(params, opt_state, batch):
-        rows = rank_model(model, global_batch * batch["tokens"].shape[1],
-                          n_batch)
         whole = gather_all(params)
         flat = leaves(whole)
         for t in flat:
             if not t.requires_grad:   # a gathered leaf, not a shard itself
                 t.requires_grad_(True)
-        loss = rows.loss(whole, batch)
+        loss = model.loss(whole, batch)
         grads = list(torch.autograd.grad(loss, flat))
         del whole, flat
         with torch.no_grad():
@@ -216,9 +216,8 @@ def partitioned_grads(model: Model, part: Partition, params, batch):
 
 def _partitioned_train_fn(model: Model, opt: AdamW, mesh, batch_ranks,
                           global_batch: int):
-    """The dense and MoE families' partitioned train step (module
-    docstring): ``batch_ranks``, the spec entry of the ranks whose mean the
-    loss is."""
+    """The partitioned train step (module docstring): ``batch_ranks``, the
+    spec entry of the ranks whose mean the loss is."""
     part = Partition(model, mesh)
     n_batch = spec_shards((batch_ranks,), mesh)
 
@@ -244,8 +243,9 @@ def make_decode_fn(model: Model, mesh=None, *, global_batch: int | None = None,
     On ``mesh`` the params are this rank's shards, the cache (of
     ``global_batch`` x ``max_len``) its shard and ``token`` its batch
     slice: the cache is gathered over the axes it is cut on besides the
-    batch's, decoded for the rank's rows, and cut back to its shard (a new
-    tensor where a dim besides the batch is cut)."""
+    batch's, decoded for the rank's rows (a MoE layer in the global
+    batch's dispatch groups, :func:`rank_model`), and cut back to its shard
+    (a new tensor where a dim besides the batch is cut)."""
     if mesh is None:
         def serve_step(params, cache, token):
             logits, cache = model.decode_step(params, cache, token)
@@ -255,10 +255,13 @@ def make_decode_fn(model: Model, mesh=None, *, global_batch: int | None = None,
 
     gather_all = _gather_params(model, mesh)
     layout = _cache_layout(model, global_batch, max_len, mesh)
+    # one token per row: the global batch's tokens are its rows
+    rows = rank_model(model, global_batch, spec_shards(
+        (batch_part(global_batch, mesh),), mesh))
 
     def sharded_step(params, cache, token):
         cache = {k: gather(v, layout[k], mesh) for k, v in cache.items()}
-        logits, cache = model.decode_step(gather_all(params), cache, token)
+        logits, cache = rows.decode_step(gather_all(params), cache, token)
         cache = {k: shard_spec(v, layout[k], mesh) for k, v in cache.items()}
         return torch.argmax(logits, -1).to(torch.int32), cache
 

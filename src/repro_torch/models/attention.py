@@ -326,11 +326,12 @@ def mla_specs(cfg, layers):
     }
 
 
-def _mla_qc(x, p, cfg, positions):
+def _mla_qc(x, p, cfg, positions, kv_mean=None):
     nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
     q_nope, q_rope = q[..., :nd], q[..., nd:]
-    c_kv = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"])
+    c_kv = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"],
+                   across=kv_mean)
     k_rope = torch.einsum("bsd,dr->bsr", x, p["w_kr"])[:, :, None, :]  # 1 shared head
     cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
@@ -339,15 +340,17 @@ def _mla_qc(x, p, cfg, positions):
     return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
 
 
-def _mla_full(x, p, cfg):
+def _mla_full(x, p, cfg, *, kv_mean=None, heads_sum=None):
     """The decompressed attention of a whole sequence: (out, (c_kv,
-    k_rope))."""
+    k_rope)).  ``kv_mean`` / ``heads_sum``: :func:`mla_train` on a rank."""
     B, S, _ = x.shape
     rd = cfg.qk_rope_dim
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q_nope, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(x, p, cfg, positions, kv_mean)
     k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"])
     v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"])
+    if heads_sum is not None:
+        k_nope, v = heads_sum(k_nope), heads_sum(v)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], rd)], dim=-1)
@@ -356,9 +359,18 @@ def _mla_full(x, p, cfg):
     return torch.einsum("bshe,hed->bsd", out, p["wo"]), (c_kv, k_rope)
 
 
-def mla_train(x, p, cfg):
-    """Full-sequence MLA (decompressed form; cache-free)."""
-    return _mla_full(x, p, cfg)[0]
+def mla_train(x, p, cfg, *, kv_mean=None, heads_sum=None):
+    """Full-sequence MLA (decompressed form; cache-free).
+
+    A rank of the partitioned train step passes ``p`` with its query heads
+    (``wq``, ``wo``) and its slice of the latent rank (``w_dkv``,
+    ``kv_norm``, and ``w_uk`` / ``w_uv`` on their rank, every head), ``w_kr``
+    whole; the result is its heads' partial sum of ``wo``, the caller's to
+    sum over the ranks.  ``kv_mean`` takes the latent norm's mean of
+    squares over its slice to the whole rank's; ``heads_sum`` takes
+    ``k_nope`` / ``v``, partial sums over its slice of the rank, to the
+    sums of its query heads."""
+    return _mla_full(x, p, cfg, kv_mean=kv_mean, heads_sum=heads_sum)[0]
 
 
 def mla_prefill(x, p, cfg):

@@ -114,9 +114,15 @@ def logical_axes(specs):
 
 # ---------------------------------------------------------------- primitives
 
-def rmsnorm(x, w, eps=1e-6):
+def rmsnorm(x, w, eps=1e-6, *, across=None):
+    """RMS norm over the last dim, in f32.  ``across``: where that dim is
+    cut over ranks (``x`` and ``w`` this rank's equal slice of it), a
+    function taking this rank's mean of squares to the mean over every
+    rank's, the whole dim's."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if across is not None:
+        var = across(var)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 

@@ -25,6 +25,8 @@ only, ``whole_logits`` gathers the router's logits over the expert dim (the
 softmax and top-k run over all of them, as the JAX program's do), the
 dispatch keeps this rank's experts' picks, the products run on them alone,
 and the combine is their partial sum, the caller's to sum over the ranks.
+Its shared experts' leaves hold its columns of their ff, so their output
+is a partial sum too, added to the combine's.
 """
 
 from __future__ import annotations

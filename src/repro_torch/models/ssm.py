@@ -132,18 +132,30 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk):
     return y, s
 
 
-def mamba2_seq(x, p, cfg, return_state=False):
+def mamba2_seq(x, p, cfg, return_state=False, *, whole_bc=None,
+               gate_mean=None):
     """Full-sequence Mamba2 block. x: (B,L,d) -> (B,L,d); with
     ``return_state`` also the final SSM state (B,H,P,N) f32 and the last
-    CONV_K-1 pre-conv inputs of each stream, the decode's conv windows."""
+    CONV_K-1 pre-conv inputs of each stream, the decode's conv windows.
+
+    A rank of the partitioned train step passes ``p`` with its channels and
+    heads (``in_z`` / ``in_x`` / ``conv_x`` / ``gate_norm`` / ``out_proj``
+    on its channels, ``in_dt`` / ``A_log`` / ``dt_bias`` / ``D`` on its
+    heads): the scan runs its heads, and the result is its channels'
+    partial sum of ``out_proj``, the caller's to sum over the ranks.
+    ``whole_bc`` takes the conv'd B / C columns its ``in_bc`` holds to all
+    2N (the scan reads them whole); ``gate_mean`` takes the gated norm's
+    mean of squares over its channels to the whole width's."""
     B, L, d = x.shape
-    di = cfg.ssm_expand * d
-    H, N = cfg.ssm_heads, cfg.ssm_state
+    di, H = p["in_x"].shape[-1], p["A_log"].shape[-1]
+    N = cfg.ssm_state
     Pd = di // H
 
     z, xi_pre, bc_pre, dt = _project(x, p)
     xi = _causal_conv(xi_pre, p["conv_x"])
     bc = _causal_conv(bc_pre, p["conv_bc"])
+    if whole_bc is not None:
+        bc = whole_bc(bc)
     Bm, Cm = bc[..., :N], bc[..., N:]
 
     dt = softplus(dt.float() + p["dt_bias"])
@@ -161,7 +173,8 @@ def mamba2_seq(x, p, cfg, return_state=False):
     y, state = ssd_scan(xh, dt, A, Bm.float(), Cm.float(), cfg.ssm_chunk)
     y = (y + xh.float() * p["D"][None, None, :, None])[:, :L]
     y = y.reshape(B, L, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"])
+    y = rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"],
+                across=gate_mean)
     out = y @ p["out_proj"]
     if return_state:
         conv_buf = (xi_pre[:, -(CONV_K - 1):], bc_pre[:, -(CONV_K - 1):])

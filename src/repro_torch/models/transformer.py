@@ -258,8 +258,9 @@ def forward(params, tokens, cfg, extras=None, part=None):
     ``"frames"`` (B, n_frames, d) for the encoder-decoder (required),
     ``"patches"`` (B, n_patches, VISION_DIM) for the VLM (optional; their
     rows come first).  ``part``: a ``distributed.partition.Partition``,
-    this rank's part of the dense or MoE family's partitioned train step
-    (:func:`partitioned_forward`)."""
+    this rank's part of the partitioned train step
+    (:func:`partitioned_forward`; every family but the encoder-decoder and
+    the VLM with patches)."""
     _check_family(cfg)
     if part is not None:
         return partitioned_forward(params, tokens, cfg, part)
@@ -289,23 +290,37 @@ def forward(params, tokens, cfg, extras=None, part=None):
 
 # ------------------------------------------- the partitioned train step
 
-def _tp_block(x, lp, cfg, part):
-    """A dense or MoE layer on the partitioned route: ``x`` is this rank's
-    positions of the residual stream, ``lp`` the layer's views of this
-    rank's shards, gathered here for the layer.  The attention and the MLP
-    run over the whole sequence on this rank's heads and columns (the MoE
-    FFN on its experts), and their partial outputs go back to this rank's
-    positions."""
-    w = part.layer(lp)
+def _tp_block(x, lp, cfg, part, stack: str = "blocks"):
+    """A dense, MoE or MLA-MoE layer on the partitioned route (or, with
+    ``stack="shared_attn"``, the hybrid's shared block): ``x`` is this
+    rank's positions of the residual stream, ``lp`` the layer's views of
+    this rank's shards, gathered here for the layer.  The attention and the
+    MLP run over the whole sequence on this rank's heads and columns (the
+    MoE FFN on its experts and its shared experts' columns), and their
+    partial outputs go back to this rank's positions."""
+    w = part.layer(lp, stack)
     h = part.enter(rmsnorm(x, w["ln1"]))
-    x = x + part.leave(att.gqa_train(h, w["attn"], cfg, causal=True),
-                       part.heads_cut)
+    if cfg.family == "mla_moe":
+        a = att.mla_train(h, w["attn"], cfg, **part.mla_args())
+    else:
+        a = att.gqa_train(h, w["attn"], cfg, causal=True)
+    x = x + part.leave(a, part.heads_cut)
     h = part.enter(rmsnorm(x, w["ln2"]))
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "mla_moe"):
         return x + part.leave(moe_mod.moe_ffn(
             h, w["mlp"], cfg, cfg.capacity_factor, cfg.moe_groups,
             **part.moe_args()), part.experts_cut)
     return x + part.leave(_mlp(h, w["mlp"], cfg), part.ff_cut)
+
+
+def _tp_ssm_block(x, lp, cfg, part):
+    """An SSM layer on the partitioned route: the block's input gathered
+    along the sequence, the scan on this rank's heads over the whole
+    sequence, ``out_proj``'s partial sums back to this rank's positions."""
+    w = part.layer(lp)
+    h = part.enter(rmsnorm(x, w["ln"]))
+    y = ssm_mod.mamba2_seq(h, w["ssm"], cfg, **part.ssm_args())
+    return x + part.leave(y, part.channels_cut)
 
 
 def _tp_embed(params, tokens, part):
@@ -334,17 +349,30 @@ def _tp_unembed(params, x, cfg, part):
 
 
 def partitioned_forward(params, tokens, cfg, part):
-    """The dense or MoE family's forward as one rank of the partitioned
-    train step (``distributed.partition``): ``params`` this rank's shards,
-    ``tokens`` its rows; the logits are (B, S, V / |model|) where "model" cuts the
+    """The forward as one rank of the partitioned train step
+    (``distributed.partition``; every family but the encoder-decoder and
+    the VLM with patches): ``params`` this rank's shards, ``tokens`` its
+    rows; the logits are (B, S, V / |model|) where "model" cuts the
     vocabulary, else (B, S / |model|, V).  Each layer's FSDP weights are
-    gathered for it and kept by autograd as their shards (``part.hooks``)."""
+    gathered for it and kept by autograd as their shards (``part.hooks``);
+    the hybrid's shared block gathers its weights at each use, and autograd
+    sums their gradient over the uses."""
     x = _tp_embed(params, tokens, part)
-    block = _maybe_remat(functools.partial(_tp_block, cfg=cfg, part=part),
-                         cfg)
+    layers = unstack_layers(params["blocks"], cfg.n_layers)
     with part.hooks:
-        for lp in unstack_layers(params["blocks"], cfg.n_layers):
-            x = block(x, lp)
+        if cfg.family in ("dense", "moe", "mla_moe"):
+            block = _maybe_remat(functools.partial(_tp_block, cfg=cfg,
+                                                   part=part), cfg)
+            for lp in layers:
+                x = block(x, lp)
+        else:
+            block = _maybe_remat(functools.partial(_tp_ssm_block, cfg=cfg,
+                                                   part=part), cfg)
+            shared = functools.partial(_tp_block, cfg=cfg, part=part,
+                                       stack="shared_attn")
+            sq = _shared_attn(params, cfg)
+            for kind, i in _ssm_order(cfg):
+                x = block(x, layers[i]) if kind == "ssm" else shared(x, sq)
         return _tp_unembed(params, x, cfg, part)
 
 

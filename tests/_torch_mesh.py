@@ -9,7 +9,9 @@ imports its function by name, so they live here and not in a test module
 
 from __future__ import annotations
 
+import gc
 import os
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -240,7 +242,8 @@ def partitioned_grads(rank, device, shape, cfg, params, batch) -> dict:
     (reduced, as the step hands them to AdamW), by leaf path, and the
     route ``make_train_fn`` names."""
     from repro_torch.distributed.partition import Partition
-    from repro_torch.launch.steps import partitioned_grads as grads_of
+    from repro_torch.launch.steps import (batch_part, rank_model,
+                                          partitioned_grads as grads_of)
     mesh = make_debug_mesh(*shape, device.type)
     model = Model(cfg, params={})
     p = _shards(tree_map(lambda t: t.to(device, copy=True), params),
@@ -249,21 +252,42 @@ def partitioned_grads(rank, device, shape, cfg, params, batch) -> dict:
         t.requires_grad_(True)
     b = shard_batch({k: v.to(device) for k, v in batch.items()},
                     TOKENS_AXES, mesh)
-    loss, grads = grads_of(model, Partition(model, mesh), p, b)
-    route = make_train_fn(model, AdamW(), mesh, global_batch=batch[
-        "tokens"].shape[0]).compute
-    return {"loss": float(loss.detach()), "route": route, "coords": dict(zip(
+    B, S = batch["tokens"].shape
+    # a MoE layer in the global batch's groups, as the step's
+    rows = rank_model(model, B * S, spec_shards((batch_part(B, mesh),), mesh))
+    loss, grads = grads_of(rows, Partition(model, mesh), p, b)
+    route = make_train_fn(model, AdamW(), mesh, global_batch=B).compute
+    out = {"loss": float(loss.detach()), "route": route, "coords": dict(zip(
         mesh.mesh_dim_names, mesh.get_coordinate())),
         "grads": {"/".join(path): g.cpu() for (path, _), g in zip(
             leaves_with_path(p), grads)}}
+    # the shards this rank's graph read, once it is dropped and a second
+    # graph (on fresh copies) has run
+    held = [weakref.ref(t) for t in leaves(p)]
+    del p, loss, grads
+    p = _shards(tree_map(lambda t: t.to(device, copy=True), params),
+                model.axes(), mesh)
+    for t in leaves(p):
+        t.requires_grad_(True)
+    grads_of(rows, Partition(model, mesh), p, b)
+    gc.collect()
+    out["shards_alive"] = sum(r() is not None for r in held)
+    return out
 
 
-def steps_of_cases(rank, device, shape, cases, batches, opt_kw) -> dict:
+def steps_of_cases(rank, device, shape, cases, batches, opt_kw,
+                   grad_cases=None) -> dict:
     """:func:`sharded_steps` for each case of ``cases`` ({name: (cfg,
-    params)}) on one spawn's ranks, in order: {name: its result}."""
-    return {name: sharded_steps(rank, device, shape, params, batches,
-                                opt_kw, None, cfg)
-            for name, (cfg, params) in cases.items()}
+    params)}) on one spawn's ranks, in order: {name: its result}; then
+    :func:`partitioned_grads` on ``batches[0]`` for each case of
+    ``grad_cases`` (the same form), under ``"grads"``."""
+    out = {name: sharded_steps(rank, device, shape, params, batches,
+                               opt_kw, None, cfg)
+           for name, (cfg, params) in cases.items()}
+    out["grads"] = {name: partitioned_grads(rank, device, shape, cfg,
+                                            params, batches[0])
+                    for name, (cfg, params) in (grad_cases or {}).items()}
+    return out
 
 
 def mesh_prefill(rank, device, shape, cfg, params, tokens,
@@ -322,3 +346,46 @@ def count_train_cell(rank, device, shape, cfg, cell) -> dict:
     with OpCost(inputs=args) as oc:
         fn(*args)
     return oc.summary()
+
+
+def mesh_decode(rank, device, shape, cfg, params, cache, token,
+                max_len: int, steps: int) -> dict:
+    """``launch.steps.make_decode_fn``'s step on a ``shape`` (data, model)
+    mesh, ``steps`` times from the global ``cache`` (of ``max_len``
+    positions) and current ``token``
+    (each next token the step's argmax): this rank's shards of the whole
+    ``params`` and ``cache``, its rows of ``token``.  Returns its argmax
+    tokens and its rows' logits per step (read off ``Model.decode_step``
+    as the step calls it)."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch.steps import make_decode_fn
+    mesh = make_debug_mesh(*shape, device.type)
+    model = Model(cfg, params={})
+    p = _shards(tree_map(lambda t: t.to(device, copy=True), params),
+                model.axes(), mesh)
+    axes = model.cache_axes()
+    c = {k: shard_spec(v.to(device, copy=True), resolve_spec(
+        tuple(v.shape), axes[k], mesh, DEFAULT_RULES), mesh)
+        for k, v in cache.items()}
+    tok = shard_batch({"token": token.to(device)}, {"token": ("batch",)},
+                      mesh)["token"]
+    seen = []
+    decode = Model.decode_step
+
+    def spy(self, *args):
+        out = decode(self, *args)
+        seen.append(out[0].detach().cpu())
+        return out
+
+    Model.decode_step = spy
+    try:
+        step = make_decode_fn(model, mesh, global_batch=token.shape[0],
+                              max_len=max_len)
+        toks = []
+        with torch.no_grad():
+            for _ in range(steps):
+                tok, c = step(p, c, tok)
+                toks.append(tok.cpu())
+    finally:
+        Model.decode_step = decode
+    return {"tokens": toks, "logits": seen}

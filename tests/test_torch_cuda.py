@@ -1586,6 +1586,50 @@ def test_partitioned_one_by_two_step_on_the_card(dev):
     assert float((d > 1e-4).float().mean()) <= 1e-3
 
 
+# the MLA-MoE, SSM and hybrid smoke configs of the partitioned route's CPU
+# tests (tests/test_torch_{mla,ssm}_tp_train.py)
+PARTITIONED_FAMILIES = {"deepseek-v2-lite-16b": {"capacity_factor": 1.25},
+                        "mamba2-1.3b": {},
+                        "zamba2-7b": {"n_layers": 1, "attn_period": 1}}
+
+
+@pytest.mark.parametrize("arch", list(PARTITIONED_FAMILIES))
+def test_partitioned_family_one_by_two_step_on_the_card(dev, arch):
+    """The MLA-MoE, SSM and hybrid families on two gloo ranks sharing the
+    card on a (1, 2) mesh (the latent rank, SSM channels and heads, the
+    experts and the shared block's heads and columns cut over "model"):
+    three smoke f32 steps of B 4 x S 32 against the one-device steps on the
+    card, at ``tests/test_torch_elastic.py``'s bars."""
+    import _torch_mesh as tm
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.steps import make_train_fn
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves, tree_map
+    opt_kw = dict(lr=3e-3, b2=0.95, weight_decay=0.1, clip_norm=1.0)
+    cfg = get_config(arch).smoke().with_(**PARTITIONED_FAMILIES[arch])
+    params = _cast(Model(cfg, device="cpu", seed=1).params, "cpu",
+                   torch.float32)
+    rng = np.random.default_rng(7)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32))} for _ in range(3)]
+    p = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(True), params)
+    opt = AdamW(**opt_kw)
+    state, one = opt.init(p), []
+    step = make_train_fn(Model(cfg, params={}), opt)
+    for b in batches:
+        p, state, loss = step(p, state, {k: v.to(dev) for k, v in b.items()})
+        one.append(float(loss))
+    r0, r1 = (r["c"] for r in spawn_ranks(
+        tm.steps_of_cases, 2, (1, 2), {"c": (cfg, params)}, batches, opt_kw,
+        backend="gloo", device="cuda"))
+    assert r0["route"] == "partitioned" and r0["losses"] == r1["losses"]
+    np.testing.assert_allclose(r0["losses"], one, rtol=1e-5, atol=0)
+    d = torch.cat([(a - b.detach().cpu()).abs().ravel()
+                   for a, b in zip(leaves(r0["params"]), leaves(p))])
+    assert float(d.max()) < 2 * opt_kw["lr"] * len(batches)
+    assert float((d > 1e-4).float().mean()) <= 1e-3
+
+
 # ------------------------------------------------------ the MoE family
 
 MOE = "qwen3-moe-30b-a3b"

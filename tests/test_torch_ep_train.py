@@ -20,10 +20,11 @@ measured 1.0000 at (1, 2) and 0.967 at (2, 2), where the replicated route
 read 2.0.  That program has no all-to-all at either mesh: GSPMD keeps the
 tokens whole over "model" and cuts the experts, as the port does.
 
-**The groups on the replicated route and the mesh prefill.**  A rank's
+**The groups on a mesh of batch ranks and the mesh prefill.**  A rank's
 rows must dispatch in the global batch's groups: DeepSeek-V2-Lite's smoke
-(MLA-MoE, still replicated) at (2, 1) and capacity factor 1.25, three
-train steps and a prefill, against the one-device JAX step and prefill.
+(MLA-MoE, replicated when this was written, partitioned since) at (2, 1)
+and capacity factor 1.25, three train steps and a prefill, against the
+one-device JAX step and prefill.
 Before the repair each rank grouped its own rows alone (32 groups of 2
 tokens where the JAX program has 16 of 4 per rank): losses 4.2e-3 apart.
 """
@@ -268,8 +269,7 @@ def test_meta_and_cpu_ranks_count_alike():
 @pytest.fixture(scope="module")
 def mla():
     """DeepSeek-V2-Lite's smoke at capacity factor 1.25: the JAX and
-    one-device steps, and a (2, 1) spawn of its replicated steps and mesh
-    prefill."""
+    one-device steps, and a (2, 1) spawn of its steps and mesh prefill."""
     jcfg, cfg = _configs(MLA_ARCH, CAPACITY["cf1.25"])
     toks = _batches(cfg.vocab_size)
     out = _one_device(jcfg, cfg, toks, seed=2)
@@ -286,7 +286,11 @@ def mla():
 
 
 def test_replicated_route_uses_the_global_groups(mla):
-    assert {r["route"] for r in mla["steps"]} == {"replicated"}
+    """Named when the MLA-MoE train step was replicated; it has been
+    partitioned since (the replicated train step takes no config with
+    experts), and this holds that a batch rank's rows still dispatch in the
+    global batch's groups."""
+    assert {r["route"] for r in mla["steps"]} == {"partitioned"}
     _hold_to_one_device(mla["steps"], mla)
 
 

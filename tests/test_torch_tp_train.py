@@ -144,20 +144,20 @@ def test_partitioned_steps_match_one_device_and_jax(run, shape):
 
 
 def test_routes_are_named():
-    """The dense family's train step is partitioned on a mesh (but the VLM
-    stub's), and so is the MoE family's; every other step replicated; the
+    """The train step is partitioned on a mesh for every family but the
+    encoder-decoder and the VLM stub; every other step replicated; the
     step and the dry-run's records name the route."""
     sizes = {"data": 2, "model": 2}
     assert compute_route(get_config("qwen3-1.7b"), "train", None) == (
         "one-device")
     for arch in ("qwen3-1.7b", "granite-3-2b", "yi-34b", "nemotron-4-340b",
-                 "qwen3-moe-30b-a3b"):
+                 "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "mamba2-1.3b",
+                 "zamba2-7b"):
         assert compute_route(get_config(arch), "train", sizes) == (
             "partitioned")
         assert compute_route(get_config(arch), "decode", sizes) == (
             "replicated")
-    for arch in ("deepseek-v2-lite-16b", "mamba2-1.3b",
-                 "zamba2-7b", "whisper-medium", "internvl2-76b"):
+    for arch in ("whisper-medium", "internvl2-76b"):
         assert compute_route(get_config(arch), "train", sizes) == (
             "replicated")
         fn, _ = build_cell(get_config(arch).smoke(), dataclasses.replace(
